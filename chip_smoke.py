@@ -7,11 +7,14 @@ Phases, each of which must pass (any failure exits non-zero and prints
 no result line):
 
 1. Card and build: print the card's name and power limit
-   (nvidia-smi), build the three CUDA kernels from
-   guard_tpu_torch/csrc/guard_kernels.cu.
+   (nvidia-smi), build the six CUDA kernels from
+   guard_tpu_torch/csrc/guard_kernels.cu (K1-K3) and
+   guard_tpu_torch/csrc/guard_joins.cu (K4-K6), one nvcc per source,
+   started together.
 2. Kernels against their plain PyTorch versions on the card, on seeded
-   inputs at N in {64, 1024, 8192, 65536} with D chosen so each (D, N)
-   int32 tensor holds at least 64 MB: outputs must be equal (exact
+   inputs: K1-K3 at N in {64, 1024, 8192, 65536} with D chosen so each
+   (D, N) int32 tensor holds at least 64 MB, K4-K6 at N in {64, 1024,
+   65536} with 16 MB per (D, N) column: outputs must be equal (exact
    integer results, tolerance 0); kernel and plain times are CUDA-event
    medians of 20 runs.
 3. The slice at real size, through the user's entry point
@@ -20,19 +23,23 @@ no result line):
    (the 65,536-node bucket), with every kernel launch counter set to 0
    just before and read just after. Statuses, unsure bits and rim
    blocks must equal a CPU evaluation of the same batch. Then the
-   flagship rules over the example documents, and every slice-grammar
-   rules file of corpus/rules over the corpus's own test inputs, each
-   on the card and on the CPU, exactly equal.
+   cross-reference policy (workloads.XREF_RULES: query-RHS compares and
+   `.%var` interpolation, kernels K4-K6) the same way over 65,536 seeded
+   make_xref_template templates plus the volume template, with its own
+   counters set to 0 just before and read just after. Then the flagship
+   rules over the example documents, and all 249 rules files of
+   corpus/rules over the corpus's own test inputs, each on the card and
+   on the CPU, exactly equal.
 4. The CLI: `python -m guard_tpu_torch validate --statuses-only` in a
    subprocess over one PASS and one FAIL template: rc 19 and the
    expected stdout bytes.
 5. No JAX and no guard_tpu module was imported.
 
 The line before the last is a JSON object {"kernels": [...]} with each
-kernel's launches on the main path, its error against the plain
-version, its time, the plain version's, the bound (bytes over the
-card's memory rate) and a library call's time where one computes the
-same function. The last line is
+kernel's launches on its main path (K1-K3 the security policy's, K4-K6
+the cross-reference policy's), its error against the plain version, its
+time, the plain version's, the bound (bytes over the card's memory
+rate) and a library call's time where one computes the same function. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -53,12 +60,31 @@ N_TEMPLATES = 65536
 N_VOLUMES = 12000
 SWEEP_N = (64, 1024, 8192, 65536)
 SWEEP_BYTES = 64 << 20
+JOIN_SWEEP_N = (64, 1024, 65536)
+JOIN_SWEEP_BYTES = 16 << 20
 REPS = 20
-KERNEL_SOURCE = "guard_tpu_torch/csrc/guard_kernels.cu"
+SOURCES = {
+    "gather_rows": "guard_tpu_torch/csrc/guard_kernels.cu",
+    "segment_sum_rows": "guard_tpu_torch/csrc/guard_kernels.cu",
+    "rim_reduce": "guard_tpu_torch/csrc/guard_kernels.cu",
+    "set_count_rows": "guard_tpu_torch/csrc/guard_joins.cu",
+    "distinct_first_rows": "guard_tpu_torch/csrc/guard_joins.cu",
+    "seg_min_max_rows": "guard_tpu_torch/csrc/guard_joins.cu",
+}
 REPLACES = {
     "gather_rows": "guard_tpu/ops/kernels.py:208",  # _parent_select (+ _select_at :349)
     "segment_sum_rows": "guard_tpu/ops/kernels.py:218",  # _count_children (+ :233, :287)
     "rim_reduce": "guard_tpu/ops/kernels.py:2015",  # rim_reduce via mesh._rim_device
+    "set_count_rows": "guard_tpu/ops/kernels.py:926",  # _set_count_sorted (+ _runs :914, _in_set_sorted :967)
+    "distinct_first_rows": "guard_tpu/ops/kernels.py:978",  # _distinct_first_sorted
+    "seg_min_max_rows": "guard_tpu/ops/kernels.py:993",  # _seg_min_max_keys
+}
+JOINS = ("set_count_rows", "distinct_first_rows", "seg_min_max_rows")
+# the K4-K6 function that tells whether a shape takes the global branch
+GLOBAL_BRANCH = {
+    "set_count_rows": ("guard_set_count_scratch", lambda shape: shape[2]),
+    "distinct_first_rows": ("guard_distinct_first_scratch", lambda shape: shape[1]),
+    "seg_min_max_rows": ("guard_seg_min_max_scratch", lambda shape: shape[2]),
 }
 
 
@@ -160,6 +186,35 @@ def k3_inputs(gen, d: int, r: int, g: int, f: int, device):
     return statuses, unsure, group_ids, file_ids, last
 
 
+def join_inputs(gen, d: int, n: int, width: int, device):
+    """(org, key, mask) join rows: origins in [-1, n/8), keys from a few
+    values including INT32_MIN and INT32_MAX, so pairs repeat."""
+    import torch
+
+    org = torch.randint(-1, max(2, n // 8), (d, width), generator=gen, device=device,
+                        dtype=torch.int32)
+    keys = torch.tensor([-(2 ** 31), 2 ** 31 - 1, -7, 0, 1, 2, 3, 99],
+                        dtype=torch.int32, device=device)
+    key = keys[torch.randint(0, len(keys), (d, width), generator=gen, device=device)]
+    mask = torch.rand((d, width), generator=gen, device=device) < 0.7
+    return org, key, mask
+
+
+def k6_inputs(gen, d: int, n: int, device):
+    """(seg, mask, hi, lo) with S = (N+1)*5: a few origins per row, so
+    most segments stay empty, and extreme keys."""
+    import torch
+
+    seg = (torch.randint(0, 8, (d, n), generator=gen, device=device) * 5
+           + torch.randint(0, 5, (d, n), generator=gen, device=device)).to(torch.int32)
+    mask = torch.rand((d, n), generator=gen, device=device) < 0.6
+    hi = torch.randint(-(2 ** 31), 2 ** 31 - 1, (d, n), generator=gen, device=device,
+                       dtype=torch.int32)
+    lo = torch.randint(-(2 ** 31), 2 ** 31 - 1, (d, n), generator=gen, device=device,
+                       dtype=torch.int32)
+    return seg, mask, hi, lo, (n + 1) * 5
+
+
 def _equal(a, b) -> bool:
     if isinstance(a, tuple):
         return all(_equal(x, y) for x, y in zip(a, b))
@@ -172,8 +227,9 @@ def _max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
-def k1_bytes(d, n):
-    return 12 * d * n
+def k1_bytes(d, n, s=None):
+    # vec (D, S) read once, idx read and out written (D, N)
+    return 4 * d * (n if s is None else s) + 8 * d * n
 
 
 def k2_bytes(d, n, s):
@@ -182,6 +238,20 @@ def k2_bytes(d, n, s):
 
 def k3_bytes(d, r, g, f, with_unsure=True):
     return d * r * (2 if with_unsure else 1) + 8 * r + 4 * g + d * (3 * g + 3 * f)
+
+
+def k4_bytes(d, nq, ns):
+    # queries and set: org, key int32 and a bool mask; counts written
+    return 13 * d * nq + 9 * d * ns
+
+
+def k5_bytes(d, n):
+    return 10 * d * n
+
+
+def k6_bytes(d, n, s):
+    # seg, hi, lo int32 and a bool mask read; four int32 per segment written
+    return 13 * d * n + 16 * d * s
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +296,59 @@ def phase_kernel_sweep(device) -> dict:
             if not ok:
                 raise AssertionError(f"segment_sum_rows differs from plain at N={n} S={s}")
             del val, seg, got, ref
+        torch.cuda.empty_cache()
+    # K1 over a (D, S) source, as the query-RHS compares read it
+    for n in (64, 1024):
+        s = (n + 1) * 5
+        d = -(-SWEEP_BYTES // (4 * n))
+        vec = torch.randint(0, 1000, (d, s), generator=gen, device=device, dtype=torch.int32)
+        idx = torch.randint(-1, s + 1, (d, n), generator=gen, device=device, dtype=torch.int32)
+        ok = _equal(K.gather_rows(vec, idx), plain.gather_rows(vec, idx))
+        sweep["gather_rows"].append({
+            "N": n, "D": d, "S": s, "equal": ok,
+            "ms": cuda_ms(lambda: K.gather_rows(vec, idx)),
+            "plain_ms": cuda_ms(lambda: plain.gather_rows(vec, idx)),
+            "bytes": k1_bytes(d, n, s),
+        })
+        if not ok:
+            raise AssertionError(f"gather_rows differs from plain at N={n} S={s}")
+        del vec, idx
+    for n in JOIN_SWEEP_N:
+        d = -(-JOIN_SWEEP_BYTES // (4 * n))
+        q = join_inputs(gen, d, n, n, device)
+        for ns in (n, 2 * n):
+            st = join_inputs(gen, d, n, ns, device)
+            ok = _equal(K.set_count_rows(*q, *st), plain.set_count_rows(*q, *st))
+            sweep["set_count_rows"].append({
+                "N": n, "D": d, "Ns": ns, "equal": ok,
+                "ms": cuda_ms(lambda: K.set_count_rows(*q, *st)),
+                "plain_ms": cuda_ms(lambda: plain.set_count_rows(*q, *st)),
+                "bytes": k4_bytes(d, n, ns),
+            })
+            if not ok:
+                raise AssertionError(f"set_count_rows differs from plain at N={n} Ns={ns}")
+            del st
+        ok = _equal(K.distinct_first_rows(*q), plain.distinct_first_rows(*q))
+        sweep["distinct_first_rows"].append({
+            "N": n, "D": d, "equal": ok,
+            "ms": cuda_ms(lambda: K.distinct_first_rows(*q)),
+            "plain_ms": cuda_ms(lambda: plain.distinct_first_rows(*q)),
+            "bytes": k5_bytes(d, n),
+        })
+        if not ok:
+            raise AssertionError(f"distinct_first_rows differs from plain at N={n}")
+        del q
+        *args, s = k6_inputs(gen, d, n, device)
+        ok = _equal(K.seg_min_max_rows(*args, s), plain.seg_min_max_rows(*args, s))
+        sweep["seg_min_max_rows"].append({
+            "N": n, "D": d, "S": s, "equal": ok,
+            "ms": cuda_ms(lambda: K.seg_min_max_rows(*args, s)),
+            "plain_ms": cuda_ms(lambda: plain.seg_min_max_rows(*args, s), reps=5),
+            "bytes": k6_bytes(d, n, s),
+        })
+        if not ok:
+            raise AssertionError(f"seg_min_max_rows differs from plain at N={n}")
+        del args
         torch.cuda.empty_cache()
     # the last shape is a rules file with no device rule: every doc SKIP
     for d, r, g, f in ((1 << 20, 64, 41, 1), (1 << 18, 256, 130, 4), (1024, 0, 0, 1)):
@@ -277,8 +400,20 @@ def compare_on_cpu(evaluation) -> None:
             ))
 
 
-def phase_slice(device, tmp: Path):
-    """The main path: statuses-only validate over the real-size corpus."""
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
+                   per_rule: bool = False) -> dict:
+    """Write `docs` as a directory of templates and run the user's entry
+    point (commands.validate.Validate, statuses-only) over them on the
+    card, every kernel counter set to 0 just before and read just after.
+    Checks the result (with `per_rule`, that every rule both PASSes and
+    FAILs somewhere), then compares it with a CPU evaluation."""
     import numpy as np
     import torch
 
@@ -286,51 +421,48 @@ def phase_slice(device, tmp: Path):
     from guard_tpu_torch.commands.validate import Validate
     from guard_tpu_torch.ops.ir import FAIL, PASS, SKIP
     from guard_tpu_torch.utils.io import Reader, Writer
-    from guard_tpu_torch.workloads import RULES, make_template, volume_template
 
-    rng = np.random.default_rng(SEED)
-    docs = [make_template(rng, i) for i in range(N_TEMPLATES)]
-    docs.append(volume_template(N_VOLUMES))
-    data = tmp / "templates"
+    data = tmp / f"{name}_templates"
     data.mkdir()
     write_corpus(data, docs)
-    rules = tmp / "security.guard"
-    rules.write_text(RULES)
+    n_expect = len(docs)
+    rules = tmp / f"{name}.guard"
+    rules.write_text(rules_text)
     del docs
 
     cmd = Validate(rules=[str(rules)], data=[str(data)], statuses_only=True,
                    device=str(device))
     writer = Writer.buffered()
     K.reset_launches()
-    torch.cuda.synchronize()
+    sync(device)
     t0 = time.perf_counter()
     rc = cmd.execute(writer, Reader())
-    torch.cuda.synchronize()
+    sync(device)
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     shapes = {k: dict(v) for k, v in K.SHAPES.items()}
     err = writer.err_to_stripped()
-    check(rc in (0, 19), f"validate rc {rc}: {err}")
+    check(rc in (0, 19), f"{name}: validate rc {rc}: {err}")
     ev = cmd.last_evaluation
     n_docs = ev.n_docs
-    check(n_docs == N_TEMPLATES + 1, f"evaluated {n_docs} documents")
+    check(n_docs == n_expect, f"{name}: evaluated {n_docs} documents")
     fr = ev.files[0]
     st = fr.statuses
-    check(st.shape == (n_docs, 4) and st.dtype == np.int8, f"statuses {st.shape} {st.dtype}")
+    n_rules = len(fr.compiled.rules)
+    check(st.shape == (n_docs, n_rules) and st.dtype == np.int8, f"statuses {st.shape} {st.dtype}")
     check(set(np.unique(st).tolist()) <= {PASS, FAIL, SKIP}, "status outside PASS/FAIL/SKIP")
-    check((st == FAIL).any() and (st == PASS).any(), "degenerate statuses")
+    check((st == FAIL).any() and (st == PASS).any(), f"{name}: degenerate statuses")
+    for r in range(n_rules if per_rule else 0):
+        col = st[:, r]
+        check((col == FAIL).any() and (col == PASS).any(),
+              f"{name}: rule {fr.compiled.rules[r].name} has degenerate statuses")
+    check(not fr.unsure.any(), f"{name}: documents flagged unsure")
     check((fr.rim[3][:, 0] == (st == FAIL).any(axis=1)).all(), "any_fail disagrees with statuses")
     check(rc == (19 if (st == FAIL).any() else 0), f"rc {rc} disagrees with statuses")
     out = writer.stripped()
     check(out.count("Status = FAIL") == int((fr.rim[2][:, 0] == FAIL).sum()), "summary lines disagree with doc statuses")
     n_big = max(int((b.node_kind >= 0).sum(axis=1).max()) for b, _ in ev.groups)
     check(n_big > 32768, f"volume template has only {n_big} nodes")
-    global_launches = sum(
-        c for (d, n, s), c in shapes["segment_sum_rows"].items() if s * 4 > 232448
-    )
-    check(global_launches > 0, "K2's global-memory branch never ran")
-    for name in K.NAMES:
-        check(launches[name] > 0, f"kernel {name} never launched on the main path")
     t0 = time.perf_counter()
     compare_on_cpu(ev)
     cpu_s = time.perf_counter() - t0
@@ -343,18 +475,75 @@ def phase_slice(device, tmp: Path):
         "lower_docs_per_s": n_docs / secs["lower"],
         "device_docs_per_s": n_docs / secs["device"],
         "seconds": secs, "cpu_compare_s": cpu_s,
-        "launches": launches, "k2_global_branch_launches": global_launches,
-        "shapes": shapes,
+        "launches": launches, "shapes": shapes,
     }, ev
 
 
+def phase_slice(device, tmp: Path):
+    """Slice 1's main path: the security policy at real size."""
+    import numpy as np
+
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.workloads import RULES, make_template, volume_template
+
+    rng = np.random.default_rng(SEED)
+    docs = [make_template(rng, i) for i in range(N_TEMPLATES)]
+    docs.append(volume_template(N_VOLUMES))
+    info, ev = drive_validate(device, tmp, "security", RULES, docs)
+    if device.type != "cuda":
+        return info, ev  # a CPU rehearsal launches no kernel
+    global_launches = sum(
+        c for (d, n, s), c in info["shapes"]["segment_sum_rows"].items() if s * 4 > 232448
+    )
+    check(global_launches > 0, "K2's global-memory branch never ran")
+    info["k2_global_branch_launches"] = global_launches
+    for name in ("gather_rows", "segment_sum_rows", "rim_reduce"):
+        check(info["launches"][name] > 0, f"kernel {name} never launched on the main path")
+    return info, ev
+
+
+def phase_xref(device, tmp: Path):
+    """Slice 2's main path: the cross-reference policy (query-RHS
+    compares, `.%var` interpolation) at real size. Every kernel must
+    launch, K4-K6 also on their global-memory branches."""
+    import numpy as np
+
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.workloads import XREF_RULES, make_xref_template, volume_template
+
+    rng = np.random.default_rng(SEED + 2)
+    docs = [make_xref_template(rng, i) for i in range(N_TEMPLATES)]
+    docs.append(volume_template(N_VOLUMES))
+    info, ev = drive_validate(device, tmp, "xref", XREF_RULES, docs, per_rule=True)
+    if device.type != "cuda":
+        return info, ev  # a CPU rehearsal launches no kernel
+    for name in K.NAMES:
+        check(info["launches"][name] > 0, f"kernel {name} never launched on the xref path")
+    lib = K._lib()
+    info["global_branch_launches"] = {}
+    for name in JOINS:
+        fn, size = GLOBAL_BRANCH[name]
+        n_global = sum(
+            c for shape, c in info["shapes"][name].items()
+            if getattr(lib, fn)(size(shape)) > 0
+        )
+        check(n_global > 0, f"{name}'s global-memory branch never ran")
+        info["global_branch_launches"][name] = n_global
+    return info, ev
+
+
 def phase_breakdown(device, evaluation) -> list:
-    """Where the device phase of the main path goes, per bucket: host
+    """Where the device phase of the main path goes, per bucket: the
+    host's canonical struct ids (DocBatch.struct_ids, computed once per
+    batch for rules with query-RHS compares and cached by the validate
+    run, so timed here on a copy with the cache cleared), host
     columnarization (device_arrays), the host-to-device copy, the host's
     time to enqueue one walk, the walk plus K3 on the card (CUDA events),
     and from a torch.profiler trace of one walk the card's kernel time,
     launch count and the kernels that take the most of it. The busy
     share is kernel time over the walk's event time."""
+    import copy
+
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -373,6 +562,14 @@ def phase_breakdown(device, evaluation) -> list:
     fn = build_doc_evaluator(compiled)
     out = []
     for batch, _idx in evaluation.groups:
+        canon_s = None
+        if compiled.needs_struct_ids:
+            fresh = copy.copy(batch)
+            fresh._struct_ids = None
+            t0 = time.perf_counter()
+            fresh.struct_ids()
+            canon_s = time.perf_counter() - t0
+            del fresh
         t0 = time.perf_counter()
         arrays, lits = compiled.device_arrays(batch), compiled.lit_values()
         cols_s = time.perf_counter() - t0
@@ -406,7 +603,7 @@ def phase_breakdown(device, evaluation) -> list:
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         out.append({
             "D": batch.n_docs, "N": batch.n_nodes,
-            "columnarize_s": cols_s, "h2d_s": h2d_s,
+            "struct_ids_s": canon_s, "columnarize_s": cols_s, "h2d_s": h2d_s,
             "h2d_bytes": sum(v.numel() * v.element_size() for v in t_arrays.values()),
             "enqueue_s": enqueue_s, "walk_ms": walk_ms,
             "profiled_kernel_ms": kernel_ms if kernels else None,
@@ -504,7 +701,8 @@ def phase_corpus(device) -> dict:
     device_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     compare_on_cpu(Evaluation(groups, n_docs, interner, files, device))
-    check(len(files) >= 240, f"only {len(files)} corpus files in the slice")
+    check(refused == 0 and len(files) == len(paths) == 249,
+          f"{len(files)} of {len(paths)} corpus files ran, {refused} refused")
     return {"files": len(files), "refused": refused, "docs": n_docs,
             "device_s": device_s, "launches": launches}
 
@@ -548,9 +746,11 @@ def main_shape(shapes: dict, name: str):
     return max(shapes[name].items(), key=volume)[0]
 
 
-def contract_kernels(device, slice_info: dict, sweep: dict, card: str) -> list:
-    """Each kernel at its main-path shape: error against plain, times,
-    bound and library time."""
+def contract_kernels(device, slice_info: dict, xref_info: dict, sweep: dict,
+                     card: str) -> list:
+    """Each kernel at its main-path shape (K1-K3 from the security
+    policy's run, K4-K6 from the cross-reference policy's): error
+    against plain, times, bound and library time."""
     import torch
 
     from guard_tpu_torch import kernels as K
@@ -561,14 +761,15 @@ def contract_kernels(device, slice_info: dict, sweep: dict, card: str) -> list:
     gen.manual_seed(SEED + 1)
     out = []
 
-    d, n = main_shape(slice_info["shapes"], "gather_rows")
-    vec, idx = k1_inputs(gen, d, n, device)
+    d, n, s = main_shape(slice_info["shapes"], "gather_rows")
+    vec = torch.randint(0, n + 1, (d, s), generator=gen, device=device, dtype=torch.int32)
+    idx = tree_rows(gen, d, n, device)
     out.append({
-        "name": "gather_rows", "shape": {"D": d, "N": n},
+        "name": "gather_rows", "shape": {"D": d, "N": n, "S": s},
         "max_abs_err": _max_abs_err(K.gather_rows(vec, idx), plain.gather_rows(vec, idx)),
         "ms": cuda_ms(lambda: K.gather_rows(vec, idx)),
         "plain_ms": cuda_ms(lambda: plain.gather_rows(vec, idx)),
-        "bound_ms": k1_bytes(d, n) / rate * 1e3,
+        "bound_ms": k1_bytes(d, n, s) / rate * 1e3,
         # torch.gather does not mask negative indices: no one call
         # computes this function
         "library_ms": None,
@@ -602,11 +803,69 @@ def contract_kernels(device, slice_info: dict, sweep: dict, card: str) -> list:
         "bound_ms": k3_bytes(d, r, g, f) / rate * 1e3,
         "library_ms": None,
     })
+    del vec, idx, val, seg, seg_long, args
+
+    d, nq, ns = main_shape(xref_info["shapes"], "set_count_rows")
+    q = join_inputs(gen, d, nq, nq, device)
+    st = join_inputs(gen, d, nq, ns, device)
+    out.append({
+        "name": "set_count_rows", "shape": {"D": d, "Nq": nq, "Ns": ns},
+        "max_abs_err": _max_abs_err(K.set_count_rows(*q, *st), plain.set_count_rows(*q, *st)),
+        "ms": cuda_ms(lambda: K.set_count_rows(*q, *st)),
+        "plain_ms": cuda_ms(lambda: plain.set_count_rows(*q, *st)),
+        "bound_ms": k4_bytes(d, nq, ns) / rate * 1e3,
+        "library_ms": None,
+        "library_note": "no one PyTorch call counts equal (org, key) pairs of one "
+                        "set per query row",
+    })
+    del st
+
+    d, n = main_shape(xref_info["shapes"], "distinct_first_rows")
+    q = join_inputs(gen, d, n, n, device)
+    out.append({
+        "name": "distinct_first_rows", "shape": {"D": d, "N": n},
+        "max_abs_err": _max_abs_err(K.distinct_first_rows(*q), plain.distinct_first_rows(*q)),
+        "ms": cuda_ms(lambda: K.distinct_first_rows(*q)),
+        "plain_ms": cuda_ms(lambda: plain.distinct_first_rows(*q)),
+        "bound_ms": k5_bytes(d, n) / rate * 1e3,
+        "library_ms": None,
+        "library_note": "torch.unique has no per-row form and does not mark the "
+                        "lowest index",
+    })
+    del q
+
+    d, n, s = main_shape(xref_info["shapes"], "seg_min_max_rows")
+    seg, mask, hi, lo, _s = k6_inputs(gen, d, n, device)
+    seg = seg % s
+    packed = plain.pack_key(hi, lo)
+    at = torch.where(mask, seg, 0).long()
+    lo_keys = torch.where(mask, packed, (1 << 63) - 1)
+    hi_keys = torch.where(mask, packed, -(1 << 63))
+
+    def library():
+        mn = torch.full((d, s), (1 << 63) - 1, dtype=torch.int64, device=device)
+        mx = torch.full((d, s), -(1 << 63), dtype=torch.int64, device=device)
+        mn.scatter_reduce_(1, at, lo_keys, "amin")
+        mx.scatter_reduce_(1, at, hi_keys, "amax")
+        return mn, mx
+
+    out.append({
+        "name": "seg_min_max_rows", "shape": {"D": d, "N": n, "S": s},
+        "max_abs_err": _max_abs_err(
+            K.seg_min_max_rows(seg, mask, hi, lo, s), plain.seg_min_max_rows(seg, mask, hi, lo, s)
+        ),
+        "ms": cuda_ms(lambda: K.seg_min_max_rows(seg, mask, hi, lo, s)),
+        "plain_ms": cuda_ms(lambda: plain.seg_min_max_rows(seg, mask, hi, lo, s)),
+        "bound_ms": k6_bytes(d, n, s) / rate * 1e3,
+        # scatter_reduce_ amin + amax over the packed int64 keys
+        "library_ms": cuda_ms(library),
+    })
     for entry in out:
         name = entry["name"]
+        info = xref_info if name in JOINS else slice_info
         entry.update({
-            "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[name],
-            "launches": slice_info["launches"][name], "bound_by": "bytes",
+            "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": info["launches"][name], "bound_by": "bytes",
             "sweep": sweep[name],
         })
         if entry["max_abs_err"] != 0:
@@ -649,13 +908,18 @@ def main() -> int:
         breakdown = phase_breakdown(device, evaluation)
         del evaluation
         log(f"phase 3 (breakdown): {json.dumps(breakdown)}")
+        xref_info, evaluation = phase_xref(device, tmp)
+        log(f"phase 3 (xref) ok: {json.dumps({k: v for k, v in xref_info.items() if k != 'shapes'})}")
+        xref_breakdown = phase_breakdown(device, evaluation)
+        del evaluation
+        log(f"phase 3 (xref breakdown): {json.dumps(xref_breakdown)}")
         flagship = phase_flagship(device)
         log(f"phase 3 (flagship) ok: {flagship}")
         corpus = phase_corpus(device)
         log(f"phase 3 (corpus) ok: {corpus}")
         cli = phase_cli(tmp)
         log(f"phase 4 (cli) ok: {cli}")
-    kernels = contract_kernels(device, slice_info, sweep, card)
+    kernels = contract_kernels(device, slice_info, xref_info, sweep, card)
     leaked = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -665,7 +929,10 @@ def main() -> int:
 
     print(json.dumps({
         "slice": {k: v for k, v in slice_info.items() if k != "shapes"},
-        "breakdown": breakdown, "flagship": flagship, "corpus": corpus, "cli": cli,
+        "breakdown": breakdown,
+        "xref": {k: v for k, v in xref_info.items() if k != "shapes"},
+        "xref_breakdown": xref_breakdown,
+        "flagship": flagship, "corpus": corpus, "cli": cli,
         "build_s": build_s, "card": card,
     }))
     print(card)

@@ -1,0 +1,338 @@
+// Hand-written Hopper kernels for the joins of the torch port's walk:
+// query-RHS compares and `.%var` key interpolation
+// (guard_tpu_torch/ops/kernels.py). All tensors are row-major and
+// batched over documents: a (D, N) column holds one document per row,
+// padded to the node bucket N.
+//
+//   K4 set_count_rows      out[d,i] = #{j : s_mask[d,j], s_org[d,j] >= 0,
+//                                      (s_org, s_key)[d,j] == (q_org, q_key)[d,i]}
+//                          for q_mask[d,i] and q_org[d,i] >= 0, else 0
+//       Replaces _runs (guard_tpu/ops/kernels.py:914), _set_count_sorted
+//       (:926) and _in_set_sorted (:967), which join by one lexicographic
+//       sort per document. Here one block per document row builds an
+//       open-addressing hash table of the set's 64-bit (org, key) pairs
+//       with their counts (atomicCAS on the key, atomicAdd on the count),
+//       then every query entry probes it. Bound by bytes: 9 B per set and
+//       query entry read, 4 B per output written. Counts are exact in any
+//       order. The table (a power of two of at least twice the set size,
+//       12 B a slot) lives in shared memory while it fits the 227 KB a
+//       block may opt into (sets up to 8,192 entries); larger sets use a
+//       per-block table in global scratch, and the blocks loop over rows.
+//
+//   K5 distinct_first_rows out[d,i] = entry i is the lowest index of its
+//                          (org, key) among entries with mask and org >= 0
+//       Replaces _distinct_first_sorted (:978), whose stable three-key
+//       sort puts the lowest index first. The same table holds an
+//       atomicMin of the entry index per pair; an entry is first when it
+//       holds the minimum. Bound by bytes: 9 B read, 1 B written per entry.
+//
+//   K6 seg_min_max_rows    per-segment signed lexicographic (hi, lo) min
+//                          and max over masked entries
+//       Replaces _seg_min_max_keys (:993). (hi, lo) packs into one int64
+//       as hi << 32 | (uint32)(lo ^ 0x80000000), whose signed order is
+//       the lexicographic one, and folds with 64-bit atomicMin/atomicMax
+//       into a per-row segment table initialised to INT64_MAX/INT64_MIN;
+//       those unpack to the reference's empty-segment sentinels
+//       (INT32_MAX, INT32_MAX) and (INT32_MIN, INT32_MIN). The table
+//       (16 B a segment) is in shared memory while it fits (S <= 14,528,
+//       node buckets up to 2,048 at S = (N+1)*5), in global scratch
+//       otherwise. Bound by bytes: 13 B read per entry, 16 B written per
+//       segment.
+//
+// Each launcher takes raw device pointers, global scratch (null on the
+// shared-memory branch) and the caller's stream (PyTorch's current
+// stream), does not synchronise, and returns cudaGetLastError() so the
+// Python wrapper can raise on a refused launch. The *_scratch functions
+// tell the wrapper how many scratch bytes one block needs: 0 when the
+// shared-memory branch runs.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+// shared memory a block may opt into on sm_90 (227 KB)
+constexpr long long kMaxSmem = 232448;
+constexpr unsigned long long kEmpty = ~0ull;
+constexpr int kSlotBytes = 12;  // 8 B key + 4 B value
+
+// a valid pair has org >= 0, so its key never equals kEmpty
+__device__ __forceinline__ unsigned long long pair_key(int32_t org, int32_t key) {
+  return ((unsigned long long)(uint32_t)org << 32) | (uint32_t)key;
+}
+
+// splitmix64 finaliser
+__device__ __forceinline__ unsigned int slot_of(unsigned long long k,
+                                                unsigned int mask) {
+  k ^= k >> 30;
+  k *= 0xbf58476d1ce4e5b9ull;
+  k ^= k >> 27;
+  k *= 0x94d049bb133111ebull;
+  k ^= k >> 31;
+  return (unsigned int)k & mask;
+}
+
+// slot of k, claiming an empty one if k is not in the table yet
+__device__ __forceinline__ unsigned int insert_slot(unsigned long long* keys,
+                                               unsigned int mask,
+                                               unsigned long long k) {
+  unsigned int s = slot_of(k, mask);
+  while (true) {
+    unsigned long long prev = atomicCAS(&keys[s], kEmpty, k);
+    if (prev == kEmpty || prev == k) return s;
+    s = (s + 1) & mask;
+  }
+}
+
+// Reads of what atomics wrote go through volatile loads: in the global
+// branch the atomics resolve in L2, and a plain load could hit a line
+// that L1 kept from the previous row.
+template <typename T>
+__device__ __forceinline__ T volatile_load(const T* p) {
+  return *(const volatile T*)p;
+}
+
+// slot of k, or -1 when absent (no insert runs concurrently)
+__device__ __forceinline__ int find_slot(const unsigned long long* keys,
+                                    unsigned int mask, unsigned long long k) {
+  unsigned int s = slot_of(k, mask);
+  while (true) {
+    unsigned long long got = volatile_load(&keys[s]);
+    if (got == k) return (int)s;
+    if (got == kEmpty) return -1;
+    s = (s + 1) & mask;
+  }
+}
+
+// hash-table slots for `entries` pairs: a power of two >= 2 * entries
+long long table_slots(long long entries) {
+  long long t = 32;
+  while (t < 2 * entries) t <<= 1;
+  return t;
+}
+
+template <bool kShared>
+__global__ void set_count_kernel(const int32_t* __restrict__ q_org,
+                                 const int32_t* __restrict__ q_key,
+                                 const uint8_t* __restrict__ q_mask,
+                                 const int32_t* __restrict__ s_org,
+                                 const int32_t* __restrict__ s_key,
+                                 const uint8_t* __restrict__ s_mask,
+                                 int32_t* __restrict__ out,
+                                 unsigned char* __restrict__ scratch, int d,
+                                 int nq, int ns, int t) {
+  extern __shared__ unsigned long long smem_keys[];
+  unsigned long long* keys =
+      kShared ? smem_keys
+              : (unsigned long long*)(scratch +
+                                      (size_t)blockIdx.x * t * kSlotBytes);
+  int32_t* cnt = (int32_t*)(keys + t);
+  const unsigned int mask = (unsigned int)t - 1;
+  for (long long row = blockIdx.x; row < d; row += gridDim.x) {
+    for (int k = threadIdx.x; k < t; k += blockDim.x) {
+      keys[k] = kEmpty;
+      cnt[k] = 0;
+    }
+    __syncthreads();
+    const int32_t* so = s_org + row * ns;
+    const int32_t* sk = s_key + row * ns;
+    const uint8_t* sm = s_mask + row * ns;
+    for (int j = threadIdx.x; j < ns; j += blockDim.x) {
+      int32_t o = so[j];
+      if (sm[j] && o >= 0) atomicAdd(&cnt[insert_slot(keys, mask, pair_key(o, sk[j]))], 1);
+    }
+    __syncthreads();
+    const int32_t* qo = q_org + row * nq;
+    const int32_t* qk = q_key + row * nq;
+    const uint8_t* qm = q_mask + row * nq;
+    int32_t* o_row = out + row * nq;
+    for (int i = threadIdx.x; i < nq; i += blockDim.x) {
+      int32_t o = qo[i];
+      int32_t c = 0;
+      if (qm[i] && o >= 0) {
+        int s = find_slot(keys, mask, pair_key(o, qk[i]));
+        if (s >= 0) c = volatile_load(&cnt[s]);
+      }
+      o_row[i] = c;
+    }
+    __syncthreads();  // the next row clears the table
+  }
+}
+
+template <bool kShared>
+__global__ void distinct_first_kernel(const int32_t* __restrict__ org,
+                                      const int32_t* __restrict__ key,
+                                      const uint8_t* __restrict__ msk,
+                                      uint8_t* __restrict__ out,
+                                      unsigned char* __restrict__ scratch,
+                                      int d, int n, int t) {
+  extern __shared__ unsigned long long smem_keys[];
+  unsigned long long* keys =
+      kShared ? smem_keys
+              : (unsigned long long*)(scratch +
+                                      (size_t)blockIdx.x * t * kSlotBytes);
+  int32_t* first = (int32_t*)(keys + t);
+  const unsigned int mask = (unsigned int)t - 1;
+  for (long long row = blockIdx.x; row < d; row += gridDim.x) {
+    for (int k = threadIdx.x; k < t; k += blockDim.x) {
+      keys[k] = kEmpty;
+      first[k] = 0x7fffffff;
+    }
+    __syncthreads();
+    const int32_t* o_in = org + row * n;
+    const int32_t* k_in = key + row * n;
+    const uint8_t* m_in = msk + row * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      int32_t o = o_in[i];
+      if (m_in[i] && o >= 0) atomicMin(&first[insert_slot(keys, mask, pair_key(o, k_in[i]))], i);
+    }
+    __syncthreads();
+    uint8_t* o_row = out + row * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      int32_t o = o_in[i];
+      uint8_t f = 0;
+      if (m_in[i] && o >= 0) f = volatile_load(&first[find_slot(keys, mask, pair_key(o, k_in[i]))]) == i;
+      o_row[i] = f;
+    }
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ long long pack_key(int32_t hi, int32_t lo) {
+  return (long long)(((unsigned long long)(uint32_t)hi << 32) |
+                     ((uint32_t)lo ^ 0x80000000u));
+}
+
+template <bool kShared>
+__global__ void seg_min_max_kernel(const int32_t* __restrict__ seg,
+                                   const uint8_t* __restrict__ msk,
+                                   const int32_t* __restrict__ hi,
+                                   const int32_t* __restrict__ lo,
+                                   int32_t* __restrict__ min_hi,
+                                   int32_t* __restrict__ min_lo,
+                                   int32_t* __restrict__ max_hi,
+                                   int32_t* __restrict__ max_lo,
+                                   unsigned char* __restrict__ scratch, int d,
+                                   int n, int s) {
+  extern __shared__ long long smem_seg[];
+  long long* tmin =
+      kShared ? smem_seg : (long long*)(scratch + (size_t)blockIdx.x * s * 16);
+  long long* tmax = tmin + s;
+  for (long long row = blockIdx.x; row < d; row += gridDim.x) {
+    for (int k = threadIdx.x; k < s; k += blockDim.x) {
+      tmin[k] = 0x7fffffffffffffffll;
+      tmax[k] = (long long)0x8000000000000000ull;
+    }
+    __syncthreads();
+    const int32_t* g = seg + row * n;
+    const uint8_t* m = msk + row * n;
+    const int32_t* h = hi + row * n;
+    const int32_t* l = lo + row * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      int b = g[i];
+      if (m[i] && b >= 0 && b < s) {
+        long long p = pack_key(h[i], l[i]);
+        atomicMin(&tmin[b], p);
+        atomicMax(&tmax[b], p);
+      }
+    }
+    __syncthreads();
+    long long base = row * (long long)s;
+    for (int k = threadIdx.x; k < s; k += blockDim.x) {
+      unsigned long long a = (unsigned long long)volatile_load(&tmin[k]);
+      unsigned long long z = (unsigned long long)volatile_load(&tmax[k]);
+      min_hi[base + k] = (int32_t)(uint32_t)(a >> 32);
+      min_lo[base + k] = (int32_t)((uint32_t)a ^ 0x80000000u);
+      max_hi[base + k] = (int32_t)(uint32_t)(z >> 32);
+      max_lo[base + k] = (int32_t)((uint32_t)z ^ 0x80000000u);
+    }
+    __syncthreads();
+  }
+}
+
+// launch on the shared-memory branch (grid = one block per row) when
+// smem bytes fit, else on the global branch with `blocks` blocks
+template <typename SharedK, typename GlobalK, typename... Args>
+int launch(SharedK shared_k, GlobalK global_k, long long smem, int d,
+           int blocks, cudaStream_t stream, Args... args) {
+  if (smem <= kMaxSmem) {
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          shared_k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    shared_k<<<d, kThreads, (size_t)smem, stream>>>(args...);
+  } else {
+    global_k<<<blocks, kThreads, 0, stream>>>(args...);
+  }
+  return (int)cudaGetLastError();
+}
+
+long long scratch_or_zero(long long bytes) { return bytes <= kMaxSmem ? 0 : bytes; }
+
+}  // namespace
+
+extern "C" {
+
+// global scratch bytes one block of K4 needs for a set of ns entries
+// (0: the table is in shared memory)
+long long guard_set_count_scratch(int ns) {
+  return scratch_or_zero(table_slots(ns) * kSlotBytes);
+}
+
+long long guard_distinct_first_scratch(int n) {
+  return scratch_or_zero(table_slots(n) * kSlotBytes);
+}
+
+long long guard_seg_min_max_scratch(int s) {
+  return scratch_or_zero((long long)s * 16);
+}
+
+int guard_set_count_rows(const void* q_org, const void* q_key,
+                         const void* q_mask, const void* s_org,
+                         const void* s_key, const void* s_mask, void* out,
+                         void* scratch, int d, int nq, int ns, int blocks,
+                         void* stream) {
+  if (d == 0 || nq == 0) return (int)cudaGetLastError();
+  int t = (int)table_slots(ns);
+  if (scratch == nullptr && guard_set_count_scratch(ns) != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch(set_count_kernel<true>, set_count_kernel<false>,
+                (long long)t * kSlotBytes, d, blocks, (cudaStream_t)stream,
+                (const int32_t*)q_org, (const int32_t*)q_key,
+                (const uint8_t*)q_mask, (const int32_t*)s_org,
+                (const int32_t*)s_key, (const uint8_t*)s_mask,
+                (int32_t*)out, (unsigned char*)scratch, d, nq, ns, t);
+}
+
+int guard_distinct_first_rows(const void* org, const void* key,
+                              const void* mask, void* out, void* scratch,
+                              int d, int n, int blocks, void* stream) {
+  if (d == 0 || n == 0) return (int)cudaGetLastError();
+  int t = (int)table_slots(n);
+  if (scratch == nullptr && guard_distinct_first_scratch(n) != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch(distinct_first_kernel<true>, distinct_first_kernel<false>,
+                (long long)t * kSlotBytes, d, blocks, (cudaStream_t)stream,
+                (const int32_t*)org, (const int32_t*)key,
+                (const uint8_t*)mask, (uint8_t*)out, (unsigned char*)scratch,
+                d, n, t);
+}
+
+int guard_seg_min_max_rows(const void* seg, const void* mask, const void* hi,
+                           const void* lo, void* min_hi, void* min_lo,
+                           void* max_hi, void* max_lo, void* scratch, int d,
+                           int n, int s, int blocks, void* stream) {
+  if (d == 0 || s == 0) return (int)cudaGetLastError();
+  if (scratch == nullptr && guard_seg_min_max_scratch(s) != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch(seg_min_max_kernel<true>, seg_min_max_kernel<false>,
+                (long long)s * 16, d, blocks, (cudaStream_t)stream,
+                (const int32_t*)seg, (const uint8_t*)mask,
+                (const int32_t*)hi, (const int32_t*)lo, (int32_t*)min_hi,
+                (int32_t*)min_lo, (int32_t*)max_hi, (int32_t*)max_lo,
+                (unsigned char*)scratch, d, n, s);
+}
+
+}  // extern "C"

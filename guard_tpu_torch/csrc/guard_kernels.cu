@@ -5,12 +5,14 @@
 // are row-major and batched over documents: a (D, N) int32 column holds
 // one document per row, padded to the node bucket N.
 //
-//   K1 gather_rows       out[d,i] = idx[d,i] >= 0 ? vec[d, idx[d,i]] : 0
+//   K1 gather_rows       out[d,i] = 0 <= idx[d,i] < S ? vec[d, idx[d,i]] : 0
 //       Replaces _parent_select (guard_tpu/ops/kernels.py:208) and
-//       _select_at (:349). Bound by bytes: 12 B per element (read vec
-//       and idx, write out). One thread per element; the index read is
-//       coalesced, the vec read stays inside one row (N * 4 bytes, at
-//       most 256 KB), so it hits L1/L2.
+//       _select_at (:349), and the jnp.take reads of per-origin and
+//       per-segment vectors in the query-RHS compares (:1080-1087,
+//       :1533-1538, :1568): vec is (D, S) for any S, idx and out (D, N).
+//       Bound by bytes: 12 B per element (read vec and idx, write out).
+//       One thread per element; the index read is coalesced, the vec
+//       read stays inside one row, so it hits L1/L2.
 //
 //   K2 segment_sum_rows  out[d,s] = sum of val[d,i] over i with seg[d,i] == s
 //       Replaces _count_children (:218), _segment_count/_agg (:233, :247)
@@ -49,12 +51,12 @@ constexpr int kMaxSmem = 232448;
 __global__ void gather_rows_kernel(const int32_t* __restrict__ vec,
                                    const int32_t* __restrict__ idx,
                                    int32_t* __restrict__ out,
-                                   long long total, int n) {
+                                   long long total, int n, int s) {
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= total) return;
   long long row = t / n;
   int j = idx[t];
-  out[t] = (j >= 0 && j < n) ? vec[row * n + j] : 0;
+  out[t] = (j >= 0 && j < s) ? vec[row * s + j] : 0;
 }
 
 __global__ void segment_sum_shared_kernel(const int32_t* __restrict__ val,
@@ -164,12 +166,12 @@ int blocks_for(long long total) {
 extern "C" {
 
 int guard_gather_rows(const void* vec, const void* idx, void* out, int d,
-                      int n, void* stream) {
+                      int n, int s, void* stream) {
   long long total = (long long)d * n;
   if (total == 0) return (int)cudaGetLastError();
   gather_rows_kernel<<<blocks_for(total), kThreads, 0,
                        (cudaStream_t)stream>>>(
-      (const int32_t*)vec, (const int32_t*)idx, (int32_t*)out, total, n);
+      (const int32_t*)vec, (const int32_t*)idx, (int32_t*)out, total, n, s);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-"""Wrappers of the three hand-written CUDA kernels (csrc/guard_kernels.cu).
+"""Wrappers of the hand-written CUDA kernels: K1-K3 in
+csrc/guard_kernels.cu, K4-K6 in csrc/guard_joins.cu.
 
 Each wrapper takes batched row-major tensors. For a CUDA tensor it
 checks dtype, shape and contiguity, launches its kernel on PyTorch's
@@ -13,13 +14,16 @@ can time each kernel at the shapes the evaluation actually gave it.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import plain
 
-NAMES = ("gather_rows", "segment_sum_rows", "rim_reduce")
+NAMES = (
+    "gather_rows", "segment_sum_rows", "rim_reduce",
+    "set_count_rows", "distinct_first_rows", "seg_min_max_rows",
+)
 LAUNCHES = {name: 0 for name in NAMES}
 SHAPES = {name: Counter() for name in NAMES}
 
@@ -66,26 +70,27 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def gather_rows(vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """K1: out[d, i] = vec[d, idx[d, i]] where 0 <= idx < N, else 0.
-    (D, N) int32 each."""
+    """K1: out[d, i] = vec[d, idx[d, i]] where 0 <= idx < S, else 0.
+    vec (D, S), idx and out (D, N), int32 each."""
     if not _on_cuda(vec, idx):
         return plain.gather_rows(vec, idx)
     _check(vec, torch.int32, 2, "gather_rows vec")
     _check(idx, torch.int32, 2, "gather_rows idx")
-    if vec.shape != idx.shape:
+    if vec.shape[0] != idx.shape[0]:
         raise ValueError(f"gather_rows: {tuple(vec.shape)} vs {tuple(idx.shape)}")
-    out = torch.empty_like(vec)
-    d, n = vec.shape
+    out = torch.empty_like(idx)
+    d, n = idx.shape
+    s = vec.shape[1]
     if out.numel() == 0:
         return out
     _raise_on(
         _lib().guard_gather_rows(
-            vec.data_ptr(), idx.data_ptr(), out.data_ptr(), d, n, _stream(vec)
+            vec.data_ptr(), idx.data_ptr(), out.data_ptr(), d, n, s, _stream(vec)
         ),
         "gather_rows",
     )
     LAUNCHES["gather_rows"] += 1
-    SHAPES["gather_rows"][(d, n)] += 1
+    SHAPES["gather_rows"][(d, n, s)] += 1
     return out
 
 
@@ -167,4 +172,126 @@ def rim_reduce(statuses: torch.Tensor, unsure: Optional[torch.Tensor],
     )
     LAUNCHES["rim_reduce"] += 1
     SHAPES["rim_reduce"][(d, r, n_groups, n_files)] += 1
+    return out
+
+
+# scratch a global-memory join branch may take: blocks beyond what fits
+# loop over the remaining rows
+_SCRATCH_BYTES = 256 << 20
+
+
+def _join_scratch(lib, fn_name: str, d: int, size: int, dev) -> Tuple[torch.Tensor, int]:
+    """Global-memory scratch for a join kernel whose per-row table does
+    not fit one block's shared memory: (scratch bytes, blocks). Empty
+    when the table fits, and the kernel then runs one block per row."""
+    per_block = getattr(lib, fn_name)(size)
+    if per_block == 0:
+        return torch.empty(0, dtype=torch.uint8, device=dev), d
+    blocks = max(1, min(d, _SCRATCH_BYTES // per_block))
+    return torch.empty(blocks * per_block, dtype=torch.uint8, device=dev), blocks
+
+
+def set_count_rows(q_org: torch.Tensor, q_key: torch.Tensor, q_mask: torch.Tensor,
+                   s_org: torch.Tensor, s_key: torch.Tensor,
+                   s_mask: torch.Tensor) -> torch.Tensor:
+    """K4: (D, Nq) int32, for each query entry with q_mask and q_org >= 0
+    the number of set entries with s_mask, s_org >= 0 and the same
+    (org, key); 0 elsewhere. Queries (D, Nq), set (D, Ns): org and key
+    int32, masks bool."""
+    if not _on_cuda(q_org, q_key, q_mask, s_org, s_key, s_mask):
+        return plain.set_count_rows(q_org, q_key, q_mask, s_org, s_key, s_mask)
+    for t, dt, what in ((q_org, torch.int32, "q_org"), (q_key, torch.int32, "q_key"),
+                        (q_mask, torch.bool, "q_mask"), (s_org, torch.int32, "s_org"),
+                        (s_key, torch.int32, "s_key"), (s_mask, torch.bool, "s_mask")):
+        _check(t, dt, 2, f"set_count_rows {what}")
+    if not (q_org.shape == q_key.shape == q_mask.shape
+            and s_org.shape == s_key.shape == s_mask.shape
+            and q_org.shape[0] == s_org.shape[0]):
+        raise ValueError(
+            f"set_count_rows: queries {tuple(q_org.shape)}, set {tuple(s_org.shape)}"
+        )
+    d, nq = q_org.shape
+    ns = s_org.shape[1]
+    out = torch.empty_like(q_org)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    scratch, blocks = _join_scratch(lib, "guard_set_count_scratch", d, ns, q_org.device)
+    _raise_on(
+        lib.guard_set_count_rows(
+            q_org.data_ptr(), q_key.data_ptr(), q_mask.data_ptr(),
+            s_org.data_ptr(), s_key.data_ptr(), s_mask.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None,
+            d, nq, ns, blocks, _stream(q_org),
+        ),
+        "set_count_rows",
+    )
+    LAUNCHES["set_count_rows"] += 1
+    SHAPES["set_count_rows"][(d, nq, ns)] += 1
+    return out
+
+
+def distinct_first_rows(org: torch.Tensor, key: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """K5: (D, N) bool, True exactly at the lowest index of each distinct
+    (org, key) among entries with mask and org >= 0."""
+    if not _on_cuda(org, key, mask):
+        return plain.distinct_first_rows(org, key, mask)
+    _check(org, torch.int32, 2, "distinct_first_rows org")
+    _check(key, torch.int32, 2, "distinct_first_rows key")
+    _check(mask, torch.bool, 2, "distinct_first_rows mask")
+    if not org.shape == key.shape == mask.shape:
+        raise ValueError("distinct_first_rows: org, key and mask differ in shape")
+    d, n = org.shape
+    out = torch.empty_like(mask)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    scratch, blocks = _join_scratch(lib, "guard_distinct_first_scratch", d, n, org.device)
+    _raise_on(
+        lib.guard_distinct_first_rows(
+            org.data_ptr(), key.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None,
+            d, n, blocks, _stream(org),
+        ),
+        "distinct_first_rows",
+    )
+    LAUNCHES["distinct_first_rows"] += 1
+    SHAPES["distinct_first_rows"][(d, n)] += 1
+    return out
+
+
+def seg_min_max_rows(seg: torch.Tensor, mask: torch.Tensor, hi: torch.Tensor,
+                     lo: torch.Tensor, s: int):
+    """K6: (min_hi, min_lo, max_hi, max_lo), (D, s) int32 each: the
+    signed lexicographic (hi, lo) min and max over entries with mask and
+    seg in [0, s); an empty segment reads (INT32_MAX, INT32_MAX) and
+    (INT32_MIN, INT32_MIN). seg, hi, lo (D, N) int32, mask (D, N) bool."""
+    if not _on_cuda(seg, mask, hi, lo):
+        return plain.seg_min_max_rows(seg, mask, hi, lo, s)
+    _check(seg, torch.int32, 2, "seg_min_max_rows seg")
+    _check(mask, torch.bool, 2, "seg_min_max_rows mask")
+    _check(hi, torch.int32, 2, "seg_min_max_rows hi")
+    _check(lo, torch.int32, 2, "seg_min_max_rows lo")
+    if not seg.shape == mask.shape == hi.shape == lo.shape:
+        raise ValueError("seg_min_max_rows: seg, mask, hi and lo differ in shape")
+    d, n = seg.shape
+    out = tuple(
+        torch.empty((d, s), dtype=torch.int32, device=seg.device) for _ in range(4)
+    )
+    if d == 0 or s == 0:
+        return out
+    lib = _lib()
+    scratch, blocks = _join_scratch(lib, "guard_seg_min_max_scratch", d, s, seg.device)
+    _raise_on(
+        lib.guard_seg_min_max_rows(
+            seg.data_ptr(), mask.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+            *(t.data_ptr() for t in out),
+            scratch.data_ptr() if scratch.numel() else None,
+            d, n, s, blocks, _stream(seg),
+        ),
+        "seg_min_max_rows",
+    )
+    LAUNCHES["seg_min_max_rows"] += 1
+    SHAPES["seg_min_max_rows"][(d, n, s)] += 1
     return out

@@ -1,12 +1,13 @@
-"""Build and load the CUDA kernel library (csrc/guard_kernels.cu).
+"""Build and load the CUDA kernel libraries (csrc/*.cu).
 
-`nvcc` compiles the source into a shared library with a plain C
-interface on first use, and `ctypes` loads it. The library lands in
-`build/guard_tpu_torch/<key>/` at the repository root (or under
-`GUARD_TPU_TORCH_BUILD_DIR`), keyed on a hash of the source, the nvcc
-version and the flags, so an edited source or another toolkit rebuilds
-and an unchanged one loads straight away. Nothing here runs at import
-time: the CPU-only test environment has no nvcc.
+`nvcc` compiles each source into a shared library with a plain C
+interface on first use, one process per source, all started together;
+`ctypes` loads them. The libraries land in `build/guard_tpu_torch/<key>/`
+at the repository root (or under `GUARD_TPU_TORCH_BUILD_DIR`), keyed on
+a hash of the sources, the nvcc version and the flags, so an edited
+source or another toolkit rebuilds and unchanged ones load straight
+away. Nothing here runs at import time: the CPU-only test environment
+has no nvcc.
 """
 
 from __future__ import annotations
@@ -18,9 +19,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from types import SimpleNamespace
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "guard_kernels.cu"
+SOURCES = {
+    "guard_kernels": _PKG / "csrc" / "guard_kernels.cu",  # K1-K3
+    "guard_joins": _PKG / "csrc" / "guard_joins.cu",  # K4-K6
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -31,12 +37,20 @@ _LIB = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# name -> (argument types, result type)
 _SIGNATURES = {
-    "guard_gather_rows": [_P, _P, _P, _I, _I, _P],
-    "guard_segment_sum_rows": [_P, _P, _P, _I, _I, _I, _P],
-    "guard_segment_sum_uses_shared": [_I],
-    "guard_rim_max_slots": [],
-    "guard_rim_reduce": [_P] * 11 + [_I] * 4 + [_P],
+    "guard_gather_rows": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "guard_segment_sum_rows": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "guard_segment_sum_uses_shared": ([_I], _I),
+    "guard_rim_max_slots": ([], _I),
+    "guard_rim_reduce": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    "guard_set_count_scratch": ([_I], _L),
+    "guard_distinct_first_scratch": ([_I], _L),
+    "guard_seg_min_max_scratch": ([_I], _L),
+    "guard_set_count_rows": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "guard_distinct_first_rows": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "guard_seg_min_max_rows": ([_P] * 9 + [_I] * 4 + [_P], _I),
 }
 
 
@@ -60,44 +74,60 @@ def find_nvcc() -> str:
     )
 
 
-def build() -> Path:
-    """Compile the library if its keyed build is missing; return its path."""
+def build() -> Dict[str, Path]:
+    """Compile every library whose keyed build is missing, all at once;
+    return the path of each."""
     nvcc = find_nvcc()
     version = subprocess.run(
         [nvcc, "--version"], check=True, capture_output=True, text=True
     ).stdout
     h = hashlib.sha256()
-    h.update(SOURCE.read_bytes())
+    for src in SOURCES.values():
+        h.update(src.read_bytes())
     h.update(version.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     out_dir = build_dir() / h.hexdigest()[:16]
-    lib = out_dir / "libguard_kernels.so"
-    if lib.exists():
-        return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libguard_kernels.{os.getpid()}.so"
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib
+    libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+    procs = {}
+    for name, src in SOURCES.items():
+        if libs[name].exists():
+            continue
+        tmp = out_dir / f"lib{name}.{os.getpid()}.so"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building {SOURCES[name]}:\n{out}")
+        else:
+            os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 def load():
-    """The loaded ctypes library, building it on first call."""
+    """The kernels' C functions as attributes of one namespace, building
+    the libraries on first call."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            _LIB = lib
+            fns, libs = {}, []
+            for path in build().values():
+                lib = ctypes.CDLL(str(path))
+                libs.append(lib)
+                for name, (args, res) in _SIGNATURES.items():
+                    fn = getattr(lib, name, None)
+                    if fn is not None:
+                        fn.argtypes = args
+                        fn.restype = res
+                        fns[name] = fn
+            missing = sorted(set(_SIGNATURES) - set(fns))
+            if missing:
+                raise RuntimeError(f"kernel libraries lack {missing}")
+            _LIB = SimpleNamespace(libraries=libs, **fns)
         return _LIB

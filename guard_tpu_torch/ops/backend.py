@@ -9,10 +9,11 @@ each (rules file, document) pair from its merged rule statuses.
 Inputs the JAX package would send to its host oracle are refused with
 `HostOracleNeeded` (exit code 5 at the CLI), never routed to the CPU:
 host rules, function variables, documents over the last node bucket or
-with numbers that have no exact device encoding, and any unsure bit.
-Constructs whose device kernels come with a later slice (query-RHS
-compares, `.%var` interpolation) are refused with `NotInSlice`, also
-exit code 5.
+with numbers that have no exact device encoding, and any unsure bit
+(a list IN a subset-mode list, a non-string `.%var` key, `.%var[k]`
+over unresolved entries, elementwise `empty` on a number). Constructs
+whose device kernels come with a later slice (function-variable roots,
+StepFnVar) are refused with `NotInSlice`, also exit code 5.
 """
 
 from __future__ import annotations

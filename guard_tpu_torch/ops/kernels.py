@@ -13,6 +13,10 @@ row, padded to the node bucket N:
   * per-origin aggregation (`some`/`match_all`, block and filter
     semantics) and child counts are K2 `segment_sum_rows` histograms;
   * UnResolved accounting is one weighted K2 histogram per query walk;
+  * query-RHS compares and `.%var` key interpolation join (origin, key)
+    pairs through K4 `set_count_rows` and K5 `distinct_first_rows`, and
+    ordering compares fold per-(origin, kind) extremes through K6
+    `seg_min_max_rows`, reading them back with K1;
   * everything else — key hits, literal compares, the status lattice —
     is elementwise torch.
 
@@ -20,10 +24,9 @@ Statuses are int8 0/1/2 = PASS/FAIL/SKIP: (D, N+1) per origin in node
 mode, (D,) per document in scalar (rule-root) mode. The JAX package
 picks between a one-hot and a gather formulation of its traversal
 primitives (`_use_gather`); both compute the same functions, and this
-walk ports the gather semantics only.
+walk ports the gather semantics only, with its sorted-set joins.
 
-Not in this slice: function-variable roots (StepFnVar), `.%var` key
-interpolation (StepKeyInterpVar) and query-RHS compares. Building a walk
+Not in this slice: function-variable roots (StepFnVar). Building a walk
 for a program that has them raises NotImplementedError.
 """
 
@@ -67,7 +70,6 @@ _I8 = torch.int8
 _I32 = torch.int32
 
 
-_PAIRWISE = "the pairwise-kernel slice"
 _FNVARS = "the function-variable precompute slice"
 
 
@@ -79,25 +81,23 @@ def _not_in_slice(what: str, later: str) -> NotImplementedError:
 
 def check_slice(compiled: CompiledRules) -> None:
     """Raise NotImplementedError if a lowered rule uses a construct this
-    slice does not evaluate: StepFnVar, StepKeyInterpVar or a
-    query-RHS clause."""
+    slice does not evaluate: StepFnVar."""
 
     def steps(ss):
         for s in ss:
             if isinstance(s, StepFnVar):
                 raise _not_in_slice("StepFnVar (function-variable roots)", _FNVARS)
-            if isinstance(s, StepKeyInterpVar):
-                raise _not_in_slice("StepKeyInterpVar (`.%var` key interpolation)", _PAIRWISE)
             if isinstance(s, StepFilter):
                 conj(s.conjunctions)
             if isinstance(s, StepKeyChain):
                 steps(s.steps)
+            if isinstance(s, StepKeyInterpVar):
+                steps(s.var_steps)
 
     def node(n):
         if isinstance(n, CClause):
-            if n.rhs_query_steps is not None:
-                raise _not_in_slice("a query-RHS clause", _PAIRWISE)
             steps(n.steps)
+            steps(n.rhs_query_steps or [])
         elif isinstance(n, CCountClause):
             steps(n.steps or [])
         elif isinstance(n, CBlockClause):
@@ -134,6 +134,11 @@ class _DocArrays:
         self.node_key_id = arrays["node_key_id"]
         self.node_index = arrays["node_index"]
         self.node_parent_kind = arrays["node_parent_kind"]
+        # canonical struct ids (loose_eq classes) and string ranks, only
+        # for rules with query-RHS compares (ir.py needs_struct_ids,
+        # needs_str_rank)
+        self.struct_id = arrays.get("struct_id")
+        self.str_rank = arrays.get("str_rank")
 
         def slots(prefix: str) -> Dict[int, torch.Tensor]:
             w = len(prefix)
@@ -249,6 +254,12 @@ class _UnresAcc:
         self.miss_count = self.miss_count + miss.to(_I32)
         self.touched = True
 
+    def add_count(self, sel, counts) -> None:
+        """Charge `counts` (int32 per node, 0 where none) miss events."""
+        self.miss_labels = torch.where(counts > 0, sel, self.miss_labels)
+        self.miss_count = self.miss_count + counts
+        self.touched = True
+
     def finalize(self, d: _DocArrays, scalar: bool):
         if not self.touched:
             # no step recorded a miss: the counts are structurally zero
@@ -316,8 +327,6 @@ def run_step(d: _DocArrays, step: Step, sel, acc: _UnresAcc, rule_statuses=None,
 
     if isinstance(step, StepFnVar):
         raise _not_in_slice("StepFnVar (function-variable roots)", _FNVARS)
-    if isinstance(step, StepKeyInterpVar):
-        raise _not_in_slice("StepKeyInterpVar (`.%var` key interpolation)", _PAIRWISE)
 
     if sel_is_root:
         psel = (d.node_parent == 0).to(_I32)
@@ -352,6 +361,9 @@ def run_step(d: _DocArrays, step: Step, sel, acc: _UnresAcc, rule_statuses=None,
             )
             acc.add(sel, is_map_sel & ~has)
         return torch.where(kh_any, psel, 0)
+
+    if isinstance(step, StepKeyInterpVar):
+        return _key_interp_var(d, step, sel, psel, acc, rule_statuses)
 
     if isinstance(step, StepAllValues):
         # `.*`: all children of maps and lists; scalars pass through;
@@ -437,6 +449,91 @@ def _rhs_match_on_keys(d: _DocArrays, rhs: RhsSpec, op: CmpOperator) -> torch.Te
             out = out | _rhs_match_on_keys(d, item, CmpOperator.Eq)
         return out
     raise TypeError(f"keys filter rhs {rhs.kind}")
+
+
+# ---------------------------------------------------------------------------
+# joins over (origin, key) pairs (K4, K5, K6) and `.%var` interpolation
+# ---------------------------------------------------------------------------
+
+
+def _set_count_sorted(q_org, q_key, q_mask, s_org, s_key, s_mask) -> torch.Tensor:
+    """(D, Nq) int32: per masked query entry, the number of masked set
+    entries with equal (org, key); the set may be (D, 2N)."""
+    return K.set_count_rows(q_org, q_key, q_mask, s_org, s_key, s_mask)
+
+
+def _in_set_sorted(q_org, q_key, q_mask, s_org, s_key, s_mask) -> torch.Tensor:
+    """(D, Nq) bool: a masked query entry has a matching masked set entry."""
+    return _set_count_sorted(q_org, q_key, q_mask, s_org, s_key, s_mask) > 0
+
+
+def _distinct_first_sorted(org, key, mask) -> torch.Tensor:
+    """(D, N) bool: True at one representative (the lowest index) per
+    distinct masked (org, key)."""
+    return K.distinct_first_rows(org, key, mask)
+
+
+def _seg_min_max_keys(seg, mask, hi, lo, num_segments: int):
+    """Per-segment exact (hi, lo) minimum and maximum over masked
+    entries, (D, S) int32 each; empty segments read the INT32 sentinels."""
+    return K.seg_min_max_rows(seg, mask, hi, lo, num_segments)
+
+
+def _weighted_count(d: _DocArrays, first, weight, labels) -> torch.Tensor:
+    """(D, N+1): the sum of `weight` over the `first` entries per label."""
+    return K.segment_sum_rows(
+        torch.where(first, weight, 0), torch.where(first, labels, 0), d.n + 1
+    )
+
+
+def _key_interp_var(d: _DocArrays, step: StepKeyInterpVar, sel, psel,
+                    acc: _UnresAcc, rule_statuses):
+    """`.%var` with a query variable: resolve it from the root, flatten
+    one level of lists, then exact-match each string against the
+    selected maps' keys (the gather arm of run_step StepKeyInterpVar)."""
+    var_sel, var_unres = run_steps(
+        d, step.var_steps, _sel_root(d), rule_statuses, scalar=True
+    )
+    if step.index is not None:
+        # `.%var[k]`: the k-th entry in node (= walk) order; with
+        # UnResolved entries present that order is ambiguous: unsure
+        d.unsure_acc.append(var_unres > 0)
+        picked = var_sel > 0
+        rank = torch.cumsum(picked.to(_I32), dim=1)
+        kth = picked & (rank == step.index + 1)
+        oob = step.index >= picked.sum(dim=1, dtype=_I32) + var_unres
+        # out of bounds: one UnResolved per map candidate (the non-map
+        # check below charges its own); in bounds only the k-th entry
+        # takes part
+        acc.add(sel, (sel > 0) & (d.node_kind == MAP) & oob[:, None])
+        var_sel = torch.where(kth, var_sel, 0)
+        var_unres = torch.zeros_like(var_unres)
+    pvar = _parent_select(d, var_sel)
+    elem = (pvar > 0) & (d.node_parent_kind == LIST)
+    flat = ((var_sel > 0) & (d.node_kind != LIST)) | elem
+    is_str = d.node_kind == STRING
+    good = flat & is_str
+    # non-string key values raise NotComparable on the oracle: unsure
+    d.unsure_acc.append((flat & ~is_str).any(dim=1))
+    is_map_sel = (sel > 0) & (d.node_kind == MAP)
+    acc.add(sel, (sel > 0) & (d.node_kind != MAP))
+    zeros = d.zeros_i(d.n)
+    vs = torch.where(good, d.scalar_id, -1)
+    has_key = d.node_key_id >= 0
+    kh = _in_set_sorted(zeros, d.node_key_id, has_key, zeros, vs, good)
+    # per-map matched-entry counts: distinct (parent, key) children
+    # weighted by the variable's multiplicity of that string
+    f_pk = _distinct_first_sorted(
+        d.node_parent, d.node_key_id, has_key & (d.node_parent >= 0)
+    )
+    mult = _set_count_sorted(zeros, d.node_key_id, f_pk, zeros, vs, good)
+    matched = K.segment_sum_rows(torch.where(f_pk, mult, 0), d.node_parent, d.n)
+    miss_counts = good.sum(dim=1, dtype=_I32)[:, None] - matched
+    acc.add_count(sel, torch.where(is_map_sel, miss_counts, 0))
+    # every UnResolved entry of the variable's own resolution is
+    # re-reported per selected candidate
+    acc.add_count(sel, torch.where(sel > 0, var_unres[:, None], 0))
+    return torch.where(kh, psel, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -663,6 +760,280 @@ def _eval_binary_outcomes(d: _DocArrays, c: CClause, sel_leaf):
 
 
 # ---------------------------------------------------------------------------
+# query-RHS compares: LHS query vs RHS query, per origin
+# ---------------------------------------------------------------------------
+
+_KIND_CLASSES = 5  # INT, FLOAT, STRING, NULL, other
+_NOT_ORDER = {
+    CmpOperator.Lt: CmpOperator.Ge, CmpOperator.Ge: CmpOperator.Lt,
+    CmpOperator.Le: CmpOperator.Gt, CmpOperator.Gt: CmpOperator.Le,
+}
+
+
+def _flatten_one_level(d: _DocArrays, sel_v) -> torch.Tensor:
+    """Selected LIST values are replaced by their elements (one level);
+    everything else keeps its label."""
+    psel = _parent_select(d, sel_v)
+    child = torch.where((d.node_parent_kind == LIST) & (psel > 0), psel, 0)
+    keep = torch.where((sel_v > 0) & (d.node_kind != LIST), sel_v, 0)
+    return torch.maximum(child, keep)
+
+
+def _query_rhs_sides(d: _DocArrays, c: CClause, sel, rule_statuses,
+                     sel_is_root: bool):
+    """Walk both sides: (lhs_sel, lhs_unres, rhs_sel, rhs_unres, n_lhs,
+    n_rhs), counts (D, N+1) per origin. A root-bound RHS is one shared
+    set resolved from the root, its counts broadcast to every origin."""
+    lhs_sel, lhs_unres = run_steps(
+        d, c.steps, sel, rule_statuses, sel_is_root=sel_is_root
+    )
+    if c.rhs_query_from_root:
+        rhs_sel, rhs_unres_s = run_steps(
+            d, c.rhs_query_steps, _sel_root(d), rule_statuses, scalar=True
+        )
+        wide = (d.d, d.n + 1)
+        rhs_unres = rhs_unres_s[:, None].expand(wide)
+        n_rhs = (rhs_sel > 0).sum(dim=1, dtype=_I32)[:, None].expand(wide)
+    else:
+        rhs_sel, rhs_unres = run_steps(
+            d, c.rhs_query_steps, sel, rule_statuses, sel_is_root=sel_is_root
+        )
+        n_rhs = _segment_count(d, rhs_sel, d.ones_b())
+    n_lhs = _segment_count(d, lhs_sel, d.ones_b())
+    return lhs_sel, lhs_unres, rhs_sel, rhs_unres, n_lhs, n_rhs
+
+
+def _lex_lt(ah, al, bh, bl) -> torch.Tensor:
+    return (ah < bh) | ((ah == bh) & (al < bl))
+
+
+def _ordering_outcomes_sorted(d: _DocArrays, c: CClause, lf, rf, lhs_here,
+                              rhs_here):
+    """(fail_per_i, pass_per_i) of an ordering op against a query RHS:
+    in the same-kind total order '∃ y: x < y' is 'x < max(same-kind rhs
+    of my origin)' (and dually), so per-(origin, kind class) counts (K2)
+    and extremes (K6), read back per entry (K1), decide every element.
+    NULLs all compare equal; cross-kind or non-orderable pairs FAIL."""
+    kinds = _KIND_CLASSES
+    kind = d.node_kind
+    kc = torch.where(
+        kind == INT, 0,
+        torch.where(kind == FLOAT, 1,
+                    torch.where(kind == STRING, 2, torch.where(kind == NULL, 3, 4))),
+    ).to(_I32)
+    is_str = kind == STRING
+    key_hi = torch.where(is_str, d.str_rank, d.num_hi)
+    key_lo = torch.where(is_str, 0, d.num_lo).to(_I32)
+    # shared-RHS labels are 1 (a root-basis run); per origin otherwise
+    nseg = (d.n + 1) * kinds
+    seg = rf * kinds + kc
+    cnt = K.segment_sum_rows(rhs_here.to(_I32), torch.where(rhs_here, seg, 0), nseg)
+    min_hi, min_lo, max_hi, max_lo = _seg_min_max_keys(seg, rhs_here, key_hi, key_lo, nseg)
+
+    # `not` complements within the same-kind total order
+    op = _NOT_ORDER[c.op] if c.op_not else c.op
+    o_look = torch.ones_like(lf) if c.rhs_query_from_root else lf
+    seg_same = o_look * kinds + kc
+    cnt_same = K.gather_rows(cnt, seg_same)
+    per_origin = cnt.view(d.d, d.n + 1, kinds).sum(dim=2, dtype=_I32)
+    total = K.gather_rows(per_origin, o_look)
+    mnh = K.gather_rows(min_hi, seg_same)
+    mnl = K.gather_rows(min_lo, seg_same)
+    mxh = K.gather_rows(max_hi, seg_same)
+    mxl = K.gather_rows(max_lo, seg_same)
+
+    if op == CmpOperator.Lt:
+        ok_some = _lex_lt(key_hi, key_lo, mxh, mxl)
+        nok_some = ~_lex_lt(key_hi, key_lo, mnh, mnl)
+        null_ok = False
+    elif op == CmpOperator.Le:
+        ok_some = ~_lex_lt(mxh, mxl, key_hi, key_lo)
+        nok_some = _lex_lt(mnh, mnl, key_hi, key_lo)
+        null_ok = True
+    elif op == CmpOperator.Gt:
+        ok_some = _lex_lt(mnh, mnl, key_hi, key_lo)
+        nok_some = ~_lex_lt(mxh, mxl, key_hi, key_lo)
+        null_ok = False
+    else:  # Ge
+        ok_some = ~_lex_lt(key_hi, key_lo, mnh, mnl)
+        nok_some = _lex_lt(key_hi, key_lo, mxh, mxl)
+        null_ok = True
+
+    has_same = cnt_same > 0
+    orderable_x = kc <= 2
+    null_same = (kc == 3) & has_same
+    pass_per_i = lhs_here & ((orderable_x & has_same & ok_some) | (null_same & null_ok))
+    fail_cross = (total - torch.where(kc <= 3, cnt_same, 0)) > 0
+    fail_same = orderable_x & has_same & nok_some
+    fail_per_i = lhs_here & (fail_cross | fail_same | (null_same & (not null_ok)))
+    return fail_per_i, pass_per_i
+
+
+def _eval_query_rhs_ordering(d: _DocArrays, c: CClause, sel, rule_statuses,
+                             sel_is_root: bool = False) -> torch.Tensor:
+    """Ordering ops (< <= > >=) against a query RHS: every (lhs, rhs)
+    pair of the flattened value sets compares in the same-kind total
+    order (INT/FLOAT by the exact (hi, lo) keys, STRING by rank, NULLs
+    equal); `not` flips comparable pairs, NotComparable pairs FAIL."""
+    lhs_sel, lhs_unres, rhs_sel, rhs_unres, n_lhs, n_rhs = _query_rhs_sides(
+        d, c, sel, rule_statuses, sel_is_root
+    )
+    lf = _flatten_one_level(d, lhs_sel)
+    rf = _flatten_one_level(d, rhs_sel)
+    fail_per_i, pass_per_i = _ordering_outcomes_sorted(d, c, lf, rf, lf > 0, rf > 0)
+    cnt_fail = _segment_count(d, lf, fail_per_i)
+    cnt_pass = _segment_count(d, lf, pass_per_i)
+    n_lhs_flat = _segment_count(d, lf, d.ones_b())
+    any_fail = (cnt_fail > 0) | (lhs_unres > 0) | ((rhs_unres > 0) & (n_lhs_flat > 0))
+    if c.match_all:
+        st = _where8(any_fail, FAIL, PASS)
+    else:
+        st = _where8(cnt_pass > 0, PASS, FAIL)
+    skip = ((n_lhs + lhs_unres) == 0) | ((n_rhs + rhs_unres) == 0)
+    return _where8(skip, SKIP, st)
+
+
+def _eval_query_rhs_clause(d: _DocArrays, c: CClause, sel, rule_statuses,
+                           sel_is_root: bool = False) -> torch.Tensor:
+    """Eq / In of an LHS query against an RHS query, per origin:
+    query_in set difference (Eq), containment (In), and the reverse-diff
+    inversion under `not`. Membership is canonical struct-id equality
+    (= loose_eq)."""
+    lhs_sel, lhs_unres, rhs_sel, rhs_unres, n_lhs, n_rhs = _query_rhs_sides(
+        d, c, sel, rule_statuses, sel_is_root
+    )
+    lhs_total = n_lhs + lhs_unres
+    rhs_total = n_rhs + rhs_unres
+    q_success = _query_rhs_success_sorted(
+        d, c, lhs_sel, rhs_sel, n_lhs, n_rhs, lhs_total, rhs_total
+    )
+    # unresolved entries survive the inversion as FAILs; rhs-unresolved
+    # entries exist only when some lhs resolved
+    entry_fail = (lhs_unres > 0) | ((rhs_unres > 0) & (n_lhs > 0))
+    if c.match_all:
+        st = _where8(entry_fail | ~q_success, FAIL, PASS)
+    else:
+        # `some` needs a PASS entry: a vacuous containment with no
+        # resolved lhs value FAILs
+        st = _where8(q_success & (n_lhs > 0), PASS, FAIL)
+    skip = (lhs_total == 0) | (rhs_total == 0)
+    return _where8(skip, SKIP, st)
+
+
+def _query_rhs_success_sorted(d: _DocArrays, c: CClause, lhs_sel, rhs_sel,
+                              n_lhs, n_rhs, lhs_total, rhs_total) -> torch.Tensor:
+    """(D, N+1) bool per-origin query_in / containment success through
+    per-(origin, struct-id) joins. A list LHS value against a
+    SUBSET-mode list RHS value is per pair: such documents are flagged
+    unsure (the oracle decides them)."""
+    sid = d.struct_id
+    shared = c.rhs_query_from_root
+    lhs_here = lhs_sel > 0
+    rhs_here = rhs_sel > 0
+    valid_l = lhs_here & (sid >= 0)
+    valid_r = rhs_here & (sid >= 0)
+    zeros = d.zeros_i(d.n)
+    # membership org keys: real origins per side, or one shared key
+    l_org = zeros if shared else lhs_sel
+    r_org = zeros if shared else rhs_sel
+
+    if c.op == CmpOperator.Eq:
+        m_lhs = _in_set_sorted(l_org, sid, valid_l, r_org, sid, valid_r)
+        cnt_lhs_not_in = _segment_count(d, lhs_sel, lhs_here & ~m_lhs)
+        if shared:
+            # rhs values present in origin o's lhs set: the global
+            # per-sid rhs count summed over o's DISTINCT lhs sids
+            w = _set_count_sorted(zeros, sid, valid_l, zeros, sid, valid_r)
+            f = _distinct_first_sorted(lhs_sel, sid, valid_l)
+            cnt_rhs_in = _weighted_count(d, f, w, lhs_sel)
+            cnt_rhs_not_in = n_rhs - cnt_rhs_in
+        else:
+            m_rhs = _in_set_sorted(r_org, sid, valid_r, l_org, sid, valid_l)
+            cnt_rhs_not_in = _segment_count(d, rhs_sel, rhs_here & ~m_rhs)
+        use_lhs_diff = n_lhs > n_rhs
+        q_success = torch.where(use_lhs_diff, cnt_lhs_not_in, cnt_rhs_not_in) == 0
+        if not c.op_not:
+            return q_success
+        # the FORWARD diff side is chosen by resolved counts, the REVERSE
+        # side independently by total counts (unresolved included)
+        use_rhs_rdiff = rhs_total >= lhs_total
+        if shared:
+            diff_l = valid_l & ~m_lhs
+            # over the LHS side: with the lhs-side diff, is the lhs sid
+            # among o's diff sids; with the rhs-side diff no lhs sid is
+            # outside its own set, so every lhs counts
+            m_l_in_dl = _in_set_sorted(lhs_sel, sid, valid_l, lhs_sel, sid, diff_l)
+            rdiff_a = torch.where(
+                use_lhs_diff, _segment_count(d, lhs_sel, lhs_here & ~m_l_in_dl), n_lhs
+            )
+            # over the shared RHS side: rhs sids outside o's diff sids,
+            # or (rhs-side diff) rhs sids inside o's lhs set
+            f_d = _distinct_first_sorted(lhs_sel, sid, diff_l)
+            cnt_rhs_in_dl = _weighted_count(d, f_d, w, lhs_sel)
+            rdiff_b = torch.where(use_lhs_diff, n_rhs - cnt_rhs_in_dl, cnt_rhs_in)
+        else:
+            # diff members carry lhs OR rhs labels
+            use_l = use_lhs_diff.to(_I32)
+            use_l_at_lhs = K.gather_rows(use_l, torch.where(lhs_here, lhs_sel, 0)) > 0
+            use_l_at_rhs = K.gather_rows(use_l, torch.where(rhs_here, rhs_sel, 0)) > 0
+            diff_l = valid_l & ~m_lhs & use_l_at_lhs
+            diff_r = valid_r & ~m_rhs & ~use_l_at_rhs
+            set_org = torch.cat(
+                [torch.where(diff_l, lhs_sel, 0), torch.where(diff_r, rhs_sel, 0)], dim=1
+            )
+            set_sid = torch.cat([sid, sid], dim=1)
+            set_mask = torch.cat([diff_l, diff_r], dim=1)
+            in_diff_l = _in_set_sorted(lhs_sel, sid, valid_l, set_org, set_sid, set_mask)
+            in_diff_r = _in_set_sorted(rhs_sel, sid, valid_r, set_org, set_sid, set_mask)
+            rdiff_a = _segment_count(d, lhs_sel, lhs_here & ~in_diff_l)
+            rdiff_b = _segment_count(d, rhs_sel, rhs_here & ~in_diff_r)
+        rdiff_cnt = torch.where(use_rhs_rdiff, rdiff_b, rdiff_a)
+        return ~q_success & (rdiff_cnt == 0)
+
+    # In: contained_in per lhs value. Any-kind lhs values match rhs
+    # values by sid, scalar/map lhs values also match INSIDE rhs lists;
+    # list lhs values match list rhs values only in membership mode (the
+    # rhs list's first element is itself a list)
+    is_list = d.node_kind == LIST
+    first_is_list = _count_children(d, (d.node_index == 0) & is_list) > 0
+    membership_mode = first_is_list & (d.child_count > 0)
+    # children of rhs-selected lists carry the parent's origin key
+    pr_org = K.gather_rows(r_org, d.node_parent.clamp(min=0))
+    p_rhs_list = _parent_select(d, (rhs_here & is_list).to(_I32)) > 0
+    p_memb = _parent_select(d, (rhs_here & is_list & membership_mode).to(_I32)) > 0
+    s_org = torch.cat([r_org, pr_org], dim=1)
+    s_sid = torch.cat([sid, sid], dim=1)
+    # non-list lhs: rhs values (eq) and children of rhs lists
+    m_nonlist = _in_set_sorted(
+        l_org, sid, valid_l & ~is_list, s_org, s_sid,
+        torch.cat([valid_r, p_rhs_list & (sid >= 0)], dim=1),
+    )
+    # list lhs: non-list rhs values and children of membership-mode lists
+    m_list = _in_set_sorted(
+        l_org, sid, valid_l & is_list, s_org, s_sid,
+        torch.cat([valid_r & ~is_list, p_memb & (sid >= 0)], dim=1),
+    )
+    m_lhs = torch.where(is_list, m_list, m_nonlist)
+    # subset-mode pairs (list lhs vs non-membership list rhs) are per
+    # PAIR: flag the document unsure where one can exist
+    a = _segment_count(d, lhs_sel, lhs_here & is_list)
+    b_mask = rhs_here & is_list & ~membership_mode
+    if shared:
+        b = b_mask.any(dim=1)[:, None]
+    else:
+        b = _segment_count(d, rhs_sel, b_mask) > 0
+    d.unsure_acc.append(((a > 0) & b).any(dim=1))
+
+    q_success = _segment_count(d, lhs_sel, lhs_here & ~m_lhs) == 0
+    if c.op_not:
+        diff_lhs = valid_l & ~m_lhs
+        in_diff = _in_set_sorted(lhs_sel, sid, valid_l, lhs_sel, sid, diff_lhs)
+        rdiff_cnt = _segment_count(d, lhs_sel, lhs_here & ~in_diff)
+        q_success = ~q_success & (rdiff_cnt == 0)
+    return q_success
+
+
+# ---------------------------------------------------------------------------
 # clause / block / conjunction evaluation
 # ---------------------------------------------------------------------------
 
@@ -685,7 +1056,12 @@ def eval_clause(d: _DocArrays, c: CClause, sel, rule_statuses=None,
         st = eval_clause(d, c, _sel_root(d), rule_statuses, scalar=True)
         return d.full8(st, scalar=False)
     if c.rhs_query_steps is not None:
-        raise _not_in_slice("a query-RHS clause", _PAIRWISE)
+        if c.op in _NOT_ORDER:
+            st = _eval_query_rhs_ordering(d, c, sel, rule_statuses, sel_is_root=scalar)
+        else:
+            st = _eval_query_rhs_clause(d, c, sel, rule_statuses, sel_is_root=scalar)
+        # rule-root mode runs per origin from the root: its origin is label 1
+        return st[:, 1] if scalar else st
     sel_leaf, n_unres = run_steps(d, c.steps, sel, rule_statuses, scalar=scalar)
     n_res = _agg(d, sel_leaf, d.ones_b(), scalar)
     total = n_res + n_unres

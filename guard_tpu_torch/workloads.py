@@ -11,7 +11,10 @@ nor `__graft_entry__.py`:
   * `HOST_ORACLE_RULES` — the flagship plus a `now()` rule, which stays
     on the host oracle (__graft_entry__.py `_DRYRUN_RULES`);
   * `volume_template` — one template of many EC2 volumes, to fill the
-    largest node bucket.
+    largest node bucket;
+  * `XREF_RULES` / `make_xref_template` — a cross-reference policy whose
+    rules compare queries with queries and interpolate `.%var` keys,
+    over templates with Parameters, Auto Scaling groups and Metadata.
 
 Documents are plain dicts/lists (JSON-shaped).
 """
@@ -66,6 +69,50 @@ rule freshness_guard {
 """
 
 
+# Cross-reference policy: every rule reaches a join of the walk.
+#   sse_allowed               In against a shared root-bound RHS (K4)
+#   volume_size_cap           ordering against a shared RHS (K6)
+#   asg_capacity_ordered      ordering against a per-origin RHS (K6)
+#   audited_are_buckets       `.%var` key interpolation (K4, K5)
+#   reviewed_matches_audited  Eq under `not` at rule level (K4)
+XREF_RULES = """
+let s3_buckets = Resources.*[ Type == 'AWS::S3::Bucket' ]
+let volumes = Resources.*[ Type == 'AWS::EC2::Volume' ]
+let asgs = Resources.*[ Type == 'AWS::AutoScaling::AutoScalingGroup' ]
+let allowed = Parameters.AllowedAlgorithms.AllowedValues
+let max_size = Parameters.MaxVolumeSize.Default
+let audited = Metadata.AuditedResources
+
+rule sse_allowed when %s3_buckets !empty {
+    %s3_buckets {
+        Properties.BucketEncryption.ServerSideEncryptionConfiguration[*]
+            .ServerSideEncryptionByDefault.SSEAlgorithm IN %allowed
+    }
+}
+
+rule volume_size_cap when %volumes !empty {
+    %volumes {
+        Properties.Size <= %max_size
+    }
+}
+
+rule asg_capacity_ordered when %asgs !empty {
+    %asgs {
+        Properties.MinSize <= Properties.MaxSize
+        Properties.DesiredCapacity >= Properties.MinSize
+    }
+}
+
+rule audited_are_buckets when %audited !empty {
+    Resources.%audited.Type == 'AWS::S3::Bucket'
+}
+
+rule reviewed_matches_audited when %audited !empty {
+    Metadata.ReviewedResources != %audited
+}
+"""
+
+
 def make_template(rng, i: int) -> dict:
     resources = {}
     for b in range(int(rng.integers(1, 4))):
@@ -99,6 +146,49 @@ def make_template(rng, i: int) -> dict:
             },
         }
     return {"Resources": resources}
+
+
+def make_xref_template(rng, i: int) -> dict:
+    """`make_template` plus what XREF_RULES cross-references: Parameters
+    (the allowed SSE algorithms, a volume size cap), 0-2 Auto Scaling
+    groups whose sizes are sometimes out of order, and Metadata lists of
+    audited and reviewed logical ids. Every interpolated value is a
+    string and no IN pairs a list with a list, so no document needs the
+    host oracle."""
+    doc = make_template(rng, i)
+    resources = doc["Resources"]
+    for a in range(int(rng.integers(0, 3))):
+        low = int(rng.integers(0, 4))
+        high = low + int(rng.integers(0, 8))
+        desired = int(rng.integers(low, high + 1))
+        if rng.random() < 0.1:
+            low, high = high + 1, low  # MinSize above MaxSize
+        if rng.random() < 0.1:
+            desired = max(0, low - 1)  # DesiredCapacity below MinSize
+        resources[f"asg{a}"] = {
+            "Type": "AWS::AutoScaling::AutoScalingGroup",
+            "Properties": {"MinSize": low, "MaxSize": high, "DesiredCapacity": desired},
+        }
+    allowed = ["aws:kms", "AES256"] if rng.random() < 0.8 else ["aws:kms"]
+    doc["Parameters"] = {
+        "AllowedAlgorithms": {
+            "Type": "String", "Default": allowed[0], "AllowedValues": allowed,
+        },
+        "MaxVolumeSize": {
+            "Type": "Number", "Default": int(rng.choice([4096, 16384])),
+        },
+    }
+    audited = [k for k, v in resources.items() if v["Type"] == "AWS::S3::Bucket"]
+    others = [k for k, v in resources.items() if v["Type"] != "AWS::S3::Bucket"]
+    if others and rng.random() < 0.2:
+        audited.append(str(rng.choice(others)))  # audits a non-bucket
+    if rng.random() < 0.05:
+        audited.append(f"retired{i}")  # a logical id the template lacks
+    reviewed = list(audited)
+    if rng.random() < 0.15:
+        reviewed = reviewed[:-1]  # one review behind
+    doc["Metadata"] = {"AuditedResources": audited, "ReviewedResources": reviewed}
+    return doc
 
 
 def example_docs(n: int, two_buckets: bool = False) -> list:

@@ -34,6 +34,10 @@ CORPUS_FILES = [
     "conjunction_057.guard", "conjunction_v3_240.guard",
     "disjunction_056.guard", "disjunction_v1_116.guard",
     "block_form_050.guard", "block_form_v2_175.guard",
+    # query-RHS compares and `.%var` key interpolation
+    "query_vs_query_053.guard", "var_query_rhs_047.guard",
+    "var_query_rhs_v2_172.guard", "var_interpolation_048.guard",
+    "var_interpolation_v2_173.guard",
 ]
 
 

@@ -109,11 +109,16 @@ def test_module_entry_point_matches(corpus_dir):
 def test_host_oracle_inputs_exit_5(tmp_path, rules, doc_name, doc, why):
     (tmp_path / "r.guard").write_text(rules)
     (tmp_path / doc_name).write_text(doc)
-    rc, out, err = run_port(["-r", str(tmp_path / "r.guard"), "-d", str(tmp_path / doc_name)])
+    args = ["-r", str(tmp_path / "r.guard"), "-d", str(tmp_path / doc_name)]
+    rc, out, err = run_port(args)
+    if why == "pairwise":
+        # query-RHS compares run on the device now: same bytes as JAX
+        rc_j, out_j = run_jax(args)
+        assert rc == rc_j != 5 and out == out_j, err
+        return
     assert rc == 5 and out == ""
     assert why in err
-    if why != "pairwise":
-        assert "needs the host oracle" in err
+    assert "needs the host oracle" in err
 
 
 def test_missing_statuses_only_is_refused(tmp_path):
@@ -181,3 +186,87 @@ def test_static_scan_finds_no_jax_or_guard_tpu_import():
         for f in files for m in _IMPORT.finditer(f.read_text())
     ]
     assert hits == []
+
+
+QUERY_RHS_CORPUS = [
+    "query_vs_query_053", "var_query_rhs_047", "var_query_rhs_v1_111",
+    "var_query_rhs_v2_172", "var_query_rhs_v3_234", "var_interpolation_048",
+    "var_interpolation_v2_173",
+]
+
+
+def _corpus_inputs(stem: str):
+    import yaml
+
+    spec = ROOT / "corpus" / "rules" / "tests" / f"{stem}_tests.yaml"
+    return [c["input"] for c in yaml.safe_load(spec.read_text()) or []
+            if isinstance(c, dict) and "input" in c]
+
+
+@pytest.mark.parametrize("stem", QUERY_RHS_CORPUS)
+def test_query_rhs_corpus_cli_matches_jax(tmp_path, stem):
+    data = tmp_path / "data"
+    data.mkdir()
+    for i, doc in enumerate(_corpus_inputs(stem)):
+        (data / f"case{i:02d}.json").write_text(json.dumps(doc))
+    args = ["-r", str(ROOT / "corpus" / "rules" / f"{stem}.guard"), "-d", str(data),
+            "--show-summary", "all"]
+    rc_j, out_j = run_jax(args)
+    rc_p, out_p, err_p = run_port(args)
+    assert rc_p == rc_j and rc_p in (0, 19), err_p
+    assert out_p == out_j
+
+
+def test_xref_rules_cli_matches_jax(tmp_path):
+    from guard_tpu_torch.workloads import XREF_RULES, make_xref_template
+
+    (tmp_path / "xref.guard").write_text(XREF_RULES)
+    data = tmp_path / "data"
+    data.mkdir()
+    rng = np.random.default_rng(17)
+    for i in range(24):
+        (data / f"t{i:02d}.json").write_text(json.dumps(make_xref_template(rng, i)))
+    for show in (None, "all"):
+        args = ["-r", str(tmp_path / "xref.guard"), "-d", str(data)]
+        if show:
+            args += ["--show-summary", show]
+        rc_j, out_j = run_jax(args)
+        rc_p, out_p, err_p = run_port(args)
+        assert rc_p == rc_j == 19, err_p
+        assert out_p == out_j
+
+
+@pytest.mark.parametrize("rules,doc", [
+    # a list IN a list whose first element is not a list: subset mode,
+    # decided per pair by the oracle
+    ("rule r { Resources.* { Tags in Alias } }",
+     {"Resources": {"a": {"Tags": ["x", "y"], "Alias": ["y", "x", "z"]}}}),
+    # a number among the interpolated keys
+    ("let names = Selection.targets\nrule r { Resources.%names exists }",
+     {"Resources": {"a": {}}, "Selection": {"targets": ["a", 3]}}),
+])
+def test_unsure_query_rhs_inputs_exit_5(tmp_path, rules, doc):
+    (tmp_path / "r.guard").write_text(rules)
+    (tmp_path / "d.json").write_text(json.dumps(doc))
+    rc, out, err = run_port(["-r", str(tmp_path / "r.guard"), "-d", str(tmp_path / "d.json")])
+    assert rc == 5 and out == ""
+    assert "cannot decide" in err and "needs the host oracle" in err
+
+
+def test_function_variables_still_refused(tmp_path):
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops.encoder import encode_batch
+    from guard_tpu_torch.ops.ir import compile_rules_file
+    from guard_tpu_torch.ops.kernels import check_slice
+
+    rules = ROOT / "examples" / "rules" / "naming" / "canonical_names.guard"
+    doc = {"Resources": {"b": {"Type": "AWS::S3::Bucket",
+                               "Properties": {"BucketName": "Logs", "Env": "prod"}}}}
+    (tmp_path / "d.json").write_text(json.dumps(doc))
+    rc, out, err = run_port(["-r", str(rules), "-d", str(tmp_path / "d.json")])
+    assert rc == 5 and out == "" and "function variables" in err
+    _batch, interner = encode_batch([from_plain(doc)])
+    compiled = compile_rules_file(parse_rules_file(rules.read_text(), rules.name), interner)
+    with pytest.raises(NotImplementedError, match="StepFnVar"):
+        check_slice(compiled)

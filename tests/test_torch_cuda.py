@@ -1,0 +1,151 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA card and carries the `cuda` marker; without
+a card each skips. The file imports neither JAX nor the JAX package, so
+it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Inputs are seeded with numpy: random trees with root and padding lanes
+(parent -1) for K1-K3, and for the joins rows with every entry masked
+out, duplicate pairs, negative keys, INT32_MIN and INT32_MAX keys,
+empty segments and a set twice the query's length. Results are
+integers: exact equality, no tolerance.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from guard_tpu_torch import kernels as K
+from guard_tpu_torch.kernels import plain
+
+SEED = 11
+TREE_SEED = 7
+I32_MIN, I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def _tree(rng, n: int, real: int) -> np.ndarray:
+    """Parent column of a random tree: root -1, node i < real has a
+    parent in [0, i), padding (i >= real) -1."""
+    parent = np.full(n, -1, np.int32)
+    for i in range(1, real):
+        parent[i] = rng.integers(0, i)
+    return parent
+
+
+def _batch(rng, d: int, n: int) -> np.ndarray:
+    # rows of every fill: a bare root, a full row, padded rows
+    reals = [1, n] + [int(rng.integers(1, n + 1)) for _ in range(d - 2)]
+    return np.stack([_tree(rng, n, r) for r in reals])
+
+
+def _rim_case(rng, d: int, r: int, g: int, f: int):
+    statuses = rng.integers(0, 3, size=(d, r)).astype(np.int8)
+    unsure = rng.random((d, r)) < 0.2
+    # the last group and the last file stay empty
+    group_ids = (np.arange(r) % max(g - 1, 1)).astype(np.int32)
+    file_ids = (np.arange(r) * max(f - 1, 1) // max(r, 1)).astype(np.int32)
+    last_ids = np.zeros(g, np.int32)
+    last_ids[group_ids] = np.arange(r, dtype=np.int32)
+    return statuses, unsure, group_ids, file_ids, last_ids
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 1024, 65536])
+def test_cuda_gather_and_segment_sum_match_plain(cuda_device, n):
+    rng = np.random.default_rng(TREE_SEED + n)
+    parents = torch.from_numpy(_batch(rng, 4, n)).to(cuda_device)
+    vec = torch.from_numpy(
+        rng.integers(0, n + 1, size=(4, n)).astype(np.int32)
+    ).to(cuda_device)
+    assert torch.equal(K.gather_rows(vec, parents), plain.gather_rows(vec, parents))
+    for s in (n, n + 1):
+        assert torch.equal(
+            K.segment_sum_rows(vec, parents, s), plain.segment_sum_rows(vec, parents, s)
+        )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_unsure", [True, False])
+def test_cuda_rim_reduce_matches_plain(cuda_device, with_unsure):
+    rng = np.random.default_rng(TREE_SEED)
+    statuses, unsure, gid, fid, last = (
+        torch.from_numpy(a).to(cuda_device) for a in _rim_case(rng, 300, 40, 17, 3)
+    )
+    u = unsure if with_unsure else None
+    for a, b in zip(K.rim_reduce(statuses, u, gid, fid, last, 17, 3),
+                    plain.rim_reduce(statuses, u, gid, fid, last, 17, 3)):
+        assert torch.equal(a, b)
+
+
+def join_rows(rng, d: int, n: int, width: int):
+    """(org, key, mask) rows of `width` entries drawn from few distinct
+    values (so pairs repeat), with extreme keys, an all-masked row and
+    negative orgs under the mask."""
+    org = rng.integers(-1, max(2, n // 8), size=(d, width)).astype(np.int32)
+    key = rng.choice(
+        np.array([I32_MIN, I32_MAX, -7, -1, 0, 1, 2, 3, 99], np.int32), size=(d, width)
+    )
+    mask = rng.random((d, width)) < 0.7
+    mask[0] = False
+    return org, key, mask
+
+
+def to(dev, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 1024, 65536])
+def test_cuda_set_count_and_distinct_first_match_plain(cuda_device, n):
+    rng = np.random.default_rng(SEED + n)
+    d = 4 if n == 65536 else 16
+    q = to(cuda_device, *join_rows(rng, d, n, n))
+    for ns in (n, 2 * n):
+        s = to(cuda_device, *join_rows(rng, d, n, ns))
+        got = K.set_count_rows(*q, *s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.set_count_rows(*q, *s))
+    got = K.distinct_first_rows(*q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.distinct_first_rows(*q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 1024, 65536])
+def test_cuda_seg_min_max_matches_plain(cuda_device, n):
+    rng = np.random.default_rng(SEED + 3 * n)
+    d = 4 if n == 65536 else 16
+    s = (n + 1) * 5
+    # segments from a few origins only: most segments stay empty
+    seg = (rng.integers(0, 4, size=(d, n)) * 5 + rng.integers(0, 5, size=(d, n))).astype(np.int32)
+    mask = rng.random((d, n)) < 0.6
+    mask[0] = False
+    vals = np.array([I32_MIN, I32_MAX, -1, 0, 1, 5], np.int32)
+    hi = rng.choice(vals, size=(d, n))
+    lo = rng.choice(vals, size=(d, n))
+    args = to(cuda_device, seg, mask, hi, lo)
+    got = K.seg_min_max_rows(*args, s)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain.seg_min_max_rows(*args, s)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(64, 65), (64, 325), (1024, 1025), (65536, 327685)])
+def test_cuda_gather_rows_wide_source_matches_plain(cuda_device, n, s):
+    rng = np.random.default_rng(SEED + s)
+    vec = rng.integers(I32_MIN, I32_MAX, size=(8, s), dtype=np.int64).astype(np.int32)
+    idx = rng.integers(-2, s + 2, size=(8, n)).astype(np.int32)
+    v, i = to(cuda_device, vec, idx)
+    got = K.gather_rows(v, i)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.gather_rows(v, i))

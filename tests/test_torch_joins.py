@@ -1,0 +1,179 @@
+"""The port's join kernels (K4-K6) and the widened K1 against the JAX primitives.
+
+The plain PyTorch versions of K4 `set_count_rows`, K5
+`distinct_first_rows`, K6 `seg_min_max_rows` and K1 `gather_rows` over a
+(D, S) source are held here, row by row, against `jax.vmap` of the JAX
+package's `_set_count_sorted`, `_in_set_sorted`, `_distinct_first_sorted`,
+`_seg_min_max_keys` and `jnp.take` on seeded inputs with the edge cases
+of the joins: rows with every entry masked out, duplicate pairs,
+negative keys and orgs, INT32_MIN and INT32_MAX keys, empty segments and
+a set of 2N entries. Everything is an integer: exact equality, no
+tolerance. The CUDA kernels are held against these plain versions on a
+card in tests/test_torch_cuda.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from guard_tpu.ops import kernels as jk
+from guard_tpu_torch import kernels as K
+from guard_tpu_torch.kernels import plain
+
+SEED = 23
+I32_MIN, I32_MAX = -(2 ** 31), 2 ** 31 - 1
+KEYS = np.array([I32_MIN, I32_MAX, -7, -2, -1, 0, 1, 2, 3, 99], np.int32)
+SIZES = [8, 64, 200]
+
+
+def join_rows(rng, d: int, n: int, width: int):
+    """(org, key, mask): few distinct values so pairs repeat, extreme and
+    negative keys, negative orgs (some under the mask), row 0 fully
+    masked out, row 1 fully masked in."""
+    org = rng.integers(-2, max(3, n // 16), size=(d, width)).astype(np.int32)
+    key = rng.choice(KEYS, size=(d, width))
+    mask = rng.random((d, width)) < 0.6
+    mask[0] = False
+    mask[1] = True
+    return org, key, mask
+
+
+def t(*arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+
+
+def jx(*arrays):
+    return tuple(jnp.asarray(a) for a in arrays)
+
+
+@pytest.mark.parametrize("set_factor", [1, 2])
+@pytest.mark.parametrize("n", SIZES)
+def test_set_count_rows_matches_set_count_sorted(n, set_factor):
+    rng = np.random.default_rng(SEED + n + set_factor)
+    d = 12
+    q = join_rows(rng, d, n, n)
+    s = join_rows(rng, d, n, set_factor * n)
+    # a few query entries whose pair is known to be in the set, one of
+    # them twice (row 1 is fully masked in)
+    q[0][2, :4], q[1][2, :4] = s[0][2, :4], s[1][2, :4]
+    s[0][1, :2], s[1][1, :2] = 1, I32_MIN
+    q[0][1, 0], q[1][1, 0] = 1, I32_MIN
+    want = jax.vmap(lambda *a: jk._set_count_sorted(n, *a))(*jx(*q, *s))
+    got = plain.set_count_rows(*t(*q, *s))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got[0] == 0).all()  # masked-out queries read 0
+    assert (got > 1).any()  # duplicates counted
+    in_set = jax.vmap(lambda *a: jk._in_set_sorted(n, *a))(*jx(*q, *s))
+    np.testing.assert_array_equal((got > 0).numpy(), np.asarray(in_set))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_set_count_rows_all_masked_set(n):
+    rng = np.random.default_rng(SEED + 7 * n)
+    q = join_rows(rng, 4, n, n)
+    s = list(join_rows(rng, 4, n, n))
+    s[2] = np.zeros_like(s[2])
+    want = jax.vmap(lambda *a: jk._set_count_sorted(n, *a))(*jx(*q, *s))
+    got = plain.set_count_rows(*t(*q, *s))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not got.any()
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_distinct_first_rows_matches_distinct_first_sorted(n):
+    rng = np.random.default_rng(SEED + 3 * n)
+    org, key, mask = join_rows(rng, 12, n, n)
+    want = jax.vmap(jk._distinct_first_sorted)(*jx(org, key, mask))
+    got = plain.distinct_first_rows(*t(org, key, mask))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not got[0].any()
+    # the representative is the lowest index of its pair
+    for r in range(2, 6):
+        seen = set()
+        for i in range(n):
+            if mask[r, i] and org[r, i] >= 0:
+                pair = (int(org[r, i]), int(key[r, i]))
+                assert bool(got[r, i]) == (pair not in seen)
+                seen.add(pair)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_seg_min_max_rows_matches_seg_min_max_keys(n):
+    rng = np.random.default_rng(SEED + 5 * n)
+    d, kinds = 12, 5
+    s = (n + 1) * kinds
+    # a few origins only, so most segments are empty
+    seg = (rng.integers(0, 4, size=(d, n)) * kinds
+           + rng.integers(0, kinds, size=(d, n))).astype(np.int32)
+    mask = rng.random((d, n)) < 0.5
+    mask[0] = False
+    hi = rng.choice(KEYS, size=(d, n))
+    lo = rng.choice(KEYS, size=(d, n))
+    (mnh, mnl), (mxh, mxl) = jax.vmap(
+        lambda *a: jk._seg_min_max_keys(*a, s)
+    )(*jx(seg, mask, hi, lo))
+    got = plain.seg_min_max_rows(*t(seg, mask, hi, lo), s)
+    for a, b in zip(got, (mnh, mnl, mxh, mxl)):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # empty segments read the INT32 sentinels
+    assert (got[0][0] == I32_MAX).all() and (got[1][0] == I32_MAX).all()
+    assert (got[2][0] == I32_MIN).all() and (got[3][0] == I32_MIN).all()
+
+
+def test_seg_min_max_rows_sentinel_keys_tie():
+    # legitimate (INT32_MIN, INT32_MIN) and (INT32_MAX, INT32_MAX) keys
+    # equal the sentinels and must not be outranked by them
+    seg = np.array([[0, 0, 1, 1, 2]], np.int32)
+    mask = np.array([[True, True, True, False, True]])
+    hi = np.array([[I32_MIN, I32_MAX, 5, 7, 0]], np.int32)
+    lo = np.array([[I32_MIN, I32_MAX, I32_MIN, 0, I32_MAX]], np.int32)
+    (mnh, mnl), (mxh, mxl) = jk._seg_min_max_keys(*jx(seg[0], mask[0], hi[0], lo[0]), 4)
+    got = plain.seg_min_max_rows(*t(seg, mask, hi, lo), 4)
+    for a, b in zip(got, (mnh, mnl, mxh, mxl)):
+        np.testing.assert_array_equal(a[0].numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_gather_rows_wide_source_matches_take(n):
+    rng = np.random.default_rng(SEED + 11 * n)
+    d = 8
+    for s in (n + 1, (n + 1) * 5):
+        vec = rng.integers(I32_MIN, I32_MAX, size=(d, s), dtype=np.int64).astype(np.int32)
+        idx = rng.integers(0, s, size=(d, n)).astype(np.int32)
+        want = jax.vmap(jnp.take)(*jx(vec, idx))
+        got = plain.gather_rows(*t(vec, idx))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        # out of range reads 0, as _parent_select masks the root
+        bad = idx.copy()
+        bad[:, ::3] = -1
+        bad[:, 1::3] = s
+        got = plain.gather_rows(*t(vec, bad)).numpy()
+        ok = (bad >= 0) & (bad < s)
+        np.testing.assert_array_equal(got[ok], np.take_along_axis(vec, np.where(ok, bad, 0), 1)[ok])
+        assert (got[~ok] == 0).all()
+
+
+def test_join_wrappers_use_plain_on_cpu():
+    rng = np.random.default_rng(SEED)
+    q = t(*join_rows(rng, 3, 16, 16))
+    s = t(*join_rows(rng, 3, 16, 32))
+    before = dict(K.LAUNCHES)
+    assert torch.equal(K.set_count_rows(*q, *s), plain.set_count_rows(*q, *s))
+    assert torch.equal(K.distinct_first_rows(*q), plain.distinct_first_rows(*q))
+    seg = torch.randint(0, 85, (3, 16), dtype=torch.int32)
+    got = K.seg_min_max_rows(seg, q[2], q[0], q[1], 85)
+    for a, b in zip(got, plain.seg_min_max_rows(seg, q[2], q[0], q[1], 85)):
+        assert torch.equal(a, b)
+    assert K.LAUNCHES == before  # nothing launched, nothing counted
+
+
+def test_join_wrappers_refuse_mixed_devices():
+    q = t(*join_rows(np.random.default_rng(1), 2, 8, 8))
+    meta = tuple(x.to("meta") for x in q)
+    with pytest.raises(ValueError):
+        K.set_count_rows(*q, *meta)

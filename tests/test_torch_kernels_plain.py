@@ -5,9 +5,9 @@ versions that run on the CPU; each is held here against the JAX
 package's primitive it replaces (gather formulation), row by row, on
 seeded inputs with the edge cases of the traversal: root and padding
 lanes (parent -1), empty segments, and origin labels 0..N. The CUDA
-kernels themselves are held against the plain versions on a card
-(marked `cuda`, skipped without one). Results are integers: exact
-equality, no tolerance.
+kernels themselves are held against the plain versions on a card in
+tests/test_torch_cuda.py. Results are integers: exact equality, no
+tolerance.
 """
 
 import jax.numpy as jnp
@@ -18,23 +18,9 @@ import torch
 from guard_tpu.ops import kernels as jk
 from guard_tpu_torch import kernels as K
 from guard_tpu_torch.kernels import plain
+from test_torch_cuda import _batch, _rim_case
 
 SEED = 7
-
-
-def _tree(rng, n: int, real: int) -> np.ndarray:
-    """Parent column of a random tree: root -1, node i < real has a
-    parent in [0, i), padding (i >= real) -1."""
-    parent = np.full(n, -1, np.int32)
-    for i in range(1, real):
-        parent[i] = rng.integers(0, i)
-    return parent
-
-
-def _batch(rng, d: int, n: int) -> np.ndarray:
-    # rows of every fill: a bare root, a full row, padded rows
-    reals = [1, n] + [int(rng.integers(1, n + 1)) for _ in range(d - 2)]
-    return np.stack([_tree(rng, n, r) for r in reals])
 
 
 def _jax_docs(parent_rows: np.ndarray):
@@ -131,17 +117,6 @@ def test_segment_sum_plain_matches_unres_finalize():
         np.testing.assert_array_equal(got[r].numpy(), np.asarray(acc.finalize(d, False)))
 
 
-def _rim_case(rng, d: int, r: int, g: int, f: int):
-    statuses = rng.integers(0, 3, size=(d, r)).astype(np.int8)
-    unsure = rng.random((d, r)) < 0.2
-    # the last group and the last file stay empty
-    group_ids = (np.arange(r) % max(g - 1, 1)).astype(np.int32)
-    file_ids = (np.arange(r) * max(f - 1, 1) // max(r, 1)).astype(np.int32)
-    last_ids = np.zeros(g, np.int32)
-    last_ids[group_ids] = np.arange(r, dtype=np.int32)
-    return statuses, unsure, group_ids, file_ids, last_ids
-
-
 @pytest.mark.parametrize("with_unsure", [True, False])
 @pytest.mark.parametrize("shape", [(9, 7, 4, 3), (5, 1, 2, 2), (4, 12, 6, 1)])
 def test_rim_reduce_plain_matches_jax(shape, with_unsure):
@@ -177,43 +152,3 @@ def test_wrappers_use_plain_on_cpu():
         K.segment_sum_rows(vec, parents, 17), plain.segment_sum_rows(vec, parents, 17)
     )
     assert K.LAUNCHES == before  # nothing launched, nothing counted
-
-
-# ---------------------------------------------------------------------------
-# the CUDA kernels against their plain versions (need a card)
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [64, 1024, 65536])
-def test_cuda_gather_and_segment_sum_match_plain(cuda_device, n):
-    rng = np.random.default_rng(SEED + n)
-    parents = torch.from_numpy(_batch(rng, 4, n)).to(cuda_device)
-    vec = torch.from_numpy(
-        rng.integers(0, n + 1, size=(4, n)).astype(np.int32)
-    ).to(cuda_device)
-    assert torch.equal(K.gather_rows(vec, parents), plain.gather_rows(vec, parents))
-    for s in (n, n + 1):
-        assert torch.equal(
-            K.segment_sum_rows(vec, parents, s), plain.segment_sum_rows(vec, parents, s)
-        )
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("with_unsure", [True, False])
-def test_cuda_rim_reduce_matches_plain(cuda_device, with_unsure):
-    rng = np.random.default_rng(SEED)
-    statuses, unsure, gid, fid, last = (
-        torch.from_numpy(a).to(cuda_device) for a in _rim_case(rng, 300, 40, 17, 3)
-    )
-    u = unsure if with_unsure else None
-    for a, b in zip(K.rim_reduce(statuses, u, gid, fid, last, 17, 3),
-                    plain.rim_reduce(statuses, u, gid, fid, last, 17, 3)):
-        assert torch.equal(a, b)
