@@ -26,7 +26,15 @@ no result line):
    cross-reference policy (workloads.XREF_RULES: query-RHS compares and
    `.%var` interpolation, kernels K4-K6) the same way over 65,536 seeded
    make_xref_template templates plus the volume template, with its own
-   counters set to 0 just before and read just after. Then the flagship
+   counters set to 0 just before and read just after. Neither may send
+   a document to the CPU oracle. Then the function-variable policy
+   (workloads.FNVAR_RULES: the rules of canonical_names.guard, a
+   function let and an inline call, run through the walk's StepFnVar
+   arm) the same way over 65,536 seeded make_fnvar_template templates,
+   about 0.5 % of them holding a number with no exact device encoding,
+   plus the volume template: the CPU oracle must rerun exactly those
+   templates, and the per-rule statuses of 2,048 templates must equal
+   the port's CPU evaluator (core/evaluator.eval_rules_file). Then the flagship
    rules over the example documents, and all 249 rules files of
    corpus/rules over the corpus's own test inputs, each on the card and
    on the CPU, exactly equal.
@@ -37,7 +45,8 @@ no result line):
 
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on its main path (K1-K3 the security policy's, K4-K6
-the cross-reference policy's), its error against the plain version, its
+the cross-reference policy's; every path's in `launches_by_path`, and
+for K1 the launches made by the StepFnVar arm), its error against the plain version, its
 time, the plain version's, the bound (bytes over the card's memory
 rate) and a library call's time where one computes the same function. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -58,6 +67,8 @@ ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 N_TEMPLATES = 65536
 N_VOLUMES = 12000
+EXOTIC_SHARE = 0.005  # fnvar templates holding an integer beyond 64 bits
+N_FNVAR_CHECK = 2048  # fnvar templates held against the CPU evaluator
 SWEEP_N = (64, 1024, 8192, 65536)
 SWEEP_BYTES = 64 << 20
 JOIN_SWEEP_N = (64, 1024, 65536)
@@ -389,8 +400,9 @@ def compare_on_cpu(evaluation) -> None:
         ev = DeviceBatchEvaluator(
             fr.compiled, "cpu", rim_spec=build_rim_spec([fr.compiled.rules])
         )
+        groups = fr.groups if fr.groups is not None else evaluation.groups
         st, un, _host, rim = evaluate_groups(
-            ev, len(fr.compiled.rules), evaluation.groups, (), evaluation.n_docs,
+            ev, len(fr.compiled.rules), groups, (), evaluation.n_docs,
         )
         check((st == fr.statuses).all(), f"{fr.rule_file.name}: statuses differ")
         check((un == fr.unsure).all(), f"{fr.rule_file.name}: unsure differs")
@@ -408,17 +420,19 @@ def sync(device) -> None:
 
 
 def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
-                   per_rule: bool = False) -> dict:
+                   per_rule: bool = False, oracle_docs=()) -> dict:
     """Write `docs` as a directory of templates and run the user's entry
     point (commands.validate.Validate, statuses-only) over them on the
     card, every kernel counter set to 0 just before and read just after.
     Checks the result (with `per_rule`, that every rule both PASSes and
-    FAILs somewhere), then compares it with a CPU evaluation."""
+    FAILs somewhere; that the CPU oracle reran exactly the documents
+    `oracle_docs` names), then compares it with a CPU evaluation."""
     import numpy as np
     import torch
 
     from guard_tpu_torch import kernels as K
     from guard_tpu_torch.commands.validate import Validate
+    from guard_tpu_torch.ops import kernels as walk
     from guard_tpu_torch.ops.ir import FAIL, PASS, SKIP
     from guard_tpu_torch.utils.io import Reader, Writer
 
@@ -434,12 +448,14 @@ def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
                    device=str(device))
     writer = Writer.buffered()
     K.reset_launches()
+    fnvar_before = dict(walk.FNVAR_STEPS)
     sync(device)
     t0 = time.perf_counter()
     rc = cmd.execute(writer, Reader())
     sync(device)
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    fnvar_steps = {k: walk.FNVAR_STEPS[k] - fnvar_before[k] for k in fnvar_before}
     shapes = {k: dict(v) for k, v in K.SHAPES.items()}
     err = writer.err_to_stripped()
     check(rc in (0, 19), f"{name}: validate rc {rc}: {err}")
@@ -458,9 +474,18 @@ def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
               f"{name}: rule {fr.compiled.rules[r].name} has degenerate statuses")
     check(not fr.unsure.any(), f"{name}: documents flagged unsure")
     check((fr.rim[3][:, 0] == (st == FAIL).any(axis=1)).all(), "any_fail disagrees with statuses")
-    check(rc == (19 if (st == FAIL).any() else 0), f"rc {rc} disagrees with statuses")
+    check(sorted(fr.host_docs) == sorted(oracle_docs),
+          f"{name}: {len(fr.host_docs)} documents left to the oracle, "
+          f"{len(oracle_docs)} expected")
+    check(ev.oracle_docs == len(oracle_docs),
+          f"{name}: {ev.oracle_docs} oracle reruns, {len(oracle_docs)} expected")
     out = writer.stripped()
-    check(out.count("Status = FAIL") == int((fr.rim[2][:, 0] == FAIL).sum()), "summary lines disagree with doc statuses")
+    fail_lines = out.count("Status = FAIL")
+    device_fails = int((fr.rim[2][:, 0] == FAIL).sum())
+    # the FAILs of the oracle's reruns print too
+    check(device_fails <= fail_lines <= device_fails + len(oracle_docs),
+          "summary lines disagree with doc statuses")
+    check(rc == (19 if fail_lines else 0), f"rc {rc} disagrees with statuses")
     n_big = max(int((b.node_kind >= 0).sum(axis=1).max()) for b, _ in ev.groups)
     check(n_big > 32768, f"volume template has only {n_big} nodes")
     t0 = time.perf_counter()
@@ -474,8 +499,8 @@ def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
         "encode_docs_per_s": n_docs / secs["encode"],
         "lower_docs_per_s": n_docs / secs["lower"],
         "device_docs_per_s": n_docs / secs["device"],
-        "seconds": secs, "cpu_compare_s": cpu_s,
-        "launches": launches, "shapes": shapes,
+        "seconds": secs, "cpu_compare_s": cpu_s, "oracle_docs": ev.oracle_docs,
+        "launches": launches, "fnvar_steps": fnvar_steps, "shapes": shapes,
     }, ev
 
 
@@ -532,6 +557,64 @@ def phase_xref(device, tmp: Path):
     return info, ev
 
 
+def phase_fnvar(device, tmp: Path):
+    """Slice 3's main path: function variables at real size. The
+    function values are precomputed on the host per document and
+    selected on the card by the walk's StepFnVar arm; the templates with
+    a number the card cannot encode exactly rerun on the CPU oracle, and
+    no other document does. The per-rule statuses of the first
+    N_FNVAR_CHECK templates must equal the port's CPU evaluator."""
+    import numpy as np
+
+    from guard_tpu_torch.commands.report import rule_statuses_from_root
+    from guard_tpu_torch.core.evaluator import eval_rules_file
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.scopes import RootScope
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops.backend import STATUS
+    from guard_tpu_torch.workloads import FNVAR_RULES, make_fnvar_template, volume_template
+
+    n = N_TEMPLATES
+    rng = np.random.default_rng(SEED + 3)
+    exotic = rng.random(n) < EXOTIC_SHARE
+    docs = [make_fnvar_template(rng, i, exotic=bool(exotic[i])) for i in range(n)]
+    docs.append(volume_template(N_VOLUMES))
+    sample = docs[:N_FNVAR_CHECK]
+    exotic_idx = np.where(exotic)[0].tolist()
+    check(exotic_idx, "no exotic template: the oracle would not run")
+    info, ev = drive_validate(device, tmp, "fnvar", FNVAR_RULES, docs, per_rule=True,
+                              oracle_docs=exotic_idx)
+    del docs
+    fr = ev.files[0]
+    check(fr.compiled.fn_vars and fr.compiled.needs_fn_origin and not fr.compiled.host_rules,
+          "FNVAR_RULES did not lower to per-origin function variables")
+
+    rules = parse_rules_file(FNVAR_RULES, "fnvar.guard")
+    t0 = time.perf_counter()
+    checked = 0
+    for di, doc in enumerate(sample):
+        if di in fr.host_docs:
+            continue  # rerun by the same evaluator
+        scope = RootScope(rules, from_plain(doc))
+        status = eval_rules_file(rules, scope, "doc")
+        want = rule_statuses_from_root(scope.reset_recorder().extract())
+        got = {name: STATUS[int(fr.rim[0][di, g])] for g, name in enumerate(fr.names)}
+        check(got == want, f"fnvar template {di}: card {got} vs CPU evaluator {want}")
+        check(STATUS[int(fr.rim[2][di, 0])] == status, f"fnvar template {di}: doc status")
+        checked += 1
+    info["evaluator_check"] = {"docs": checked, "seconds": time.perf_counter() - t0}
+    info["exotic_docs"] = len(exotic_idx)
+    if device.type != "cuda":
+        return info, ev  # a CPU rehearsal launches no kernel
+    steps = info["fnvar_steps"]
+    check(steps["per_origin"] > 0, "the StepFnVar arm never ran per origin")
+    check(steps["k1_launches"] == steps["per_origin"],
+          f"StepFnVar launched K1 {steps['k1_launches']} times in {steps['per_origin']} arms")
+    for name in ("gather_rows", "segment_sum_rows", "rim_reduce"):
+        check(info["launches"][name] > 0, f"kernel {name} never launched on the fnvar path")
+    return info, ev
+
+
 def phase_breakdown(device, evaluation) -> list:
     """Where the device phase of the main path goes, per bucket: the
     host's canonical struct ids (DocBatch.struct_ids, computed once per
@@ -553,7 +636,8 @@ def phase_breakdown(device, evaluation) -> list:
     from guard_tpu_torch.ops.ir import build_rim_spec
     from guard_tpu_torch.ops.kernels import arrays_from_numpy, build_doc_evaluator
 
-    compiled = evaluation.files[0].compiled
+    fr = evaluation.files[0]
+    compiled = fr.compiled
     spec = build_rim_spec([compiled.rules])
     ids = [
         torch.from_numpy(np.asarray(a, np.int32)).to(device)
@@ -561,7 +645,7 @@ def phase_breakdown(device, evaluation) -> list:
     ]
     fn = build_doc_evaluator(compiled)
     out = []
-    for batch, _idx in evaluation.groups:
+    for batch, _idx in (fr.groups if fr.groups is not None else evaluation.groups):
         canon_s = None
         if compiled.needs_struct_ids:
             fresh = copy.copy(batch)
@@ -670,7 +754,6 @@ def phase_corpus(device) -> dict:
     from guard_tpu_torch.ops.backend import Evaluation, FileResult
     from guard_tpu_torch.ops.encoder import encode_bucketed
     from guard_tpu_torch.ops.ir import build_rim_spec, compile_rules_file
-    from guard_tpu_torch.ops.kernels import check_slice
     from guard_tpu_torch.parallel.device import DeviceBatchEvaluator, evaluate_groups
 
     paths, plain_docs = corpus_inputs()
@@ -685,11 +768,6 @@ def phase_corpus(device) -> dict:
             refused += 1
             continue
         compiled = compile_rules_file(rules, interner)
-        try:
-            check_slice(compiled)
-        except NotImplementedError:
-            refused += 1
-            continue
         if compiled.host_rules or compiled.fn_vars or not compiled.rules:
             refused += 1
             continue
@@ -746,8 +824,8 @@ def main_shape(shapes: dict, name: str):
     return max(shapes[name].items(), key=volume)[0]
 
 
-def contract_kernels(device, slice_info: dict, xref_info: dict, sweep: dict,
-                     card: str) -> list:
+def contract_kernels(device, slice_info: dict, xref_info: dict, fnvar_info: dict,
+                     sweep: dict, card: str) -> list:
     """Each kernel at its main-path shape (K1-K3 from the security
     policy's run, K4-K6 from the cross-reference policy's): error
     against plain, times, bound and library time."""
@@ -866,8 +944,17 @@ def contract_kernels(device, slice_info: dict, xref_info: dict, sweep: dict,
         entry.update({
             "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": info["launches"][name], "bound_by": "bytes",
+            "launches_by_path": {
+                "security": slice_info["launches"][name],
+                "xref": xref_info["launches"][name],
+                "fnvar": fnvar_info["launches"][name],
+            },
             "sweep": sweep[name],
         })
+        if name == "gather_rows":
+            # run_step StepFnVar (guard_tpu/ops/kernels.py:387): one K1
+            # launch per per-origin arm on the fnvar path
+            entry["stepfnvar_launches"] = fnvar_info["fnvar_steps"]["k1_launches"]
         if entry["max_abs_err"] != 0:
             raise AssertionError(f"{name} differs from plain at its main-path shape")
     return out
@@ -913,13 +1000,18 @@ def main() -> int:
         xref_breakdown = phase_breakdown(device, evaluation)
         del evaluation
         log(f"phase 3 (xref breakdown): {json.dumps(xref_breakdown)}")
+        fnvar_info, evaluation = phase_fnvar(device, tmp)
+        log(f"phase 3 (fnvar) ok: {json.dumps({k: v for k, v in fnvar_info.items() if k != 'shapes'})}")
+        fnvar_breakdown = phase_breakdown(device, evaluation)
+        del evaluation
+        log(f"phase 3 (fnvar breakdown): {json.dumps(fnvar_breakdown)}")
         flagship = phase_flagship(device)
         log(f"phase 3 (flagship) ok: {flagship}")
         corpus = phase_corpus(device)
         log(f"phase 3 (corpus) ok: {corpus}")
         cli = phase_cli(tmp)
         log(f"phase 4 (cli) ok: {cli}")
-    kernels = contract_kernels(device, slice_info, xref_info, sweep, card)
+    kernels = contract_kernels(device, slice_info, xref_info, fnvar_info, sweep, card)
     leaked = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -932,6 +1024,8 @@ def main() -> int:
         "breakdown": breakdown,
         "xref": {k: v for k, v in xref_info.items() if k != "shapes"},
         "xref_breakdown": xref_breakdown,
+        "fnvar": {k: v for k, v in fnvar_info.items() if k != "shapes"},
+        "fnvar_breakdown": fnvar_breakdown,
         "flagship": flagship, "corpus": corpus, "cli": cli,
         "build_s": build_s, "card": card,
     }))

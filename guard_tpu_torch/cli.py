@@ -3,10 +3,12 @@
     python -m guard_tpu_torch validate --statuses-only -r RULES -d DATA \
         [--show-summary fail,pass,...] [--device cpu]
 
-Same flags, stdout and exit codes (0 pass / 19 fail / 5 error) as
-`python -m guard_tpu.cli validate --backend tpu --statuses-only` on the
-inputs the device decides. Runs on the CUDA device unless `--device`
-names another; with no card and no `--device` it stops with code 5.
+Same flags, stdout, stderr and exit codes (0 pass / 19 fail / 5 error)
+as `python -m guard_tpu.cli validate --backend tpu --statuses-only` with
+the JAX package's CPU evaluator as its oracle: the documents the device
+cannot decide rerun on the port's CPU evaluator. Runs on the CUDA
+device unless `--device` names another; with no card and no `--device`
+it stops with code 5.
 """
 
 from __future__ import annotations

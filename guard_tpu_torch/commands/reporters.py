@@ -1,30 +1,32 @@
-"""Console output of a statuses-only validate run.
+"""Console output of a validate run.
 
-`summary_table_block` is the JAX package's SummaryTable reporter
-(guard_tpu/commands/reporters/console.py:24-72). `console_chain` is its
-console chain (reporters/aware.py) as it runs when reports carry rule
-statuses but no clause detail: a statuses-only report lists its failing
-rules with no checks, so the CloudFormation and Terraform reporters
-print their header with zero non-compliant resources, and the generic
-reporter has no failure lines to print.
+Copies of the JAX package's console reporters: `summary_table_block`
+and `generic_single_line` (commands/reporters/console.py) and the
+template-aware chain (commands/reporters/aware.py), which the
+reference builds as `GenericSummary -> TfAware -> CfnAware`
+(`guard/src/commands/validate.rs:703-716`): the CloudFormation reporter
+applies when the document has a `Resources` root key and groups
+failures per resource with source excerpts, the Terraform-plan
+reporter when it has `resource_changes`, and the generic single-line
+summary otherwise. Documents the device settles carry statuses-only
+reports (failing rules, no checks); documents the CPU oracle reran
+carry the full report of their evaluation, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, List, Optional, Tuple
 
+from ..core.exprs import CmpOperator
 from ..core.qresult import Status
+from ..core.values import MAP, PV
 from ..utils.io import Writer
+from .report import get_rule_name, iter_clause_failures
 
 SHOW_PASS = "pass"
 SHOW_FAIL = "fail"
 SHOW_SKIP = "skip"
-
-
-def get_rule_name(rules_file_name: str, name: str) -> str:
-    """Strip a leading "<file>/" (summary_table.rs get_rule_name)."""
-    prefix = rules_file_name + "/"
-    return name[len(prefix):] if name.startswith(prefix) else name
 
 
 def summary_table_block(
@@ -35,15 +37,17 @@ def summary_table_block(
     rule_statuses: Dict[str, Status],
     show: set,
 ) -> None:
-    """The `<file> Status = <s>` header plus SKIP/PASS/FAILED rule
-    lists, each section gated by its --show-summary flag."""
+    """SummaryTable reporter (summary_table.rs:151-237): the leading
+    `<file> Status = <s>` header plus SKIP/PASS/FAILED rule lists, each
+    section gated by its --show-summary flag; runs before the body
+    reporters in the chain (validate.rs:709-716)."""
     if not show:
         return
 
     def short(n: str) -> str:
         return get_rule_name(rules_file, n)
 
-    # declaration order preserved
+    # declaration order preserved (summary_table.rs IndexMap semantics)
     passed = [short(n) for n, s in rule_statuses.items() if s == Status.PASS]
     skipped = [short(n) for n, s in rule_statuses.items() if s == Status.SKIP]
     failed = [short(n) for n, s in rule_statuses.items() if s == Status.FAIL]
@@ -75,43 +79,35 @@ def summary_table_block(
         writer.writeln("---")
 
 
-def console_chain(
+def generic_single_line(
     writer: Writer,
     data_file: str,
     rules_file: str,
-    status: Status,
+    report: dict,
     rule_statuses: Dict[str, Status],
-    root_keys: set,
-    show_summary,
+    show: set,
 ) -> None:
-    """Summary table, then the single-line body for one (rules, data)
-    pair. `root_keys` are the document's top-level map keys (empty for
-    a non-map root); `show_summary` is the raw --show-summary list."""
-    show = set(show_summary)
-    if "all" in show:
-        show = {SHOW_PASS, SHOW_FAIL, SHOW_SKIP}
-    show.discard("none")
-    summary_table_block(writer, data_file, rules_file, status, rule_statuses, show)
-    failed = any(s == Status.FAIL for s in rule_statuses.values())
-    if "Resources" in root_keys or "resource_changes" in root_keys:
-        # CloudFormation / Terraform shape: failures are grouped by
-        # resource, and a statuses-only report attributes none
-        if failed:
-            writer.writeln(f"Evaluating data {data_file} against rules {rules_file}")
-            writer.writeln("Number of non-compliant resources 0")
-        return
-    # generic single-line body: no clause failures to list
+    """GenericSummary single-line body (generic_summary.rs:262-306):
+    per-clause failure messages, then compliant / not-applicable rule
+    lines gated by the same --show-summary flags."""
     passed = sorted(n for n, s in rule_statuses.items() if s == Status.PASS)
     skipped = sorted(n for n, s in rule_statuses.items() if s == Status.SKIP)
+    failures = list(iter_clause_failures(report))
+    # is_reportable priority cascade (generic_summary.rs:157-176): a
+    # present FAIL flag alone decides, then PASS, then SKIP.
     if SHOW_FAIL in show:
-        return
-    if SHOW_PASS in show:
+        reportable = bool(failures)
+    elif SHOW_PASS in show:
         reportable = bool(passed)
     else:
         reportable = SHOW_SKIP in show and bool(skipped)
     if not reportable:
         return
     writer.writeln(f"Evaluation of rules {rules_file} against data {data_file}")
+    if SHOW_FAIL in show and failures:
+        writer.writeln("--")
+        for rule_name, clause in failures:
+            writer.writeln(_name_info_line(rule_name, data_file, clause))
     if SHOW_PASS in show and passed:
         writer.writeln("--")
         for n in passed:
@@ -121,3 +117,659 @@ def console_chain(
         for n in skipped:
             writer.writeln(f"Rule [{n}] is not applicable for template [{data_file}]")
     writer.writeln("--")
+
+
+_UNARY_OP_MSG = {
+    "Exists": ("did not exist", "existed"),
+    "Empty": ("was not empty", "was empty"),
+    "IsList": ("was not a list ", "was list"),
+    "IsMap": ("was not a struct", "was struct"),
+    "IsString": ("was not a string ", "was string"),
+    "IsBool": ("was not a bool", "was bool"),
+    "IsInt": ("was not an int", "was int"),
+    "IsNull": ("was not null", "was null"),
+    "IsFloat": ("was not a float", "was float"),
+}
+
+
+def _jd(v) -> str:
+    """serde_json::Value Display: compact separators."""
+    import json
+
+    return json.dumps(v, separators=(",", ":"))
+
+
+def _name_info_line(rule_name: str, data_file: str, clause: dict) -> str:
+    """One failure line, NameInfo-style (generic_summary.rs:179-241 +
+    common.rs print_name_info:513-646): binary comparisons render
+    provided/expected values; unresolved traversals render as retrieval
+    errors; unary checks render the operator-specific phrase."""
+    check = clause.get("check") or {}
+    msgs = clause.get("messages") or {}
+    custom = msgs.get("custom_message") or ""
+    err_msg = msgs.get("error_message") or ""
+
+    if "Resolved" in check and "from" in check["Resolved"]:
+        r = check["Resolved"]
+        op, negated = r["comparison"]
+        op_msg = "did" if negated else "did not"
+        cmp_msg = "match expected value in" if op == "In" else "match expected value"
+        return (
+            f"Property [{r['from']['path']}] in data [{data_file}] is not "
+            f"compliant with [{rule_name}] because provided value "
+            f"[{_jd(r['from']['value'])}] {op_msg} {cmp_msg} "
+            f"[{_jd(r['to']['value'])}]. Error Message "
+            f"[{custom.replace(chr(10), ';')}]"
+        )
+    if "InResolved" in check:
+        r = check["InResolved"]
+        op, negated = r["comparison"]
+        op_msg = "did" if negated else "did not"
+        return (
+            f"Property [{r['from']['path']}] in data [{data_file}] is not "
+            f"compliant with [{rule_name}] because provided value "
+            f"[{_jd(r['from']['value'])}] {op_msg} match expected value in "
+            f"[{_jd([t['value'] for t in r.get('to', [])])}]. Error Message "
+            f"[{custom.replace(chr(10), ';')}]"
+        )
+    if "Resolved" in check and "value" in check["Resolved"]:
+        # resolved unary check
+        r = check["Resolved"]
+        op, negated = r["comparison"]
+        pair = _UNARY_OP_MSG.get(op, ("did not exist", "existed"))
+        op_msg = pair[1] if negated else pair[0]
+        return (
+            f"Property [{r['value']['path']}] in data [{data_file}] is not "
+            f"compliant with [{rule_name}] because needed value at "
+            f"[{_jd(r['value']['value'])}] {op_msg}. Error Message "
+            f"[{custom.replace(chr(10), ';')}]"
+        )
+    # unresolved traversals, dependent rules, missing block values:
+    # NameInfo.error is set, so the reference prints the retrieval form
+    path = _property_path(clause)
+    return (
+        f"Property traversed until [{path}] in data [{data_file}] is not "
+        f"compliant with [{rule_name}] due to retrieval error. Error Message "
+        f"[{err_msg}]"
+    )
+
+
+def _property_path(clause: dict) -> str:
+    check = clause.get("check", {})
+    if "Resolved" in check:
+        r = check["Resolved"]
+        if "from" in r:
+            return r["from"]["path"]
+        if "value" in r:
+            return r["value"]["path"]
+    if "InResolved" in check:
+        return check["InResolved"]["from"]["path"]
+    if "UnResolved" in check:
+        return check["UnResolved"]["value"]["traversed_to"]["path"]
+    if "unresolved" in clause and clause["unresolved"]:
+        return clause["unresolved"]["traversed_to"]["path"]
+    return ""
+
+
+def console_chain(
+    writer: Writer,
+    data_file_name: str,
+    data_content: str,
+    pv: PV,
+    rules_file_name: str,
+    status,
+    rule_statuses,
+    report: dict,
+    show_summary,
+) -> None:
+    """The console chain for one (rules, data) pair: SummaryTable
+    header, then CfnAware -> TfAware -> generic body for the
+    single-line format (validate.rs:703-716). `pv` is the document's
+    tree; `show_summary` is the raw --show-summary list."""
+    show = set(show_summary)
+    if "all" in show:
+        show = {"pass", "fail", "skip"}
+    show.discard("none")
+    summary_table_block(
+        writer, data_file_name, rules_file_name, status, rule_statuses, show
+    )
+    handled = cfn_single_line(
+        writer, data_file_name, data_content, rules_file_name, pv, report
+    ) or tf_single_line(writer, data_file_name, rules_file_name, pv, report)
+    if not handled:
+        generic_single_line(
+            writer, data_file_name, rules_file_name, report, rule_statuses, show
+        )
+
+
+_TF_RESOURCE = re.compile(r"^/resource_changes/(?P<idx>[^/]+)")
+
+_WIDTH = len("PropertyPath") + 4
+
+
+def _cmp_str(comparison) -> str:
+    """eval_context.rs:1847-1960 operator display strings."""
+    if not comparison:
+        return ""
+    op_s, negated = comparison
+    op = CmpOperator(op_s)
+    unary = {
+        CmpOperator.Exists: ("EXISTS", "NOT EXISTS"),
+        CmpOperator.Empty: ("EMPTY", "NOT EMPTY"),
+        CmpOperator.IsList: ("IS LIST", "NOT LIST"),
+        CmpOperator.IsMap: ("IS STRUCT", "NOT STRUCT"),
+        CmpOperator.IsString: ("IS STRING", "NOT STRING"),
+        CmpOperator.IsFloat: ("IS FLOAT", "NOT FLOAT"),
+        CmpOperator.IsNull: ("IS NULL", "NOT NULL"),
+        CmpOperator.IsBool: ("IS BOOl", "NOT BOOL"),
+        CmpOperator.IsInt: ("IS INT", "NOT INT"),
+    }
+    binary = {
+        CmpOperator.Eq: ("EQUAL", "NOT EQUAL"),
+        CmpOperator.Le: ("LESS THAN EQUAL", "NOT LESS THAN EQUAL"),
+        CmpOperator.Lt: ("LESS THAN", "NOT LESS THAN"),
+        CmpOperator.Ge: ("GREATER THAN EQUAL", "NOT GREATER THAN EQUAL"),
+        CmpOperator.Gt: ("GREATER THAN", "NOT GREATER THAN"),
+        CmpOperator.In: ("IN", "NOT IN"),
+    }
+    table = unary if op.is_unary() else binary
+    pos, neg = table.get(op, (op_s, f"NOT {op_s}"))
+    return neg if negated else pos
+
+
+def _map_get(pv: Optional[PV], key: str) -> Optional[PV]:
+    if pv is None or pv.kind != MAP:
+        return None
+    return pv.val.values.get(key)
+
+
+def _scalar(pv: Optional[PV]):
+    if pv is None or not pv.is_scalar():
+        return None
+    return pv.val
+
+
+def _clause_anchor_path(clause: dict) -> str:
+    check = clause.get("check") or {}
+    if "Resolved" in check:
+        r = check["Resolved"]
+        node = r.get("from") or r.get("value")
+        if node:
+            return node["path"]
+    if "InResolved" in check:
+        return check["InResolved"]["from"]["path"]
+    if "UnResolved" in check:
+        return check["UnResolved"]["value"]["traversed_to"]["path"]
+    ur = clause.get("unresolved")
+    if ur:
+        return ur["traversed_to"]["path"]
+    return ""
+
+
+def _fmt_value(v) -> str:
+    import json
+
+    return json.dumps(v)
+
+
+class _CodeExcerpt:
+    """ReadCursor-style source excerpts (utils/mod.rs:7-66, cfn.rs emit_code):
+    the failing line minus two, plus ~6 lines of following context."""
+
+    def __init__(self, content: str):
+        self.lines = content.splitlines()
+
+    def emit(self, writer: Writer, line: Optional[int], prefix: str) -> None:
+        if not line or not self.lines:
+            return
+        writer.writeln(f"{prefix}Code:")
+        # cfn.rs:392-417 — the line at (failing - 2) plus 5 context lines
+        start = max(1, line - 2)
+        for num in range(start, min(start + 6, len(self.lines) + 1)):
+            writer.writeln(f"{prefix}  {num:>5}.{self.lines[num - 1]}")
+
+
+def _emit_clause(
+    writer: Writer,
+    clause: dict,
+    prefix: str,
+    excerpt: Optional[_CodeExcerpt],
+    path_rewrite=None,
+) -> None:
+    msgs = clause.get("messages") or {}
+    custom = msgs.get("custom_message") or ""
+    location = msgs.get("location") or {}
+    line = location.get("line")
+    context = clause.get("context", "")
+    check = clause.get("check") or {}
+    writer.writeln(f"{prefix}Check = {context} {{")
+    inner = prefix + "  "
+    field = prefix + "    "
+    if custom:
+        writer.writeln(f"{inner}Message {{")
+        for ln in custom.split(";"):
+            writer.writeln(f"{field}{ln.strip()}")
+        writer.writeln(f"{inner}}}")
+    if "UnResolved" in check or (clause.get("unresolved") is not None):
+        ur = (
+            check.get("UnResolved", {}).get("value")
+            or clause.get("unresolved")
+            or {}
+        )
+        comparison = check.get("UnResolved", {}).get("comparison")
+        writer.writeln(f"{inner}RequiredPropertyError {{")
+        traversed = ur.get("traversed_to", {})
+        writer.writeln(
+            f"{field}{'PropertyPath':<{_WIDTH}}= {traversed.get('path', '')}"
+        )
+        writer.writeln(
+            f"{field}{'MissingProperty':<{_WIDTH}}= {ur.get('remaining_query', '')}"
+        )
+        if comparison:
+            writer.writeln(f"{field}{'Operator':<{_WIDTH}}= {_cmp_str(comparison)}")
+        reason = ur.get("reason")
+        if reason:
+            writer.writeln(f"{field}{'Reason':<{_WIDTH}}= {reason}")
+        if excerpt is not None:
+            excerpt.emit(writer, line, field)
+        writer.writeln(f"{inner}}}")
+    elif "Resolved" in check and "from" in check["Resolved"]:
+        r = check["Resolved"]
+        path = r["from"]["path"]
+        if path_rewrite:
+            path = path_rewrite(path)
+        writer.writeln(f"{inner}ComparisonError {{")
+        writer.writeln(f"{field}{'PropertyPath':<{_WIDTH}}= {path}")
+        writer.writeln(f"{field}{'Operator':<{_WIDTH}}= {_cmp_str(r.get('comparison'))}")
+        writer.writeln(f"{field}{'Value':<{_WIDTH}}= {_fmt_value(r['from']['value'])}")
+        writer.writeln(f"{field}{'ComparedWith':<{_WIDTH}}= {_fmt_value(r['to']['value'])}")
+        if excerpt is not None:
+            excerpt.emit(writer, line, field)
+        writer.writeln(f"{inner}}}")
+    elif "InResolved" in check:
+        r = check["InResolved"]
+        path = r["from"]["path"]
+        if path_rewrite:
+            path = path_rewrite(path)
+        to_vals = [t["value"] for t in r.get("to", [])]
+        cut_off = max(len(to_vals), 5)
+        shown = to_vals[: cut_off + 1]
+        writer.writeln(f"{inner}ComparisonError {{")
+        writer.writeln(f"{field}{'PropertyPath':<{_WIDTH}}= {path}")
+        writer.writeln(f"{field}{'Operator':<{_WIDTH}}= {_cmp_str(r.get('comparison'))}")
+        if len(shown) < len(to_vals):
+            writer.writeln(f"{field}{'Total':<{_WIDTH}}= {len(to_vals)}")
+        writer.writeln(f"{field}{'Value':<{_WIDTH}}= {_fmt_value(r['from']['value'])}")
+        writer.writeln(
+            f"{field}{'ComparedWith':<{_WIDTH}}= {[_fmt_value(v) for v in shown]}"
+        )
+        if excerpt is not None:
+            excerpt.emit(writer, line, field)
+        writer.writeln(f"{inner}}}")
+    elif "Resolved" in check and "value" in check["Resolved"]:
+        r = check["Resolved"]
+        path = r["value"]["path"]
+        if path_rewrite:
+            path = path_rewrite(path)
+        writer.writeln(f"{inner}ComparisonError {{")
+        writer.writeln(f"{field}{'PropertyPath':<{_WIDTH}}= {path}")
+        writer.writeln(f"{field}{'Operator':<{_WIDTH}}= {_cmp_str(r.get('comparison'))}")
+        if excerpt is not None:
+            excerpt.emit(writer, line, field)
+        writer.writeln(f"{inner}}}")
+    else:
+        err = msgs.get("error_message") or ""
+        if err:
+            writer.writeln(f"{inner}Error = {err}")
+    writer.writeln(f"{prefix}}}")
+
+
+def _group_failures(
+    report: dict, pattern: re.Pattern, floor: str
+) -> Optional[Dict[str, List[Tuple[str, dict]]]]:
+    """Group failing clauses by resource key. The reference only
+    considers paths sorting lexicographically >= the resource-section
+    floor (cfn.rs:180 `path_tree.range("/Resources"..)`), so failures
+    anchored before it (root-level properties) are silently dropped;
+    a path at-or-after the floor that still cannot be attributed falls
+    back to the generic reporter (cfn.rs:196-207 InternalError)."""
+    groups: Dict[str, List[Tuple[str, dict]]] = {}
+    for rule_name, clause in iter_clause_failures(report):
+        path = _clause_anchor_path(clause)
+        if path < floor:
+            continue
+        m = pattern.match(path)
+        if not m:
+            return None
+        groups.setdefault(m.group(1), []).append((rule_name, clause))
+    return groups
+
+
+def _node_paths(leaf: dict) -> List[str]:
+    """value_from/value_to paths of a leaf clause/block node
+    (common.rs insert_into_trees)."""
+    paths: List[str] = []
+    if "Clause" in leaf:
+        payload = leaf["Clause"].get("Unary") or leaf["Clause"].get("Binary") or {}
+        check = payload.get("check") or {}
+        if "Resolved" in check:
+            r = check["Resolved"]
+            if "from" in r:
+                paths.append(r["from"]["path"])
+                if "to" in r:
+                    paths.append(r["to"]["path"])
+            elif "value" in r:
+                paths.append(r["value"]["path"])
+        elif "InResolved" in check:
+            paths.append(check["InResolved"]["from"]["path"])
+        elif "UnResolved" in check:
+            paths.append(check["UnResolved"]["value"]["traversed_to"]["path"])
+    elif "Block" in leaf:
+        ur = leaf["Block"].get("unresolved")
+        if ur:
+            paths.append(ur["traversed_to"]["path"])
+    return paths
+
+
+def _leaves(node: dict):
+    if "Rule" in node:
+        for child in node["Rule"]["checks"]:
+            yield from _leaves(child)
+    elif "Disjunctions" in node:
+        for child in node["Disjunctions"]["checks"]:
+            yield from _leaves(child)
+    else:
+        yield node
+
+
+def _emit_messages(writer: Writer, prefix: str, custom: str, error: str, width: int) -> None:
+    """common.rs emit_messages:762-823."""
+    if custom:
+        parts = custom.split(";") if ";" in custom else custom.split("\n")
+        parts = [p.strip() for p in parts]
+        parts = [p for p in parts if p]
+        if len(parts) > 1:
+            writer.writeln(f"{prefix}{'Message':<{width}} {{")
+            for p in parts:
+                writer.writeln(f"{prefix}  {p}")
+            writer.writeln(f"{prefix}}}")
+        elif parts:
+            writer.writeln(f"{prefix}{'Message':<{width}} = {parts[0]}")
+    if error:
+        writer.writeln(f"{prefix}{'Error':<{width}} = {error}")
+
+
+def _plain_value_display(v) -> str:
+    from ..core.values import plain_value_display
+
+    return plain_value_display(v)
+
+
+def _loc_disp(path: str, msgs: dict) -> str:
+    loc = (msgs or {}).get("location") or {}
+    return f"{path}[L:{loc.get('line', 0)},C:{loc.get('col', 0)}]"
+
+
+def _pprint_clauses(
+    writer: Writer,
+    node: dict,
+    members: set,
+    prefix: str,
+    excerpt: Optional[_CodeExcerpt],
+    rules_file: str,
+) -> None:
+    """common.rs pprint_clauses:919-1100 with the cfn.rs ErrWriter field
+    and code-excerpt emission inlined."""
+    if "Rule" in node:
+        rr = node["Rule"]
+        writer.writeln(f"{prefix}Rule = {rr['name']} {{")
+        p2 = prefix + "  "
+        msgs = rr.get("messages") or {}
+        _emit_messages(
+            writer, p2, msgs.get("custom_message") or "", msgs.get("error_message") or "", 0
+        )
+        writer.writeln(f"{p2}ALL {{")
+        p3 = p2 + "  "
+        for child in rr["checks"]:
+            _pprint_clauses(writer, child, members, p3, excerpt, rules_file)
+        writer.writeln(f"{p2}}}")
+        writer.writeln(f"{prefix}}}")
+        return
+    if "Disjunctions" in node:
+        writer.writeln(f"{prefix}ANY {{")
+        p2 = prefix + "  "
+        for child in node["Disjunctions"]["checks"]:
+            _pprint_clauses(writer, child, members, p2, excerpt, rules_file)
+        writer.writeln(f"{prefix}}}")
+        return
+    if id(node) not in members:
+        return
+    if "Block" in node:
+        blk = node["Block"]
+        msgs = blk.get("messages") or {}
+        writer.writeln(f"{prefix}Check = {blk.get('context', '')} {{")
+        p2 = prefix + "  "
+        writer.writeln(f"{p2}RequiredPropertyError {{")
+        p3 = p2 + "  "
+        ur = blk.get("unresolved")
+        width = len("Message") + 4
+        if ur and ur["traversed_to"]["path"]:
+            width = len("MissingProperty") + 4
+            writer.writeln(f"{p3}{'PropertyPath':<{width}}= {ur['traversed_to']['path']}")
+            writer.writeln(f"{p3}{'MissingProperty':<{width}}= {ur['remaining_query']}")
+        _emit_messages(
+            writer, p3, msgs.get("custom_message") or "", msgs.get("error_message") or "", width
+        )
+        # the reference buffers the code excerpt and writeln!s the
+        # buffer afterwards, leaving a blank line (common.rs:1030-1042)
+        if excerpt is not None and ur:
+            loc = msgs.get("location") or {}
+            excerpt.emit(writer, loc.get("line"), p3)
+        writer.writeln("")
+        writer.writeln(f"{p2}}}")
+        writer.writeln(f"{prefix}}}")
+        return
+    payload = node["Clause"].get("Unary") or node["Clause"].get("Binary") or {}
+    check = payload.get("check") or {}
+    msgs = payload.get("messages") or {}
+    context = payload.get("context", "")
+    custom = msgs.get("custom_message") or ""
+    error = msgs.get("error_message") or ""
+    width = len("PropertyPath") + 4
+    if "UnResolved" in check:
+        # emit_retrieval_error (common.rs:826-876): unpadded fields,
+        # PropertyPath carries the source location
+        ur = check["UnResolved"]["value"]
+        writer.writeln(f"{prefix}Check = {context} {{")
+        p2 = prefix + "  "
+        _emit_messages(writer, p2, custom, "", 0)
+        writer.writeln(f"{p2}RequiredPropertyError {{")
+        p3 = p2 + "  "
+        writer.writeln(
+            f"{p3}PropertyPath = {_loc_disp(ur['traversed_to']['path'], msgs)}"
+        )
+        writer.writeln(f"{p3}MissingProperty = {ur['remaining_query']}")
+        if ur.get("reason"):
+            writer.writeln(f"{p3}Reason = {ur['reason']}")
+        if excerpt is not None:
+            loc = msgs.get("location") or {}
+            excerpt.emit(writer, loc.get("line"), p3)
+        writer.writeln(f"{p2}}}")
+        writer.writeln(f"{prefix}}}")
+        return
+    writer.writeln(f"{prefix}Check = {context} {{")
+    p2 = prefix + "  "
+    writer.writeln(f"{p2}ComparisonError {{")
+    p3 = p2 + "  "
+    loc = msgs.get("location") or {}
+    # the reference buffers the field lines + code excerpt, emits
+    # Message/Error first, then writeln!s the buffer — so messages come
+    # first and a blank line trails the block (common.rs:1112-1148)
+    _emit_messages(writer, p3, custom, error, width)
+    if "Resolved" in check and "from" in check["Resolved"]:
+        r = check["Resolved"]
+        writer.writeln(f"{p3}{'PropertyPath':<{width}}= {_loc_disp(r['from']['path'], msgs)}")
+        writer.writeln(f"{p3}{'Operator':<{width}}= {_cmp_str(r.get('comparison'))}")
+        writer.writeln(
+            f"{p3}{'Value':<{width}}= {_plain_value_display(r['from']['value'])}"
+        )
+        writer.writeln(
+            f"{p3}{'ComparedWith':<{width}}= {_plain_value_display(r['to']['value'])}"
+        )
+        if excerpt is not None:
+            excerpt.emit(writer, loc.get("line"), p3)
+    elif "InResolved" in check:
+        r = check["InResolved"]
+        to_vals = [t["value"] for t in r.get("to", [])]
+        cut_off = max(len(to_vals), 5)
+        shown = to_vals[: cut_off + 1]
+        writer.writeln(f"{p3}{'PropertyPath':<{width}}= {_loc_disp(r['from']['path'], msgs)}")
+        writer.writeln(f"{p3}{'Operator':<{width}}= {_cmp_str(r.get('comparison'))}")
+        if cut_off < len(to_vals):
+            writer.writeln(f"{p3}{'Total':<{width}}= {len(to_vals)}")
+        writer.writeln(
+            f"{p3}{'Value':<{width}}= {_plain_value_display(r['from']['value'])}"
+        )
+        collected = "[" + ", ".join(_plain_value_display(v) for v in shown) + "]"
+        writer.writeln(f"{p3}{'ComparedWith':<{width}}= {collected}")
+        if excerpt is not None:
+            excerpt.emit(writer, loc.get("line"), p3)
+    elif "Resolved" in check and "value" in check["Resolved"]:
+        r = check["Resolved"]
+        writer.writeln(f"{p3}{'PropertyPath':<{width}}= {_loc_disp(r['value']['path'], msgs)}")
+        writer.writeln(f"{p3}{'Operator':<{width}}= {_cmp_str(r.get('comparison'))}")
+        if excerpt is not None:
+            excerpt.emit(writer, loc.get("line"), p3)
+    writer.writeln("")
+    writer.writeln(f"{p2}}}")
+    writer.writeln(f"{prefix}}}")
+
+
+def cfn_single_line(
+    writer: Writer,
+    data_file: str,
+    data_content: str,
+    rules_file: str,
+    doc: PV,
+    report: dict,
+) -> bool:
+    """CfnAware single-line summary (cfn.rs:157-420). Returns True when
+    this reporter applies and handled the output. Failures anchored at
+    paths sorting before "/Resources" are silently dropped (cfn.rs:180
+    path_tree.range); a path at-or-after that cannot be attributed to a
+    known resource falls back to the generic reporter (cfn.rs:196-207)."""
+    resources = _map_get(doc, "Resources")
+    if resources is None:
+        return False
+    if not report["not_compliant"]:
+        return True
+
+    def resource_name_of(path: str) -> Optional[str]:
+        """Resource names may themselves contain '/' (cfn.rs:183-194
+        probes progressively longer names against the template)."""
+        if not path.startswith("/Resources/"):
+            return None
+        segs = path[len("/Resources/"):].split("/")
+        for i in range(1, len(segs) + 1):
+            name = "/".join(segs[:i])
+            if _map_get(resources, name) is not None:
+                return name
+        return None
+
+    members_by_resource: Dict[str, set] = {}
+    for rule_node in report["not_compliant"]:
+        for leaf in _leaves(rule_node):
+            for path in _node_paths(leaf):
+                if path < "/Resources":
+                    continue
+                name = resource_name_of(path)
+                if name is None:
+                    return False
+                members_by_resource.setdefault(name, set()).add(id(leaf))
+
+    excerpt = _CodeExcerpt(data_content)
+    writer.writeln(f"Evaluating data {data_file} against rules {rules_file}")
+    writer.writeln(f"Number of non-compliant resources {len(members_by_resource)}")
+    for name in sorted(members_by_resource):
+        members = members_by_resource[name]
+        res = _map_get(resources, name)
+        res_type = _scalar(_map_get(res, "Type")) or ""
+        cdk_path = _scalar(_map_get(_map_get(res, "Metadata"), "aws:cdk:path"))
+        writer.writeln(f"Resource = {name} {{")
+        writer.writeln(f"  {'Type':<10}= {res_type}")
+        if cdk_path:
+            writer.writeln(f"  {'CDK-Path':<10}= {cdk_path}")
+        for rule_node in report["not_compliant"]:
+            if any(id(leaf) in members for leaf in _leaves(rule_node)):
+                _pprint_clauses(writer, rule_node, members, "  ", excerpt, rules_file)
+        writer.writeln("}")
+    return True
+
+
+def _tf_property(path: str) -> str:
+    """tf.rs:215-231 — show the property below change/after as dotted."""
+    idx = path.find("change/after/")
+    if idx < 0:
+        return path
+    return path[idx + len("change/after/") :].replace("/", ".")
+
+
+def tf_single_line(
+    writer: Writer,
+    data_file: str,
+    rules_file: str,
+    doc: PV,
+    report: dict,
+) -> bool:
+    """TfAware single-line summary (tf.rs:100-300). Returns True when the
+    document is a Terraform plan and output was handled."""
+    changes = _map_get(doc, "resource_changes")
+    if changes is None:
+        return False
+    if not report["not_compliant"]:
+        return True
+    groups = _group_failures(report, _TF_RESOURCE, "/resource_changes")
+    if groups is None:
+        return False
+
+    # resource_changes[idx].address = "<type>.<name>" (tf.rs:134-141)
+    def addr_of(idx: str) -> Tuple[str, str]:
+        entry = None
+        if changes.is_list():
+            try:
+                entry = changes.val[int(idx)]
+            except (ValueError, IndexError):
+                entry = None
+        elif changes.kind == MAP:
+            entry = changes.val.values.get(idx)
+        addr = _scalar(_map_get(entry, "address")) or ""
+        dot = addr.find(".")
+        if dot < 0:
+            return addr, addr
+        return addr[:dot], addr[dot + 1 :]
+
+    named: Dict[str, Tuple[str, List[Tuple[str, dict]]]] = {}
+    for idx, clauses in groups.items():
+        rtype, rname = addr_of(idx)
+        prev = named.get(rname)
+        if prev:
+            prev[1].extend(clauses)
+        else:
+            named[rname] = (rtype, list(clauses))
+
+    writer.writeln(f"Evaluating data {data_file} against rules {rules_file}")
+    writer.writeln(f"Number of non-compliant resources {len(named)}")
+    for rname in sorted(named):
+        rtype, clauses = named[rname]
+        writer.writeln(f"Resource = {rname} {{")
+        writer.writeln(f"  {'Type':<10}= {rtype}")
+        by_rule: Dict[str, List[dict]] = {}
+        for rule_name, clause in clauses:
+            by_rule.setdefault(rule_name, []).append(clause)
+        for rule_name in sorted(by_rule):
+            writer.writeln(f"  Rule = {rule_name} {{")
+            for clause in by_rule[rule_name]:
+                _emit_clause(writer, clause, "    ", None, path_rewrite=_tf_property)
+            writer.writeln("  }")
+        writer.writeln("}")
+    return True

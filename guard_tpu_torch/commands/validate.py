@@ -3,8 +3,8 @@
 Reads rule and data files like the JAX package's `validate`
 (guard_tpu/commands/validate.py) and evaluates them through
 `ops/backend.validate_statuses`. Exit codes follow the reference: 0
-pass, 19 fail, 5 error — and 5 for inputs that need the host oracle,
-which a later slice of the port brings.
+pass, 19 fail, 5 error (a rule file that does not parse, a document
+that does not load, an oracle rerun that raised).
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ class Validate:
         if not self.statuses_only:
             raise GuardError(
                 "the torch port evaluates --statuses-only runs only; full "
-                "reports need the host oracle, which a later slice brings"
+                "reports come with a later slice"
             )
 
     def _load_data_files(self, reader: Reader) -> List[DataFile]:
@@ -115,6 +115,7 @@ class Validate:
         try:
             return validate_statuses(self, rule_files, data_files, writer)
         except GuardError as e:
-            # document parse errors, and inputs that need the host oracle
+            # document parse errors, and a device status that disagrees
+            # with the oracle's
             writer.writeln_err(str(e))
             return ERROR_STATUS_CODE

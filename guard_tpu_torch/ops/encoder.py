@@ -805,6 +805,55 @@ def _pad_encoded(encoded: List[EncodedDoc], n: int, e_max: int) -> DocBatch:
     )
 
 
+def _encode_all(docs: List[PV], interner: Interner, fn_values=None,
+                fn_var_order=None) -> Tuple[List[EncodedDoc], bool]:
+    """Encode each document, with its precomputed function results
+    appended as orphan subtrees when `fn_values` (per-doc {var: [PV]},
+    ops/fnvars.precompute_fn_values) and `fn_var_order` (the slot
+    order) are given. Also returns whether any slot is per-origin."""
+    if fn_values is None or not fn_var_order:
+        return [encode_document(d, interner) for d in docs], False
+    any_per_origin = False
+    encoded = []
+    for i, d in enumerate(docs):
+        per = fn_values[i]
+        flat = []
+        for slot, var in enumerate(fn_var_order):
+            vals = per.get(var, [])
+            if isinstance(vals, dict):
+                # per-origin slot ('pexpr'): {origin path: [PV]}
+                any_per_origin = True
+                for opath, pvs in vals.items():
+                    for pv in pvs:
+                        flat.append((slot, pv, opath))
+            else:
+                for pv in vals:
+                    flat.append((slot, pv, None))
+        encoded.append(encode_document(d, interner, fn_results=flat))
+    return encoded, any_per_origin
+
+
+def _tag_fn_roots(batch: DocBatch, encoded: List[EncodedDoc],
+                  any_per_origin: bool) -> None:
+    """Tag function-result roots AFTER the derived-column pass: the ids
+    live in a reserved negative namespace (ops/fnvars.fn_key_id) that
+    no interned key or sentinel uses, and carrying them in the derived
+    column (not the edge arrays) keeps the results out of struct-id
+    child grouping and parent-kind derivation. A document whose
+    per-origin result lost its origin goes to the CPU oracle."""
+    from .fnvars import fn_key_id
+
+    if any_per_origin:
+        batch.fn_origin = np.full(batch.node_kind.shape, -1, dtype=np.int32)
+    for i, enc in enumerate(encoded):
+        for slot, idx, origin in enc.fn_roots:
+            batch.node_key_id[i, idx] = fn_key_id(slot)
+            if origin >= 0:
+                batch.fn_origin[i, idx] = origin
+        if enc.fn_origin_miss:
+            batch.num_exotic[i] = True
+
+
 def encode_batch(docs: List[PV], interner: Optional[Interner] = None,
                  pad_nodes: Optional[int] = None, pad_edges: Optional[int] = None,
                  fn_values=None, fn_var_order=None,
@@ -820,65 +869,37 @@ def encode_batch(docs: List[PV], interner: Optional[Interner] = None,
     fn_key_id(slot) in the derived node_key_id column.
     """
     interner = interner if interner is not None else Interner()
-    any_per_origin = False
-    if fn_values is not None and fn_var_order:
-        encoded = []
-        for i, d in enumerate(docs):
-            per = fn_values[i]
-            flat = []
-            for slot, var in enumerate(fn_var_order):
-                vals = per.get(var, [])
-                if isinstance(vals, dict):
-                    # per-origin slot ('pexpr'): {origin path: [PV]}
-                    any_per_origin = True
-                    for opath, pvs in vals.items():
-                        for pv in pvs:
-                            flat.append((slot, pv, opath))
-                else:
-                    for pv in vals:
-                        flat.append((slot, pv, None))
-            encoded.append(encode_document(d, interner, fn_results=flat))
-    else:
-        encoded = [encode_document(d, interner) for d in docs]
+    encoded, any_per_origin = _encode_all(docs, interner, fn_values, fn_var_order)
     n = pad_nodes or _round_up(max((e.n_nodes for e in encoded), default=1))
     e_max = pad_edges or _round_up(max((e.n_edges for e in encoded), default=1))
-    d = len(encoded)
     batch = _pad_encoded(encoded, n, e_max)
-    # tag function-result roots AFTER the derived-column pass: the ids
-    # live in a reserved negative namespace (ops/fnvars.fn_key_id)
-    # that no interned key or sentinel uses, and carrying them in the
-    # derived column (not the edge arrays) keeps the results out of
-    # struct-id child grouping and parent-kind derivation
-    from .fnvars import fn_key_id
-
-    if any_per_origin:
-        batch.fn_origin = np.full((d, n), -1, dtype=np.int32)
-    for i, enc in enumerate(encoded):
-        for slot, idx, origin in enc.fn_roots:
-            batch.node_key_id[i, idx] = fn_key_id(slot)
-            if origin >= 0:
-                batch.fn_origin[i, idx] = origin
-        if enc.fn_origin_miss:
-            batch.num_exotic[i] = True
+    _tag_fn_roots(batch, encoded, any_per_origin)
     return batch, interner
 
 
 def encode_bucketed(docs: List[PV], interner: Optional[Interner] = None,
-                    buckets: Tuple[int, ...] = NODE_BUCKETS_EXTENDED):
+                    buckets: Tuple[int, ...] = NODE_BUCKETS_EXTENDED,
+                    fn_values=None, fn_var_order=None):
     """Encode documents straight into per-size-bucket batches, each padded
     to its bucket's node count: the groups `split_batch_by_size` would
     cut from `encode_batch`'s output, without first padding every
     document to the largest one (one 60k-node template in a corpus of
     small ones would otherwise make a (D, 60k) batch).
 
+    `fn_values` and `fn_var_order` append function results as in
+    `encode_batch`; a document is bucketed by its node count with its
+    results, and each bucket carries its own `fn_origin` column when a
+    slot is per-origin.
+
     Returns (groups, oversize, interner): groups as in
     split_batch_by_size, (sub_batch, doc_indices); oversize holds the
-    documents beyond the last bucket or with numbers that have no exact
-    device encoding, which are not encoded into any group."""
+    documents beyond the last bucket, with numbers that have no exact
+    device encoding, or with a per-origin function result whose origin
+    did not map back to a node, which are not encoded into any group."""
     interner = interner if interner is not None else Interner()
-    encoded = [encode_document(d, interner) for d in docs]
+    encoded, any_per_origin = _encode_all(docs, interner, fn_values, fn_var_order)
     sizes = np.array([e.n_nodes for e in encoded], dtype=np.int64)
-    exotic = np.array([e.num_exotic for e in encoded], dtype=bool)
+    exotic = np.array([e.num_exotic or e.fn_origin_miss for e in encoded], dtype=bool)
     host = (sizes > buckets[-1]) | exotic
     groups: List[Tuple[DocBatch, np.ndarray]] = []
     lo = 0
@@ -889,5 +910,7 @@ def encode_bucketed(docs: List[PV], interner: Optional[Interner] = None,
             continue
         part = [encoded[i] for i in idx]
         e_max = _round_up(max(e.n_edges for e in part))
-        groups.append((_pad_encoded(part, b, e_max), idx))
+        batch = _pad_encoded(part, b, e_max)
+        _tag_fn_roots(batch, part, any_per_origin)
+        groups.append((batch, idx))
     return groups, np.where(host)[0], interner

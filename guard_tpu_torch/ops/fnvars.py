@@ -1,9 +1,5 @@
-"""Function-variable slot enumeration (copied from the JAX package's
-ops/fnvars.py; this slice keeps `fn_key_id`, `fn_slots` and
-`precomputable_fn_vars` — `precompute_fn_values` needs the CPU
-evaluator and comes with a later slice of the port).
-
-Design of the host-precomputed function variables:
+"""Host-precomputed function variables (a copy of the JAX package's
+ops/fnvars.py; SURVEY.md §7 hard-part 7).
 
 The reference's built-in functions (`guard/src/rules/functions/` —
 strings.rs, converters.rs, date_time.rs, collections.rs) are stateful,
@@ -47,6 +43,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Set, Tuple
 
+from ..core.errors import GuardError
 from ..core.exprs import (
     AccessQuery,
     FunctionExpr,
@@ -54,6 +51,7 @@ from ..core.exprs import (
     part_is_variable,
     part_variable,
 )
+from ..core.qresult import RESOLVED
 from ..core.values import CHAR, PV, REGEX
 
 _EXCLUDED = {"count", "now", "parse_char"}
@@ -65,6 +63,37 @@ _FN_KEY_BASE = -1000
 
 def fn_key_id(slot: int) -> int:
     return _FN_KEY_BASE - slot
+
+
+def _filter_candidates(prev_part, cur: PV):
+    """Mirror of scopes._retrieve_filter's candidate derivation
+    (eval_context.rs:723-828 / scopes.py:702-770): which values a
+    filter's clause CNF evaluates against, given the value reached by
+    the query prefix and the part class preceding the filter. Returns
+    None where the oracle raises InternalError. The `[*]`-preceded
+    outer-scope case never reaches consumption (ir refuses `filter
+    after [*]` wholesale, so such rules stay on the host)."""
+    from ..core.exprs import QAllIndices, QAllValues, QKey
+    from ..core.values import LIST, MAP
+
+    if prev_part is not None and part_is_variable(prev_part):
+        # after a variable head, maps AND scalars filter themselves in
+        # their own value scope; lists iterate (scopes.py:390-408,
+        # ir.StepFilter scalar_self)
+        if cur.kind == LIST:
+            return list(cur.val)
+        return [cur]
+    if cur.kind == MAP:
+        if isinstance(prev_part, (QAllValues, QAllIndices)):
+            return [cur]
+        if isinstance(prev_part, QKey) or prev_part is None:
+            return list(cur.val.values.values())
+        return None
+    if cur.kind == LIST:
+        return list(cur.val)
+    if isinstance(prev_part, QAllIndices):
+        return [cur]
+    return []
 
 
 def _pvar_bindable(value, excluded: Set[str]) -> bool:
@@ -636,3 +665,232 @@ def fn_slots(rf: RulesFile) -> FnSlots:
 def precomputable_fn_vars(rf: RulesFile) -> List[tuple]:
     """Slot keys in encode order (empty = nothing to precompute)."""
     return fn_slots(rf).keys
+
+
+def precompute_fn_values(
+    rf: RulesFile, docs: List[PV]
+) -> Tuple[List[tuple], List[Dict[tuple, List[PV]]], Set[int]]:
+    """(slot keys in encode order, per-doc {slot key: [result PVs]},
+    error doc indices).
+
+    Resolution goes through the same RootScope/BlockScope machinery
+    the CPU engine uses, so chained lets (`let b = to_upper(%a)`),
+    references to file- and rule-level query lets, and literal/query
+    arguments behave identically. A document on which any function
+    raises lands in the error set — the caller routes it to the CPU
+    oracle, which reproduces the error through the normal path. (The
+    precompute is eager, so a document whose erroring rule would have
+    been when-gated to SKIP still lands in the error set — it then
+    merely evaluates on the oracle, with identical statuses.)"""
+    layout = fn_slots(rf)
+    keys = layout.keys
+    values: List[Dict[tuple, List[PV]]] = []
+    errors: Set[int] = set()
+    if not layout.slots:
+        return keys, [{} for _ in docs], errors
+    from ..core.scopes import (  # lazy
+        BlockScope,
+        RootScope,
+        ValueScope,
+        resolve_function,
+    )
+
+    def _pexpr_scopes(slot, base_scope, cache):
+        """[(origin PV, resolver)] replaying the slot's value-scope
+        path with the SAME scope shapes the oracle builds: each
+        block/type-block level resolves its query in the current scope
+        and wraps every RESOLVED value in ValueScope + BlockScope
+        (evaluator.eval_guard_block_clause:1126 /
+        eval_type_block_clause:1424 -> eval_general_block_clause:1071);
+        when-blocks keep the origin and add their lets. Origins are
+        reached by strictly-descending traversal, so each innermost
+        origin has exactly one scope chain. Query-FILTER entries
+        derive their candidate sets from the recorded query prefix,
+        mirroring scopes._retrieve_filter branch for branch. `cache`
+        memoizes the pairs per (base scope, vs_path) within one
+        document: k calls in the same scope replay its queries and
+        when-gates once, not k times."""
+        ckey = (id(base_scope),) + tuple(id(e[1]) for e in slot.vs_path)
+        hit = cache.get(ckey)
+        if hit is not None:
+            return hit
+        from ..core.evaluator import (  # lazy (cycle via scopes)
+            eval_conjunction_clauses,
+            eval_when_clause,
+        )
+        from ..core.qresult import Status
+
+        def when_passes(conditions, sc) -> bool:
+            """eval.rs:1428-1502 gate: only PASSing conditions enter
+            the block — origins behind a false/skipped guard are NOT
+            precomputed, so a guard protecting a call from bad input
+            (`when Limit == /^[0-9]+$/ { ... parse_int(Limit) ... }`)
+            keeps its documents on the device path instead of flagging
+            spurious fn errors. A RAISE during condition evaluation
+            propagates: the caller flags the doc and the oracle
+            reproduces the error."""
+            if not conditions:
+                return True
+            return (
+                eval_conjunction_clauses(
+                    conditions, sc, eval_when_clause,
+                    context=(
+                        "cfn_guard::rules::exprs::WhenGuardClause"
+                        "#disjunction"
+                    ),
+                )
+                == Status.PASS
+            )
+
+        pairs = [(None, base_scope)]
+        for entry in slot.vs_path:
+            kind, node = entry[0], entry[1]
+            if kind == "when":
+                pairs = [
+                    (o, BlockScope(node.block, sc.root(), sc))
+                    for o, sc in pairs
+                    if when_passes(node.conditions, sc)
+                ]
+                continue
+            if kind == "filter":
+                # candidates per scopes._retrieve_filter: resolve the
+                # recorded query prefix in the current scope, then
+                # expand per the part class preceding the filter
+                prefix = list(entry[2])
+                prev_part = prefix[-1] if prefix else None
+                new = []
+                for _o, sc in pairs:
+                    if prefix:
+                        curs = [
+                            qr.value
+                            for qr in sc.query(prefix)
+                            if qr.tag == RESOLVED
+                        ]
+                    else:
+                        curs = [sc.root()]
+                    for cur in curs:
+                        cands = _filter_candidates(prev_part, cur)
+                        if cands is None:
+                            # the oracle raises InternalError for
+                            # filters after such parts — route the
+                            # doc there
+                            from ..core.errors import InternalError
+
+                            raise InternalError(
+                                "filter after unexpected query part"
+                            )
+                        for cand in cands:
+                            new.append((cand, ValueScope(cand, sc)))
+                pairs = new
+                continue
+            q = node.query.query if kind == "block" else node.query
+            new = []
+            for _o, sc in pairs:
+                if kind == "type" and not when_passes(
+                    getattr(node, "conditions", None), sc
+                ):
+                    # type-block conditions gate at the OUTER scope
+                    # (eval_type_block_clause) — a non-PASS gate means
+                    # no origins at all
+                    continue
+                for qr in sc.query(q):
+                    if qr.tag != RESOLVED:
+                        continue
+                    vs = ValueScope(qr.value, sc)
+                    new.append(
+                        (qr.value, BlockScope(node.block, vs.root(), vs))
+                    )
+            pairs = new
+        cache[ckey] = pairs
+        return pairs
+
+    for i, doc in enumerate(docs):
+        per: Dict[tuple, List[PV]] = {}
+        root = RootScope(rf, doc)
+        chain_scopes: Dict[tuple, BlockScope] = {}
+        pexpr_cache: Dict[tuple, list] = {}
+
+        def scope_for(chain):
+            """Fold the slot's enclosing-Block chain (rule body +
+            nested when-blocks, all root-basis) into a scope stack so
+            chained lets and shadowing resolve like the oracle's."""
+            if not chain:
+                return root
+            key = tuple(id(b) for b in chain)
+            s = chain_scopes.get(key)
+            if s is None:
+                s = BlockScope(chain[-1], doc, scope_for(chain[:-1]))
+                chain_scopes[key] = s
+            return s
+
+        try:
+            for slot in layout.slots:
+                if slot.kind == "lit":
+                    per[slot.key] = [slot.pv]
+                elif slot.kind == "fn":
+                    per[slot.key] = [
+                        q.value
+                        for q in scope_for(slot.chain).resolve_variable(
+                            slot.var
+                        )
+                        if q.tag == RESOLVED
+                    ]
+                elif slot.kind == "pexpr":
+                    # origin-dependent inline call: one result list per
+                    # candidate origin, keyed by the origin node's path
+                    # (unique per node; the encoder maps it back to the
+                    # node index for the fn_origin column)
+                    per_origin: Dict[str, List[PV]] = {}
+                    for origin, sc in _pexpr_scopes(
+                        slot, scope_for(slot.chain), pexpr_cache
+                    ):
+                        opath = origin.path.s
+                        if opath in per_origin:
+                            continue
+                        per_origin[opath] = [
+                            q.value
+                            for q in resolve_function(
+                                slot.fx.name, slot.fx.parameters, sc
+                            )
+                            if q.tag == RESOLVED
+                        ]
+                    per[slot.key] = per_origin
+                elif slot.kind == "pvar":
+                    # cross-scope value-scope variable as clause RHS:
+                    # resolve the variable through each use-site
+                    # candidate's replayed scope chain (which lands on
+                    # the binding origin's scope, with shadowing and
+                    # single-shot caching exactly like the oracle's).
+                    # UnResolved entries would need per-origin
+                    # UnResolved accounting the kernels don't model —
+                    # such documents route to the oracle instead.
+                    per_origin = {}
+                    for origin, sc in _pexpr_scopes(
+                        slot, scope_for(slot.chain), pexpr_cache
+                    ):
+                        opath = origin.path.s
+                        if opath in per_origin:
+                            continue
+                        rs = sc.resolve_variable(slot.var)
+                        if any(q.tag != RESOLVED for q in rs):
+                            raise GuardError(
+                                "cross-scope variable resolves "
+                                "UnResolved entries; host evaluation"
+                            )
+                        per_origin[opath] = [q.value for q in rs]
+                    per[slot.key] = per_origin
+                else:  # inline expression
+                    per[slot.key] = [
+                        q.value
+                        for q in resolve_function(
+                            slot.fx.name,
+                            slot.fx.parameters,
+                            scope_for(slot.chain),
+                        )
+                        if q.tag == RESOLVED
+                    ]
+        except GuardError:
+            errors.add(i)
+            per = {}
+        values.append(per)
+    return keys, values, errors

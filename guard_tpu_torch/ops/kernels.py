@@ -18,16 +18,17 @@ row, padded to the node bucket N:
     ordering compares fold per-(origin, kind) extremes through K6
     `seg_min_max_rows`, reading them back with K1;
   * everything else — key hits, literal compares, the status lattice —
-    is elementwise torch.
+    is elementwise torch;
+  * function-variable roots (StepFnVar), precomputed on the host and
+    encoded as orphan subtrees, are selected by key id; per-origin
+    results are gated and relabelled by their origin's label in one K1
+    gather through the `fn_origin` column.
 
 Statuses are int8 0/1/2 = PASS/FAIL/SKIP: (D, N+1) per origin in node
 mode, (D,) per document in scalar (rule-root) mode. The JAX package
 picks between a one-hot and a gather formulation of its traversal
 primitives (`_use_gather`); both compute the same functions, and this
 walk ports the gather semantics only, with its sorted-set joins.
-
-Not in this slice: function-variable roots (StepFnVar). Building a walk
-for a program that has them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -70,53 +71,10 @@ _I8 = torch.int8
 _I32 = torch.int32
 
 
-_FNVARS = "the function-variable precompute slice"
-
-
-def _not_in_slice(what: str, later: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in this slice of the torch port: it comes with {later}"
-    )
-
-
-def check_slice(compiled: CompiledRules) -> None:
-    """Raise NotImplementedError if a lowered rule uses a construct this
-    slice does not evaluate: StepFnVar."""
-
-    def steps(ss):
-        for s in ss:
-            if isinstance(s, StepFnVar):
-                raise _not_in_slice("StepFnVar (function-variable roots)", _FNVARS)
-            if isinstance(s, StepFilter):
-                conj(s.conjunctions)
-            if isinstance(s, StepKeyChain):
-                steps(s.steps)
-            if isinstance(s, StepKeyInterpVar):
-                steps(s.var_steps)
-
-    def node(n):
-        if isinstance(n, CClause):
-            steps(n.steps)
-            steps(n.rhs_query_steps or [])
-        elif isinstance(n, CCountClause):
-            steps(n.steps or [])
-        elif isinstance(n, CBlockClause):
-            steps(n.query_steps)
-            conj(n.inner)
-        elif isinstance(n, CWhenBlock):
-            conj(n.inner)
-            if n.conditions is not None:
-                conj(n.conditions)
-
-    def conj(cs):
-        for disj in cs:
-            for n in disj:
-                node(n)
-
-    for rule in compiled.rules:
-        conj(rule.conjunctions)
-        if rule.conditions is not None:
-            conj(rule.conditions)
+# per-origin StepFnVar arms run and the K1 launches they made (a CUDA
+# run launches one per arm; the CPU runs the plain version and counts
+# nothing), read by chip_smoke.py's kernels line
+FNVAR_STEPS = {"per_origin": 0, "k1_launches": 0}
 
 
 class _DocArrays:
@@ -139,6 +97,9 @@ class _DocArrays:
         # needs_str_rank)
         self.struct_id = arrays.get("struct_id")
         self.str_rank = arrays.get("str_rank")
+        # candidate node of each per-origin function-result root, -1
+        # elsewhere (ir.py needs_fn_origin)
+        self.fn_origin = arrays.get("fn_origin")
 
         def slots(prefix: str) -> Dict[int, torch.Tensor]:
             w = len(prefix)
@@ -326,7 +287,24 @@ def run_step(d: _DocArrays, step: Step, sel, acc: _UnresAcc, rule_statuses=None,
         return new_sel
 
     if isinstance(step, StepFnVar):
-        raise _not_in_slice("StepFnVar (function-variable roots)", _FNVARS)
+        # precomputed function-result roots (ops/fnvars.py): orphan
+        # nodes tagged with the reserved key id; function variables
+        # never carry UnResolved entries
+        hit = d.node_key_id == step.key_id
+        if step.per_origin:
+            # per-origin results ('pexpr'): each result root carries its
+            # candidate node in fn_origin, and the incoming selection
+            # labels each candidate with its own origin label, so
+            # sel[fn_origin] both gates the result (0 when its origin is
+            # not selected) and relabels it with the origin's label. K1
+            # reads 0 at index -1, so gate and relabel are one gather
+            before = K.LAUNCHES["gather_rows"]
+            idx = torch.where(hit & (d.fn_origin >= 0), d.fn_origin, -1)
+            out = _select_at(d, sel, idx)
+            FNVAR_STEPS["per_origin"] += 1
+            FNVAR_STEPS["k1_launches"] += K.LAUNCHES["gather_rows"] - before
+            return out
+        return hit.to(_I32)
 
     if sel_is_root:
         psel = (d.node_parent == 0).to(_I32)
@@ -1275,9 +1253,7 @@ def eval_rule(d: _DocArrays, rule: CRule, rule_statuses) -> Tuple[torch.Tensor, 
 
 def build_doc_evaluator(compiled: CompiledRules):
     """fn(arrays, lits) -> (statuses (D, R) int8, unsure (D, R) bool)
-    over the tensors of `arrays_from_numpy`. Raises NotImplementedError
-    for a program outside this slice."""
-    check_slice(compiled)
+    over the tensors of `arrays_from_numpy`."""
     empty_slot = compiled.str_empty_slot
     rules = compiled.rules
 

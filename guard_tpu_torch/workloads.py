@@ -14,7 +14,11 @@ nor `__graft_entry__.py`:
     largest node bucket;
   * `XREF_RULES` / `make_xref_template` — a cross-reference policy whose
     rules compare queries with queries and interpolate `.%var` keys,
-    over templates with Parameters, Auto Scaling groups and Metadata.
+    over templates with Parameters, Auto Scaling groups and Metadata;
+  * `FNVAR_RULES` / `make_fnvar_template` — the per-resource
+    canonical-form checks of examples/rules/naming/canonical_names.guard
+    plus a function `let` and an inline call, over templates with S3
+    buckets, EC2 instances, environment tags and Parameters.
 
 Documents are plain dicts/lists (JSON-shaped).
 """
@@ -109,6 +113,58 @@ rule audited_are_buckets when %audited !empty {
 
 rule reviewed_matches_audited when %audited !empty {
     Metadata.ReviewedResources != %audited
+}
+"""
+
+
+# Function-variable policy: the three rules of
+# examples/rules/naming/canonical_names.guard (the quota call behind a
+# when-block, so a non-numeric quota SKIPs instead of raising), then
+#   environment_known   a file-level function let ('fn' slot) checked
+#                       with IN a literal list
+#   stack_name_ordered  an inline call on a root-basis clause ('expr'),
+#                       which skips (not raises) where its argument is
+#                       missing
+# The other slots: to_lower per bucket and parse_int per instance
+# ('pexpr'), %want per resource in the Tags filter ('pvar').
+FNVAR_RULES = """
+rule bucket_names_lowercase when Resources exists {
+    AWS::S3::Bucket {
+        # the canonical form of THIS bucket's name
+        Properties.BucketName == to_lower(Properties.BucketName)
+        <<
+          bucket names must already be in canonical lowercase form
+        >>
+    }
+}
+
+rule instance_size_within_class_quota when Resources exists {
+    AWS::EC2::Instance {
+        # quota is carried per instance as a string attribute
+        when Properties.ClassQuota == /^[0-9]+$/ {
+            Properties.VolumeSize <= parse_int(Properties.ClassQuota)
+        }
+    }
+}
+
+rule tags_match_resource_env when Resources exists {
+    Resources.* {
+        when Properties.Env exists {
+            let want = Properties.Env
+            # every tag group of this resource must name ITS env
+            Properties.Tags[ Env == %want ] !empty
+        }
+    }
+}
+
+let env = to_lower(Parameters.Environment)
+
+rule environment_known when Parameters exists {
+    %env IN ['prod', 'staging', 'dev']
+}
+
+rule stack_name_ordered when Parameters exists {
+    Parameters.StackName == regex_replace(Parameters.Deployment, '^(\\w+)/(\\w+)$', '${2}-${1}')
 }
 """
 
@@ -244,3 +300,55 @@ def volume_template(n_volumes: int) -> dict:
             for v in range(n_volumes)
         }
     }
+
+
+def make_fnvar_template(rng, i: int, exotic: bool = False) -> dict:
+    """A template for FNVAR_RULES: 1-2 S3 buckets (a fifth of the names
+    in mixed case), 0-2 EC2 instances with a VolumeSize and a string
+    ClassQuota (one in twenty not numeric), an environment and tag
+    groups on some resources (one group in ten naming another env), and
+    Parameters with an Environment in any case and a stack name that
+    mostly equals its deployment's parts in reverse order. `exotic` adds a number with no
+    exact device encoding (an integer beyond 64 bits), which sends the
+    template to the CPU oracle."""
+    envs = ["prod", "staging", "dev"]
+    env = str(rng.choice(envs))
+    resources = {}
+
+    def tags(own: str) -> list:
+        out = []
+        for _ in range(int(rng.integers(1, 3))):
+            e = own if rng.random() < 0.9 else str(rng.choice(envs))
+            out.append({"Env": e, "Team": f"team{int(rng.integers(0, 8))}"})
+        return out
+
+    for b in range(int(rng.integers(1, 3))):
+        name = f"logs-{env}-{i}-{b}"
+        if rng.random() < 0.2:
+            name = name.title()
+        props = {"BucketName": name}
+        if rng.random() < 0.5:
+            props["Env"] = env
+            props["Tags"] = tags(env)
+        resources[f"bucket{b}"] = {"Type": "AWS::S3::Bucket", "Properties": props}
+    for k in range(int(rng.integers(0, 3))):
+        quota = str(int(rng.choice([100, 500, 1000])))
+        if rng.random() < 0.05:
+            quota = "unlimited"
+        props = {"VolumeSize": int(rng.integers(8, 1200)), "ClassQuota": quota}
+        if rng.random() < 0.5:
+            props["Env"] = env
+            props["Tags"] = tags(env)
+        resources[f"inst{k}"] = {"Type": "AWS::EC2::Instance", "Properties": props}
+    shown = str(rng.choice([env, env.upper(), env.title()]))
+    if rng.random() < 0.05:
+        shown = "qa"  # not a known environment
+    stack = f"{env}-app{i}" if rng.random() < 0.9 else f"app{i}-{env}"
+    doc = {
+        "Resources": resources,
+        "Parameters": {"Environment": shown, "Deployment": f"app{i}/{env}",
+                       "StackName": stack},
+    }
+    if exotic:
+        doc["Metadata"] = {"BuildNumber": 2**70 + i}
+    return doc

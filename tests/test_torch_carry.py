@@ -106,3 +106,76 @@ def test_workloads_are_copies_of_the_jax_fixtures():
     assert [pv.to_plain() for pv in graft._example_docs(9, two_buckets=True)] == (
         example_docs(9, two_buckets=True)
     )
+
+
+def _fn_carry_cases():
+    from test_torch_fnvars import CASES as FN_CASES
+
+    keep = ("canonical_names", "fnvar_workload", "per_origin_nested_blocks",
+            "per_origin_in_membership", "cross_scope_var_ops_and_shadowing",
+            "json_parse_subtree_walk", "per_origin_slash_key_path_collision_routes_to_oracle")
+    return [c for c in FN_CASES if c[0] in keep]
+
+
+FN_CARRY = _fn_carry_cases()
+
+
+def _fn_both(text, docs):
+    from guard_tpu.ops.fnvars import precompute_fn_values as j_pre
+    from guard_tpu_torch.ops.fnvars import precompute_fn_values as t_pre
+
+    jrf, trf = j_parse(text, "fn.guard"), t_parse(text, "fn.guard")
+    jd, td = [j_from_plain(d) for d in docs], [t_from_plain(d) for d in docs]
+    jk, jv, je = j_pre(jrf, jd)
+    tk, tv, te = t_pre(trf, td)
+    jb, ji = j_encode(jd, fn_values=jv, fn_var_order=jk)
+    tb, ti = t_encode(td, fn_values=tv, fn_var_order=tk)
+    return (j_compile(jrf, ji), jb, ji), (t_compile(trf, ti), tb, ti), (jd, tv, tk)
+
+
+@pytest.mark.parametrize("name,text,docs", FN_CARRY, ids=[c[0] for c in FN_CARRY])
+def test_fn_result_roots_and_origin_carry_bit_identical(name, text, docs):
+    """With the same function values, the port's columns carry the
+    function-result roots (fn_key_id rows of node_key_id) and the
+    fn_origin column exactly as the JAX package's."""
+    (jc, jb, _ji), (tc, tb, _ti), _ = _fn_both(text, docs)
+    assert tc.needs_fn_origin == jc.needs_fn_origin
+    ja, ta = jc.device_arrays(jb), tc.device_arrays(tb)
+    assert list(ja) == list(ta)
+    for k in ja:
+        assert ja[k].dtype == ta[k].dtype and ja[k].tobytes() == ta[k].tobytes(), k
+    assert (ta["node_key_id"] < -2).any(), "no function-result root was tagged"
+    if tc.needs_fn_origin:
+        assert (ta["fn_origin"] >= 0).any()
+    np.testing.assert_array_equal(tb.num_exotic, jb.num_exotic)
+
+
+@pytest.mark.parametrize("name,text,docs", FN_CARRY, ids=[c[0] for c in FN_CARRY])
+def test_fn_buckets_carry_the_jax_rows(name, text, docs):
+    """The port's per-bucket encode with function values gives each
+    document the JAX batch's row, padded only to its own bucket, and
+    leaves the same documents to the oracle."""
+    from guard_tpu_torch.ops.encoder import encode_bucketed
+
+    (jc, jb, _ji), _t, (_jd, tv, tk) = _fn_both(text, docs)
+    groups, host, ti = encode_bucketed([t_from_plain(d) for d in docs],
+                                       fn_values=tv, fn_var_order=tk)
+    tc = t_compile(t_parse(text, "fn.guard"), ti)
+    ja = jc.device_arrays(jb)
+    assert sorted(host.tolist()) == np.where(jb.num_exotic)[0].tolist()
+    covered = set(host.tolist())
+    for batch, idx in groups:
+        covered.update(idx.tolist())
+        ta = tc.device_arrays(batch)
+        assert list(ta) == list(ja)
+        w = min(batch.n_nodes, jb.n_nodes)
+        for k in ja:
+            mine, theirs = ta[k][:, :w], ja[k][idx, :w]
+            if k == "struct_id":
+                # canonical-class labels are numbered per batch: the same
+                # partition of the nodes, up to a relabelling
+                pairs = set(zip(mine.ravel().tolist(), theirs.ravel().tolist()))
+                assert len({a for a, _ in pairs}) == len({b for _, b in pairs}) == len(pairs)
+                continue
+            np.testing.assert_array_equal(mine, theirs, err_msg=k)
+    assert covered == set(range(len(docs)))

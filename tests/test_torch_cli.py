@@ -2,10 +2,17 @@
 
 `python -m guard_tpu_torch validate --statuses-only --device cpu` must
 print the same stdout bytes and exit with the same code as
-`python -m guard_tpu.cli validate --backend tpu --statuses-only` on
-inputs the device decides; inputs that need the host oracle exit 5 with
-a message saying so. The port imports neither JAX nor guard_tpu, and
-without a CUDA device it refuses to run unless asked for the CPU.
+`python -m guard_tpu.cli validate --backend tpu --statuses-only`,
+also on inputs the device cannot decide, which both rerun on their CPU
+oracle: function variables, host rules, unsure bits, exotic numbers
+and functions that raise. The port imports neither JAX nor guard_tpu,
+and without a CUDA device it refuses to run unless asked for the CPU.
+
+The JAX package puts an optional native statuses engine (native/,
+built on demand) in front of its CPU evaluator where that engine
+accepts the rules; a failing document it settles reports no clause
+detail. The port's oracle is the CPU evaluator, so where an input
+reaches the oracle the JAX side runs with the native engine off.
 """
 
 import json
@@ -97,6 +104,44 @@ def test_module_entry_point_matches(corpus_dir):
     assert proc.stdout == out_j
 
 
+@pytest.fixture
+def python_oracle(monkeypatch):
+    """The JAX package with its CPU evaluator as the only oracle, and its
+    serial encode (which its own tests hold byte-identical to the
+    parallel one) in place of spawned ingest workers."""
+    from guard_tpu.ops import native_oracle
+
+    monkeypatch.setattr(native_oracle, "_load", lambda: None)
+    monkeypatch.setenv("GUARD_TPU_INGEST_WORKERS", "0")
+
+
+def run_jax_err(args):
+    w = JaxWriter.buffered()
+    rc = jax_cli.run(["validate", "--backend", "tpu", "--statuses-only", *args], writer=w)
+    return rc, w.stripped(), w.err_to_stripped()
+
+
+def run_port_evaluation(args):
+    """The port's CLI result and the Evaluation it reported from."""
+    from guard_tpu_torch.commands import validate as port_validate
+
+    seen = []
+    real = port_validate.Validate.execute
+
+    def execute(self, writer, reader):
+        try:
+            return real(self, writer, reader)
+        finally:
+            seen.append(self.last_evaluation)
+
+    port_validate.Validate.execute = execute
+    try:
+        got = run_port(args)
+    finally:
+        port_validate.Validate.execute = real
+    return got, seen[0]
+
+
 @pytest.mark.parametrize("rules,doc_name,doc,why", [
     (graft._DRYRUN_RULES, "d.json", '{"Resources": {}}', "do not lower"),
     ("rule s { Resources.*.Properties.Size empty }", "d.json",
@@ -106,19 +151,141 @@ def test_module_entry_point_matches(corpus_dir):
     ("rule r { Resources.a.b == Resources.c.d }", "d.json", '{"Resources": {}}',
      "pairwise"),
 ])
-def test_host_oracle_inputs_exit_5(tmp_path, rules, doc_name, doc, why):
+def test_host_oracle_inputs_exit_5(python_oracle, tmp_path, rules, doc_name, doc, why):
+    """The inputs the JAX package sends to its oracle (host rules, an
+    unsure bit, an exotic number) rerun on the port's CPU oracle instead
+    of exiting 5: same stdout, stderr and exit code as the JAX package,
+    one rerun each. Query-RHS compares run on the device."""
     (tmp_path / "r.guard").write_text(rules)
     (tmp_path / doc_name).write_text(doc)
     args = ["-r", str(tmp_path / "r.guard"), "-d", str(tmp_path / doc_name)]
-    rc, out, err = run_port(args)
-    if why == "pairwise":
-        # query-RHS compares run on the device now: same bytes as JAX
-        rc_j, out_j = run_jax(args)
-        assert rc == rc_j != 5 and out == out_j, err
-        return
-    assert rc == 5 and out == ""
-    assert why in err
-    assert "needs the host oracle" in err
+    (rc, out, err), ev = run_port_evaluation(args)
+    assert (rc, out, err) == run_jax_err(args)
+    # `empty` on a number is unsure on the device and an error on the
+    # oracle, which both packages report with exit code 5
+    assert (rc == 5) == (why == "cannot decide") == (err != "")
+    assert ev.oracle_docs == (0 if why == "pairwise" else 1)
+
+
+@pytest.mark.parametrize("rules,doc", [
+    # a list IN a list whose first element is not a list: subset mode,
+    # decided per pair by the oracle
+    ("rule r { Resources.* { Tags in Alias } }",
+     {"Resources": {"a": {"Tags": ["x", "y"], "Alias": ["y", "x", "z"]}}}),
+    # a number among the interpolated keys
+    ("let names = Selection.targets\nrule r { Resources.%names exists }",
+     {"Resources": {"a": {}}, "Selection": {"targets": ["a", 3]}}),
+])
+def test_unsure_query_rhs_inputs_exit_5(python_oracle, tmp_path, rules, doc):
+    """A document with an unsure bit reruns on the oracle, whose answer
+    stands: same bytes and exit code as the JAX package."""
+    (tmp_path / "r.guard").write_text(rules)
+    (tmp_path / "d.json").write_text(json.dumps(doc))
+    args = ["-r", str(tmp_path / "r.guard"), "-d", str(tmp_path / "d.json"),
+            "--show-summary", "all"]
+    (rc, out, err), ev = run_port_evaluation(args)
+    assert (rc, out, err) == run_jax_err(args)
+    assert ev.oracle_docs == 1 and ev.files[0].unsure.any()
+
+
+def test_function_variables_still_refused(python_oracle, tmp_path):
+    """Function variables are no longer refused: canonical_names.guard
+    lowers with no host rule, its walk selects the function results,
+    and the output equals the JAX package's."""
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops.encoder import encode_batch
+    from guard_tpu_torch.ops.fnvars import precompute_fn_values
+    from guard_tpu_torch.ops.ir import compile_rules_file
+    from guard_tpu_torch.ops.kernels import build_doc_evaluator
+
+    rules = ROOT / "examples" / "rules" / "naming" / "canonical_names.guard"
+    doc = {"Resources": {"b": {"Type": "AWS::S3::Bucket",
+                               "Properties": {"BucketName": "Logs", "Env": "prod"}}}}
+    (tmp_path / "d.json").write_text(json.dumps(doc))
+    args = ["-r", str(rules), "-d", str(tmp_path / "d.json"), "--show-summary", "all"]
+    (rc, out, err), ev = run_port_evaluation(args)
+    assert (rc, out, err) == run_jax_err(args)
+    assert rc == 19 and ev.oracle_docs == 0
+    rf = parse_rules_file(rules.read_text(), rules.name)
+    keys, vals, err_docs = precompute_fn_values(rf, [from_plain(doc)])
+    assert not err_docs
+    _batch, interner = encode_batch([from_plain(doc)], fn_values=vals, fn_var_order=keys)
+    compiled = compile_rules_file(rf, interner)
+    assert compiled.fn_vars and not compiled.host_rules
+    assert callable(build_doc_evaluator(compiled))
+
+
+def _canonical_template(fail: bool) -> dict:
+    name = "Logs-Prod" if fail else "logs-prod"
+    return {"Resources": {
+        "b": {"Type": "AWS::S3::Bucket", "Properties": {"BucketName": name}},
+        "i": {"Type": "AWS::EC2::Instance",
+              "Properties": {"VolumeSize": 50, "ClassQuota": "100"}},
+        "t": {"Type": "AWS::SQS::Queue",
+              "Properties": {"Env": "prod", "Tags": {"g1": {"Env": "prod"}}}},
+    }}
+
+
+CLI_CASES = {
+    # canonical_names.guard over a PASS and a FAIL template
+    "canonical_pass_fail": (
+        (ROOT / "examples" / "rules" / "naming" / "canonical_names.guard").read_text(),
+        {"pass.json": _canonical_template(False), "fail.json": _canonical_template(True)},
+    ),
+    # parse_int raises on this quota: the document goes to the oracle,
+    # whose error goes to stderr and makes the exit code 5
+    "function_error": (
+        (ROOT / "examples" / "rules" / "naming" / "canonical_names.guard").read_text(),
+        {"bad.json": {"Resources": {"i": {
+            "Type": "AWS::EC2::Instance",
+            "Properties": {"VolumeSize": 5, "ClassQuota": "abc"}}}},
+         "ok.json": _canonical_template(False)},
+    ),
+    # a now() host rule: every document reruns on the oracle
+    "now_host_rule": (
+        "rule fresh { let t = now()\n %t > 0 }\n"
+        "rule named when Resources exists { Resources.*.Properties.BucketName == /^[a-z-]+$/ }\n",
+        {"pass.json": _canonical_template(False), "fail.json": _canonical_template(True)},
+    ),
+    # a number with no exact device encoding
+    "exotic_number": (
+        (ROOT / "examples" / "rules" / "naming" / "canonical_names.guard").read_text(),
+        {"exotic.json": dict(_canonical_template(True), Metadata={"Build": 2**70}),
+         "ok.json": _canonical_template(False)},
+    ),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLI_CASES))
+def test_module_cli_matches_jax_cli_on_oracle_inputs(tmp_path, case):
+    """`python -m guard_tpu_torch` against `python -m guard_tpu.cli`, as
+    processes: stdout bytes, stderr bytes and the exit code."""
+    rules, docs = CLI_CASES[case]
+    (tmp_path / "r.guard").write_text(rules)
+    data = tmp_path / "data"
+    data.mkdir()
+    for name, doc in docs.items():
+        (data / name).write_text(json.dumps(doc))
+    (tmp_path / "no_native").mkdir()
+    env = dict(os.environ, JAX_PLATFORMS="cpu", GUARD_TPU_INGEST_WORKERS="0",
+               GUARD_TPU_NATIVE_DIR=str(tmp_path / "no_native"))
+    args = ["validate", "--statuses-only", "-r", str(tmp_path / "r.guard"), "-d", str(data)]
+    for show in ([], ["--show-summary", "all"]):
+        jax_proc = subprocess.run(
+            [sys.executable, "-m", "guard_tpu.cli", *args, "--backend", "tpu", *show],
+            cwd=ROOT, capture_output=True, timeout=300, env=env,
+        )
+        port_proc = subprocess.run(
+            [sys.executable, "-m", "guard_tpu_torch", *args, "--device", "cpu", *show],
+            cwd=ROOT, capture_output=True, timeout=300, env=env,
+        )
+        assert port_proc.returncode == jax_proc.returncode
+        assert port_proc.stdout == jax_proc.stdout
+        assert port_proc.stderr == jax_proc.stderr
+    want_rc = {"canonical_pass_fail": 19, "function_error": 5, "now_host_rule": 19,
+               "exotic_number": 19}[case]
+    assert port_proc.returncode == want_rc
 
 
 def test_missing_statuses_only_is_refused(tmp_path):
@@ -234,39 +401,3 @@ def test_xref_rules_cli_matches_jax(tmp_path):
         rc_p, out_p, err_p = run_port(args)
         assert rc_p == rc_j == 19, err_p
         assert out_p == out_j
-
-
-@pytest.mark.parametrize("rules,doc", [
-    # a list IN a list whose first element is not a list: subset mode,
-    # decided per pair by the oracle
-    ("rule r { Resources.* { Tags in Alias } }",
-     {"Resources": {"a": {"Tags": ["x", "y"], "Alias": ["y", "x", "z"]}}}),
-    # a number among the interpolated keys
-    ("let names = Selection.targets\nrule r { Resources.%names exists }",
-     {"Resources": {"a": {}}, "Selection": {"targets": ["a", 3]}}),
-])
-def test_unsure_query_rhs_inputs_exit_5(tmp_path, rules, doc):
-    (tmp_path / "r.guard").write_text(rules)
-    (tmp_path / "d.json").write_text(json.dumps(doc))
-    rc, out, err = run_port(["-r", str(tmp_path / "r.guard"), "-d", str(tmp_path / "d.json")])
-    assert rc == 5 and out == ""
-    assert "cannot decide" in err and "needs the host oracle" in err
-
-
-def test_function_variables_still_refused(tmp_path):
-    from guard_tpu_torch.core.parser import parse_rules_file
-    from guard_tpu_torch.core.values import from_plain
-    from guard_tpu_torch.ops.encoder import encode_batch
-    from guard_tpu_torch.ops.ir import compile_rules_file
-    from guard_tpu_torch.ops.kernels import check_slice
-
-    rules = ROOT / "examples" / "rules" / "naming" / "canonical_names.guard"
-    doc = {"Resources": {"b": {"Type": "AWS::S3::Bucket",
-                               "Properties": {"BucketName": "Logs", "Env": "prod"}}}}
-    (tmp_path / "d.json").write_text(json.dumps(doc))
-    rc, out, err = run_port(["-r", str(rules), "-d", str(tmp_path / "d.json")])
-    assert rc == 5 and out == "" and "function variables" in err
-    _batch, interner = encode_batch([from_plain(doc)])
-    compiled = compile_rules_file(parse_rules_file(rules.read_text(), rules.name), interner)
-    with pytest.raises(NotImplementedError, match="StepFnVar"):
-        check_slice(compiled)

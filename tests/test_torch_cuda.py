@@ -149,3 +149,59 @@ def test_cuda_gather_rows_wide_source_matches_plain(cuda_device, n, s):
     got = K.gather_rows(v, i)
     torch.cuda.synchronize()
     assert torch.equal(got, plain.gather_rows(v, i))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 1024])
+def test_cuda_gather_with_step_fn_var_idx_matches_plain(cuda_device, n):
+    """K1 as the StepFnVar arm calls it: idx is the result root's
+    fn_origin where the root's key id hits and it has an origin, else
+    -1, so one gather gates and relabels each per-origin result."""
+    rng = np.random.default_rng(TREE_SEED + 3 * n)
+    d = 8
+    sel = rng.integers(0, n + 1, size=(d, n)).astype(np.int32)
+    sel[rng.random((d, n)) < 0.5] = 0  # unselected origins
+    fn_origin = np.full((d, n), -1, np.int32)
+    key = np.full((d, n), -2, np.int32)
+    roots = rng.random((d, n)) < 0.2
+    fn_origin[roots] = rng.integers(0, n, size=int(roots.sum()))
+    key[roots] = rng.choice([-1000, -1001], size=int(roots.sum()))
+    t = {k: torch.from_numpy(v).to(cuda_device)
+         for k, v in (("sel", sel), ("fn_origin", fn_origin), ("key", key))}
+    hit = t["key"] == -1000
+    idx = torch.where(hit & (t["fn_origin"] >= 0), t["fn_origin"], -1)
+    got = K.gather_rows(t["sel"], idx)
+    assert torch.equal(got, plain.gather_rows(t["sel"], idx))
+    want = np.where(hit.cpu().numpy() & (fn_origin >= 0),
+                    np.take_along_axis(sel, np.maximum(fn_origin, 0), axis=1), 0)
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_fnvar_walk_matches_cpu(cuda_device):
+    """One statuses-only evaluation of the FNVAR_RULES workload on the
+    card equals the same evaluation on the CPU, and its per-origin
+    StepFnVar arms each launched K1 once."""
+    from guard_tpu_torch.commands.validate import RuleFile
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops import kernels as walk
+    from guard_tpu_torch.ops.backend import evaluate
+    from guard_tpu_torch.workloads import FNVAR_RULES, make_fnvar_template
+
+    rng = np.random.default_rng(SEED)
+    docs = [from_plain(make_fnvar_template(rng, i, exotic=i % 50 == 7))
+            for i in range(512)]
+    rf = RuleFile("fn.guard", "fn.guard", FNVAR_RULES,
+                  parse_rules_file(FNVAR_RULES, "fn.guard"))
+    before = dict(walk.FNVAR_STEPS)
+    card = evaluate([rf], docs, cuda_device).files[0]
+    steps = walk.FNVAR_STEPS["per_origin"] - before["per_origin"]
+    k1 = walk.FNVAR_STEPS["k1_launches"] - before["k1_launches"]
+    cpu = evaluate([rf], docs, "cpu").files[0]
+    assert steps > 0 and k1 == steps
+    assert card.host_docs == cpu.host_docs and len(card.host_docs) >= 10
+    assert np.array_equal(card.statuses, cpu.statuses)
+    assert np.array_equal(card.unsure, cpu.unsure)
+    for a, b in zip(card.rim, cpu.rim):
+        assert np.array_equal(a, b)
