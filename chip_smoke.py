@@ -7,16 +7,20 @@ Phases, each of which must pass (any failure exits non-zero and prints
 no result line):
 
 1. Card and build: print the card's name and power limit
-   (nvidia-smi), build the six CUDA kernels from
-   guard_tpu_torch/csrc/guard_kernels.cu (K1-K3) and
+   (nvidia-smi), build the seven CUDA kernels from
+   guard_tpu_torch/csrc/guard_kernels.cu (K1-K3, K7) and
    guard_tpu_torch/csrc/guard_joins.cu (K4-K6), one nvcc per source,
    started together.
 2. Kernels against their plain PyTorch versions on the card, on seeded
    inputs: K1-K3 at N in {64, 1024, 8192, 65536} with D chosen so each
    (D, N) int32 tensor holds at least 64 MB, K4-K6 at N in {64, 1024,
-   65536} with 16 MB per (D, N) column: outputs must be equal (exact
-   integer results, tolerance 0); kernel and plain times are CUDA-event
-   medians of 20 runs.
+   65536} with 16 MB per (D, N) column, K7 at D in {1, 4096, 65536,
+   1048576} x R in {1, 4, 37, 512, 1024, 1028} (one byte or four a
+   load, up to two column tiles) with n_valid in {0, D - 3, D} and statuses outside 0..2:
+   outputs must be equal (exact integer results, tolerance 0); kernel
+   and plain times are CUDA-event medians of 20 runs; a kernel's
+   device time (`device_ms`) is that of 20 calls captured into one CUDA
+   graph and replayed, without the wrapper's host cost.
 3. The slice at real size, through the user's entry point
    (commands.validate.Validate, statuses-only): the 4-rule security
    policy over 65,536 seeded templates plus one 12,000-volume template
@@ -38,6 +42,16 @@ no result line):
    rules over the example documents, and all 249 rules files of
    corpus/rules over the corpus's own test inputs, each on the card and
    on the CPU, exactly equal.
+   Then the per-rule summary (phase `summary`): the security policy over
+   65,536 seeded templates plus the volume template, built in memory,
+   encoded per bucket and counted by DeviceBatchEvaluator.with_summary
+   (the walk, then K7) bucket by bucket, with every counter set to 0
+   just before and read just after: K7 launches once per bucket, and
+   the counts equal numpy's counts of the statuses with_summary returned
+   and of the bucketed evaluation's statuses; the first 2,048 templates
+   equal a CPU evaluation. Then the entry points (phase
+   `entry`): guard_tpu_torch.entry.entry()'s forward against the CPU,
+   and dryrun().
 4. The CLI: `python -m guard_tpu_torch validate --statuses-only` in a
    subprocess over one PASS and one FAIL template: rc 19 and the
    expected stdout bytes.
@@ -45,10 +59,13 @@ no result line):
 
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on its main path (K1-K3 the security policy's, K4-K6
-the cross-reference policy's; every path's in `launches_by_path`, and
+the cross-reference policy's, K7 the summary's; every path's in
+`launches_by_path`, and
 for K1 the launches made by the StepFnVar arm), its error against the plain version, its
-time, the plain version's, the bound (bytes over the card's memory
-rate) and a library call's time where one computes the same function. The last line is
+time (`ms`, host cost included, and `device_ms`, the card's alone), the
+plain version's, the bound (bytes over the card's memory rate) and a
+library call's time where one computes the same function (also both
+ways). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -73,6 +90,9 @@ SWEEP_N = (64, 1024, 8192, 65536)
 SWEEP_BYTES = 64 << 20
 JOIN_SWEEP_N = (64, 1024, 65536)
 JOIN_SWEEP_BYTES = 16 << 20
+SUMMARY_SWEEP_D = (1, 4096, 65536, 1 << 20)
+SUMMARY_SWEEP_R = (1, 4, 37, 512, 1024, 1028)
+N_SUMMARY_CHECK = 2048  # summary templates held against the CPU
 REPS = 20
 SOURCES = {
     "gather_rows": "guard_tpu_torch/csrc/guard_kernels.cu",
@@ -81,6 +101,7 @@ SOURCES = {
     "set_count_rows": "guard_tpu_torch/csrc/guard_joins.cu",
     "distinct_first_rows": "guard_tpu_torch/csrc/guard_joins.cu",
     "seg_min_max_rows": "guard_tpu_torch/csrc/guard_joins.cu",
+    "rule_summary": "guard_tpu_torch/csrc/guard_kernels.cu",
 }
 REPLACES = {
     "gather_rows": "guard_tpu/ops/kernels.py:208",  # _parent_select (+ _select_at :349)
@@ -89,8 +110,12 @@ REPLACES = {
     "set_count_rows": "guard_tpu/ops/kernels.py:926",  # _set_count_sorted (+ _runs :914, _in_set_sorted :967)
     "distinct_first_rows": "guard_tpu/ops/kernels.py:978",  # _distinct_first_sorted
     "seg_min_max_rows": "guard_tpu/ops/kernels.py:993",  # _seg_min_max_keys
+    # _shared_evaluator_fns.summarize (:338-349) via with_summary (:540)
+    "rule_summary": "guard_tpu/parallel/mesh.py:338",
 }
 JOINS = ("set_count_rows", "distinct_first_rows", "seg_min_max_rows")
+# the kernels of the walk and the rim; K7 runs only behind with_summary
+WALK_KERNELS = tuple(name for name in SOURCES if name != "rule_summary")
 # the K4-K6 function that tells whether a shape takes the global branch
 GLOBAL_BRANCH = {
     "set_count_rows": ("guard_set_count_scratch", lambda shape: shape[2]),
@@ -143,6 +168,37 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call without its host cost: `reps` calls
+    captured into one CUDA graph, the graph replayed between CUDA events,
+    the median of 5 replays divided by `reps`. For the kernel wrappers
+    only: a plain version that waits on the card cannot be captured."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return statistics.median(times)
 
 
@@ -265,6 +321,18 @@ def k6_bytes(d, n, s):
     return 13 * d * n + 16 * d * s
 
 
+def k7_bytes(n_valid, r):
+    # the valid rows' int8 statuses read, three int32 counts per rule written
+    return n_valid * r + 12 * r
+
+
+def np_counts(statuses):
+    """numpy's per-rule PASS, FAIL and SKIP counts of (D, R) statuses."""
+    import numpy as np
+
+    return np.stack([(statuses == k).sum(axis=0) for k in (0, 1, 2)])
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -379,7 +447,41 @@ def phase_kernel_sweep(device) -> dict:
                 raise AssertionError(f"rim_reduce differs from plain at D={d} R={r}")
         del args
     torch.cuda.empty_cache()
+    sweep["rule_summary"] = rule_summary_sweep(device, gen)
     return sweep
+
+
+def rule_summary_sweep(device, gen) -> list:
+    """K7 against its plain version at every (D, R) of the sweep and
+    n_valid in {0, D - 3, D}, with values outside 0..2; times at n_valid
+    D. Takes only the kernels' public wrappers, so it also times another
+    checkout's K7 (one imported ahead of this one on sys.path)."""
+    import torch
+
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.kernels import plain
+
+    rows = []
+    for d in SUMMARY_SWEEP_D:
+        for r in SUMMARY_SWEEP_R:
+            # statuses and values outside 0..2, which count nowhere
+            st = torch.randint(-3, 6, (d, r), generator=gen, device=device, dtype=torch.int8)
+            for n_valid in sorted({0, max(d - 3, 0), d}):
+                ok = _equal(K.rule_summary(st, n_valid), plain.rule_summary(st, n_valid))
+                if not ok:
+                    raise AssertionError(
+                        f"rule_summary differs from plain at D={d} R={r} n_valid={n_valid}"
+                    )
+            rows.append({
+                "D": d, "R": r, "n_valid": [0, max(d - 3, 0), d], "equal": True,
+                "ms": cuda_ms(lambda: K.rule_summary(st, d)),
+                "device_ms": graph_ms(lambda: K.rule_summary(st, d)),
+                "plain_ms": cuda_ms(lambda: plain.rule_summary(st, d)),
+                "bytes": k7_bytes(d, r),
+            })
+            del st
+        torch.cuda.empty_cache()
+    return rows
 
 
 def write_corpus(dirpath: Path, docs) -> None:
@@ -542,7 +644,7 @@ def phase_xref(device, tmp: Path):
     info, ev = drive_validate(device, tmp, "xref", XREF_RULES, docs, per_rule=True)
     if device.type != "cuda":
         return info, ev  # a CPU rehearsal launches no kernel
-    for name in K.NAMES:
+    for name in WALK_KERNELS:
         check(info["launches"][name] > 0, f"kernel {name} never launched on the xref path")
     lib = K._lib()
     info["global_branch_launches"] = {}
@@ -814,6 +916,134 @@ def phase_cli(tmp: Path) -> dict:
     return {"rc": proc.returncode, "stdout_lines": len(proc.stdout.splitlines())}
 
 
+def phase_summary(device) -> dict:
+    """Slice 4's main path: the per-rule counts of the security policy
+    at real size through DeviceBatchEvaluator.with_summary, one bucket
+    at a time, every kernel counter set to 0 just before and read just
+    after. The templates are built in memory (no files to parse)."""
+    import numpy as np
+    import torch
+
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops.encoder import encode_bucketed, take_doc_subset
+    from guard_tpu_torch.ops.ir import FAIL, PASS, compile_rules_file
+    from guard_tpu_torch.parallel.device import DeviceBatchEvaluator, evaluate_groups
+    from guard_tpu_torch.workloads import RULES, make_template, volume_template
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 4)
+    docs = [from_plain(make_template(rng, i)) for i in range(N_TEMPLATES)]
+    docs.append(from_plain(volume_template(N_VOLUMES)))
+    n_docs = len(docs)
+    t0 = time.perf_counter()
+    groups, oversize, interner = encode_bucketed(docs)
+    encode_s = time.perf_counter() - t0
+    del docs
+    check(len(oversize) == 0, f"{len(oversize)} documents left to the host")
+    compiled = compile_rules_file(parse_rules_file(RULES, "security.guard"), interner)
+    n_rules = len(compiled.rules)
+    check(n_rules == 4 and not compiled.host_rules, "RULES did not lower to 4 device rules")
+    ev = DeviceBatchEvaluator(compiled, device)
+
+    K.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    results = [ev.with_summary(batch) for batch, _idx in groups]
+    sync(device)
+    summary_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    shapes = {k: dict(v) for k, v in K.SHAPES.items()}
+
+    statuses = np.zeros((n_docs, n_rules), np.int8)
+    counts = np.zeros((3, n_rules), np.int64)
+    for (batch, idx), (st, c) in zip(groups, results):
+        check(st.shape == (batch.n_docs, n_rules) and st.dtype == np.int8,
+              f"with_summary statuses {st.shape} {st.dtype}")
+        check(c.shape == (3, n_rules) and c.dtype == np.int32, f"counts {c.shape} {c.dtype}")
+        statuses[idx] = st
+        counts += c
+    check(np.array_equal(counts, np_counts(statuses)),
+          "summed counts differ from the statuses' counts")
+    check(int(counts.sum()) == n_docs * n_rules, "counts do not cover every pair")
+    check(counts[PASS].sum() > 0 and counts[FAIL].sum() > 0, "degenerate counts")
+    bucketed = evaluate_groups(ev, n_rules, groups, (), n_docs)[0]
+    check(np.array_equal(bucketed, statuses), "with_summary and bucketed statuses differ")
+    check(np.array_equal(np_counts(bucketed), counts),
+          "counts differ from the bucketed evaluation's")
+    n_big = max(b.n_nodes for b, _ in groups)
+    check(n_big == 65536, f"largest bucket {n_big} nodes")
+
+    # the first templates on the CPU, bucket by bucket
+    cpu = DeviceBatchEvaluator(compiled, "cpu")
+    checked = 0
+    for (batch, idx), (st, _c) in zip(groups, results):
+        sel = np.where(idx < N_SUMMARY_CHECK)[0]
+        if len(sel) == 0:
+            continue
+        cpu_st, cpu_c = cpu.with_summary(take_doc_subset(batch, sel))
+        check(np.array_equal(cpu_st, st[sel]), "statuses differ from the CPU's")
+        check(np.array_equal(cpu_c, np_counts(cpu_st)), "CPU counts differ from its statuses")
+        checked += len(sel)
+    check(checked == min(N_SUMMARY_CHECK, n_docs), f"{checked} templates held against the CPU")
+
+    buckets = []
+    for (batch, _idx), (st, c) in zip(groups, results):
+        entry = {"D": batch.n_docs, "N": batch.n_nodes, "counts": c.tolist()}
+        if device.type == "cuda":
+            t_st = torch.from_numpy(st).to(device)
+            entry["k7_ms"] = cuda_ms(lambda: K.rule_summary(t_st, batch.n_docs))
+        buckets.append(entry)
+    info = {
+        "docs": n_docs, "rules": n_rules, "counts": counts.tolist(),
+        "buckets": buckets, "encode_s": encode_s, "summary_s": summary_s,
+        "cpu_checked_docs": checked, "wall_s": time.perf_counter() - t_phase,
+        "launches": launches, "shapes": shapes,
+    }
+    if device.type != "cuda":
+        return info  # a CPU rehearsal launches no kernel
+    check(launches["rule_summary"] == len(groups),
+          f"K7 launched {launches['rule_summary']} times for {len(groups)} buckets")
+    for name in ("gather_rows", "segment_sum_rows"):
+        check(launches[name] > 0, f"kernel {name} never launched on the summary path")
+    return info
+
+
+def phase_entry(device) -> dict:
+    """The entry points: entry()'s forward on the card against
+    the CPU, then dryrun() (its own checks, the CPU parity among them),
+    every kernel counter set to 0 just before and read just after."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from guard_tpu_torch import entry as port_entry
+    from guard_tpu_torch import kernels as K
+
+    K.reset_launches()
+    sync(device)
+    forward, args = port_entry.entry(device)
+    statuses, _unsure = forward(*args)
+    card = statuses.cpu().numpy()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _st, counts = port_entry.dryrun(device)
+    sync(device)
+    launches = dict(K.LAUNCHES)
+    cpu_forward, cpu_args = port_entry.entry("cpu")
+    cpu = cpu_forward(*cpu_args)[0].numpy()
+    check(card.shape == cpu.shape and card.shape[0] == 8, f"entry statuses {card.shape}")
+    check(np.array_equal(card, cpu), "entry statuses differ from the CPU's")
+    line = out.getvalue().strip()
+    check(line.startswith("dryrun OK"), f"dryrun printed {line!r}")
+    if device.type == "cuda":
+        check(launches["rule_summary"] == 1, "dryrun's with_summary did not launch K7")
+    return {"entry_statuses": card.tolist(), "dryrun": line,
+            "counts": counts.tolist(), "launches": launches}
+
+
 def main_shape(shapes: dict, name: str):
     """The launch shape of a kernel that moved the most elements on the
     main path."""
@@ -824,16 +1054,19 @@ def main_shape(shapes: dict, name: str):
     return max(shapes[name].items(), key=volume)[0]
 
 
-def contract_kernels(device, slice_info: dict, xref_info: dict, fnvar_info: dict,
-                     sweep: dict, card: str) -> list:
+def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
     """Each kernel at its main-path shape (K1-K3 from the security
-    policy's run, K4-K6 from the cross-reference policy's): error
-    against plain, times, bound and library time."""
+    policy's run, K4-K6 from the cross-reference policy's, K7 from the
+    summary's): error against plain, times (CUDA events around one call,
+    and the device time of a graph replay), bound and library time (both
+    ways where a library call computes the same function).
+    `infos` maps each path's name to its phase's result."""
     import torch
 
     from guard_tpu_torch import kernels as K
     from guard_tpu_torch.kernels import plain
 
+    slice_info, xref_info = infos["security"], infos["xref"]
     rate = hbm_bytes_per_s(card)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 1)
@@ -846,6 +1079,7 @@ def contract_kernels(device, slice_info: dict, xref_info: dict, fnvar_info: dict
         "name": "gather_rows", "shape": {"D": d, "N": n, "S": s},
         "max_abs_err": _max_abs_err(K.gather_rows(vec, idx), plain.gather_rows(vec, idx)),
         "ms": cuda_ms(lambda: K.gather_rows(vec, idx)),
+        "device_ms": graph_ms(lambda: K.gather_rows(vec, idx)),
         "plain_ms": cuda_ms(lambda: plain.gather_rows(vec, idx)),
         "bound_ms": k1_bytes(d, n, s) / rate * 1e3,
         # torch.gather does not mask negative indices: no one call
@@ -862,10 +1096,15 @@ def contract_kernels(device, slice_info: dict, xref_info: dict, fnvar_info: dict
             K.segment_sum_rows(val, seg, s), plain.segment_sum_rows(val, seg, s)
         ),
         "ms": cuda_ms(lambda: K.segment_sum_rows(val, seg, s)),
+        "device_ms": graph_ms(lambda: K.segment_sum_rows(val, seg, s)),
         "plain_ms": cuda_ms(lambda: plain.segment_sum_rows(val, seg, s)),
         "bound_ms": k2_bytes(d, n, s) / rate * 1e3,
         # every segment id valid here, so scatter_add_ computes the same
         "library_ms": cuda_ms(
+            lambda: torch.zeros((d, s), dtype=torch.int32, device=device)
+            .scatter_add_(1, seg_long, val)
+        ),
+        "library_device_ms": graph_ms(
             lambda: torch.zeros((d, s), dtype=torch.int32, device=device)
             .scatter_add_(1, seg_long, val)
         ),
@@ -877,6 +1116,7 @@ def contract_kernels(device, slice_info: dict, xref_info: dict, fnvar_info: dict
         "name": "rim_reduce", "shape": {"D": d, "R": r, "G": g, "F": f},
         "max_abs_err": _max_abs_err(K.rim_reduce(*args, g, f), plain.rim_reduce(*args, g, f)),
         "ms": cuda_ms(lambda: K.rim_reduce(*args, g, f)),
+        "device_ms": graph_ms(lambda: K.rim_reduce(*args, g, f)),
         "plain_ms": cuda_ms(lambda: plain.rim_reduce(*args, g, f)),
         "bound_ms": k3_bytes(d, r, g, f) / rate * 1e3,
         "library_ms": None,
@@ -890,6 +1130,7 @@ def contract_kernels(device, slice_info: dict, xref_info: dict, fnvar_info: dict
         "name": "set_count_rows", "shape": {"D": d, "Nq": nq, "Ns": ns},
         "max_abs_err": _max_abs_err(K.set_count_rows(*q, *st), plain.set_count_rows(*q, *st)),
         "ms": cuda_ms(lambda: K.set_count_rows(*q, *st)),
+        "device_ms": graph_ms(lambda: K.set_count_rows(*q, *st)),
         "plain_ms": cuda_ms(lambda: plain.set_count_rows(*q, *st)),
         "bound_ms": k4_bytes(d, nq, ns) / rate * 1e3,
         "library_ms": None,
@@ -904,6 +1145,7 @@ def contract_kernels(device, slice_info: dict, xref_info: dict, fnvar_info: dict
         "name": "distinct_first_rows", "shape": {"D": d, "N": n},
         "max_abs_err": _max_abs_err(K.distinct_first_rows(*q), plain.distinct_first_rows(*q)),
         "ms": cuda_ms(lambda: K.distinct_first_rows(*q)),
+        "device_ms": graph_ms(lambda: K.distinct_first_rows(*q)),
         "plain_ms": cuda_ms(lambda: plain.distinct_first_rows(*q)),
         "bound_ms": k5_bytes(d, n) / rate * 1e3,
         "library_ms": None,
@@ -933,28 +1175,43 @@ def contract_kernels(device, slice_info: dict, xref_info: dict, fnvar_info: dict
             K.seg_min_max_rows(seg, mask, hi, lo, s), plain.seg_min_max_rows(seg, mask, hi, lo, s)
         ),
         "ms": cuda_ms(lambda: K.seg_min_max_rows(seg, mask, hi, lo, s)),
+        "device_ms": graph_ms(lambda: K.seg_min_max_rows(seg, mask, hi, lo, s)),
         "plain_ms": cuda_ms(lambda: plain.seg_min_max_rows(seg, mask, hi, lo, s)),
         "bound_ms": k6_bytes(d, n, s) / rate * 1e3,
         # scatter_reduce_ amin + amax over the packed int64 keys
         "library_ms": cuda_ms(library),
+        "library_device_ms": graph_ms(library),
     })
+
+    d, r, n_valid = main_shape(infos["summary"]["shapes"], "rule_summary")
+    st = torch.randint(0, 3, (d, r), generator=gen, device=device, dtype=torch.int8)
+    out.append({
+        "name": "rule_summary", "shape": {"D": d, "R": r, "n_valid": n_valid},
+        "max_abs_err": _max_abs_err(K.rule_summary(st, n_valid),
+                                    plain.rule_summary(st, n_valid)),
+        "ms": cuda_ms(lambda: K.rule_summary(st, n_valid)),
+        "device_ms": graph_ms(lambda: K.rule_summary(st, n_valid)),
+        "plain_ms": cuda_ms(lambda: plain.rule_summary(st, n_valid)),
+        "bound_ms": k7_bytes(n_valid, r) / rate * 1e3,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes masked per-column counts "
+                        "of three values",
+    })
+    main_path = {"rule_summary": "summary", **{name: "xref" for name in JOINS}}
     for entry in out:
         name = entry["name"]
-        info = xref_info if name in JOINS else slice_info
         entry.update({
             "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": info["launches"][name], "bound_by": "bytes",
-            "launches_by_path": {
-                "security": slice_info["launches"][name],
-                "xref": xref_info["launches"][name],
-                "fnvar": fnvar_info["launches"][name],
-            },
+            "launches": infos[main_path.get(name, "security")]["launches"][name],
+            "bound_by": "bytes",
+            "launches_by_path": {path: info["launches"][name] for path, info in infos.items()},
             "sweep": sweep[name],
         })
+        check(sum(entry["launches_by_path"].values()) > 0, f"{name} never launched")
         if name == "gather_rows":
             # run_step StepFnVar (guard_tpu/ops/kernels.py:387): one K1
             # launch per per-origin arm on the fnvar path
-            entry["stepfnvar_launches"] = fnvar_info["fnvar_steps"]["k1_launches"]
+            entry["stepfnvar_launches"] = infos["fnvar"]["fnvar_steps"]["k1_launches"]
         if entry["max_abs_err"] != 0:
             raise AssertionError(f"{name} differs from plain at its main-path shape")
     return out
@@ -1009,9 +1266,15 @@ def main() -> int:
         log(f"phase 3 (flagship) ok: {flagship}")
         corpus = phase_corpus(device)
         log(f"phase 3 (corpus) ok: {corpus}")
+        summary_info = phase_summary(device)
+        log(f"phase 3 (summary) ok: {json.dumps({k: v for k, v in summary_info.items() if k != 'shapes'})}")
+        entry_info = phase_entry(device)
+        log(f"phase 3 (entry) ok: {json.dumps(entry_info)}")
         cli = phase_cli(tmp)
         log(f"phase 4 (cli) ok: {cli}")
-    kernels = contract_kernels(device, slice_info, xref_info, fnvar_info, sweep, card)
+    infos = {"security": slice_info, "xref": xref_info, "fnvar": fnvar_info,
+             "summary": summary_info, "entry": entry_info}
+    kernels = contract_kernels(device, infos, sweep, card)
     leaked = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -1026,7 +1289,9 @@ def main() -> int:
         "xref_breakdown": xref_breakdown,
         "fnvar": {k: v for k, v in fnvar_info.items() if k != "shapes"},
         "fnvar_breakdown": fnvar_breakdown,
-        "flagship": flagship, "corpus": corpus, "cli": cli,
+        "flagship": flagship, "corpus": corpus,
+        "summary": {k: v for k, v in summary_info.items() if k != "shapes"},
+        "entry": entry_info, "cli": cli,
         "build_s": build_s, "card": card,
     }))
     print(card)

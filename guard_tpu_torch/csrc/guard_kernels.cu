@@ -1,9 +1,10 @@
 // Hand-written Hopper kernels for the torch port's evaluation walk.
 //
 // Three kernels carry every gather and scatter of the walk
-// (guard_tpu_torch/ops/kernels.py) and the rim behind it. All tensors
-// are row-major and batched over documents: a (D, N) int32 column holds
-// one document per row, padded to the node bucket N.
+// (guard_tpu_torch/ops/kernels.py) and the rim behind it; a fourth (K7)
+// counts the statuses per rule for DeviceBatchEvaluator.with_summary.
+// All tensors are row-major and batched over documents: a (D, N) int32
+// column holds one document per row, padded to the node bucket N.
 //
 //   K1 gather_rows       out[d,i] = 0 <= idx[d,i] < S ? vec[d, idx[d,i]] : 0
 //       Replaces _parent_select (guard_tpu/ops/kernels.py:208) and
@@ -34,6 +35,25 @@
 //       and per-file accumulators in shared memory. Bound by bytes:
 //       2 B per (doc, rule) read, 3 B per (doc, group) and (doc, file)
 //       written.
+//
+//   K7 rule_summary      counts[k, j] = #{rows d < n_valid : statuses[d, j] == k}
+//       Replaces the per-rule (PASS, FAIL, SKIP) counts of
+//       parallel/mesh.py _shared_evaluator_fns.summarize (:338-349),
+//       reached through ShardedBatchEvaluator.with_summary (:540). The
+//       valid rows are the first n_valid of a row-major (D, R) int8
+//       matrix; a status outside 0..2 counts nowhere. Bound by bytes: 1 B
+//       per (valid doc, rule) read, 12 B per rule written. One kernel
+//       for every R: a block covers a tile of rule columns (grid x) over a
+//       contiguous chunk of rows (grid y), as many rows at a time as the
+//       tile leaves threads, so a warp reads neighbouring bytes. A thread
+//       counts one column, or four read as one 32-bit word where R is a
+//       multiple of 4, in registers with several row loads in flight,
+//       folds its counts into the block's (3, width) shared counters, and
+//       the block adds each non-zero counter into the zeroed output with
+//       one atomicAdd. The grid is one wave of resident blocks, two
+//       when the rule columns take several tiles.
+//       Integer atomics are exact in any order, so the counts are
+//       deterministic.
 //
 // Each launcher takes raw device pointers and the caller's stream
 // (PyTorch's current stream), does not synchronise, and returns
@@ -157,6 +177,95 @@ __global__ void rim_reduce_kernel(const int8_t* __restrict__ statuses,
   }
 }
 
+// rows one thread counts, at least
+constexpr int kSummaryMinRows = 16;
+
+__device__ __forceinline__ void count_statuses(uint32_t w, int v, int (&c)[3][4]) {
+  int s = (int8_t)(w >> (8 * v));
+  c[0][v] += s == 0;
+  c[1][v] += s == 1;
+  c[2][v] += s == 2;
+}
+
+// V columns a thread (1, or 4 read as one 32-bit word when R % 4 == 0);
+// grid (column tiles, row blocks); width = min(R, V * blockDim.x)
+// columns a tile; block y counts the rows [y * chunk, (y + 1) * chunk),
+// and the blocks that run together cover whole rows
+template <int V>
+__global__ void rule_summary_kernel(const int8_t* __restrict__ statuses,
+                                    int32_t* __restrict__ out,
+                                    int rows, int r, int width, int chunk) {
+  // independent row loads a thread keeps in flight
+  constexpr int kUnroll = V == 4 ? 8 : 4;
+  extern __shared__ int32_t cnt[];  // (3, width)
+  for (int k = threadIdx.x; k < 3 * width; k += blockDim.x) cnt[k] = 0;
+  __syncthreads();
+  int per_row = width / V;  // threads across one row of the tile
+  int lanes = blockDim.x / per_row;  // rows a block reads at a time
+  int lane = threadIdx.x / per_row;
+  int j = (threadIdx.x % per_row) * V;
+  int col = blockIdx.x * width + j;
+  if (lane < lanes && col < r) {
+    int c[3][4] = {};
+    long long begin = (long long)blockIdx.y * chunk;
+    long long end = begin + chunk < rows ? begin + chunk : rows;
+    long long row = begin + lane;
+    const int8_t* at = statuses + col;
+    auto load = [&](long long i) -> uint32_t {
+      return V == 4 ? *(const uint32_t*)(at + i * r) : (uint8_t)at[i * r];
+    };
+    for (; row + (kUnroll - 1) * lanes < end; row += kUnroll * lanes) {
+      uint32_t w[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) w[u] = load(row + u * lanes);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int v = 0; v < V; ++v) count_statuses(w[u], v, c);
+    }
+    for (; row < end; row += lanes) {
+      uint32_t w = load(row);
+#pragma unroll
+      for (int v = 0; v < V; ++v) count_statuses(w, v, c);
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        if (c[k][v]) atomicAdd(&cnt[k * width + j + v], c[k][v]);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < 3 * width; k += blockDim.x) {
+    int c = blockIdx.x * width + k % width;
+    if (cnt[k] && c < r) atomicAdd(&out[(k / width) * r + c], cnt[k]);
+  }
+}
+
+template <int V>
+void launch_rule_summary(const int8_t* statuses, int32_t* out, int rows,
+                         int r, cudaStream_t stream) {
+  int width = r < V * kThreads ? r : V * kThreads;
+  int lanes = kThreads / (width / V);
+  int tiles = (r + width - 1) / width;
+  size_t smem = (size_t)3 * width * 4;
+  // one wave of resident blocks; two where several tiles share the card,
+  // so that the blocks of a narrow last tile free their slots early
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rule_summary_kernel<V>,
+                                                kThreads, smem);
+  long long blocks = ((long long)rows + (long long)lanes * kSummaryMinRows - 1) /
+                     ((long long)lanes * kSummaryMinRows);
+  long long max_blocks = (long long)per_sm * sms * (tiles > 1 ? 2 : 1) / tiles;
+  if (blocks > max_blocks) blocks = max_blocks;
+  if (blocks < 1) blocks = 1;
+  int chunk = (int)((rows + blocks - 1) / blocks);
+  blocks = (rows + chunk - 1) / chunk;
+  rule_summary_kernel<V><<<dim3(tiles, (unsigned)blocks), kThreads, smem, stream>>>(
+      statuses, out, rows, r, width, chunk);
+}
+
 int blocks_for(long long total) {
   return (int)((total + kThreads - 1) / kThreads);
 }
@@ -224,6 +333,22 @@ int guard_rim_reduce(const void* statuses, const void* unsure,
       (const int32_t*)last_ids, (int8_t*)name_status,
       (uint8_t*)name_unsure, (int8_t*)doc_status, (uint8_t*)any_fail,
       (uint8_t*)any_unsure, (int8_t*)name_last, r, g, f);
+  return (int)cudaGetLastError();
+}
+
+// out must hold (3, R) zeros; n_valid is clamped to [0, D]
+int guard_rule_summary(const void* statuses, void* out, int d, int r,
+                       int n_valid, void* stream) {
+  int rows = n_valid < 0 ? 0 : (n_valid > d ? d : n_valid);
+  if (rows == 0 || r == 0) return (int)cudaGetLastError();
+  // four columns a load where every row starts on a 4-byte boundary
+  if (r % 4 == 0 && ((uintptr_t)statuses & 3) == 0) {
+    launch_rule_summary<4>((const int8_t*)statuses, (int32_t*)out, rows, r,
+                           (cudaStream_t)stream);
+  } else {
+    launch_rule_summary<1>((const int8_t*)statuses, (int32_t*)out, rows, r,
+                           (cudaStream_t)stream);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA kernels: K1-K3 in
+"""Wrappers of the hand-written CUDA kernels: K1-K3 and K7 in
 csrc/guard_kernels.cu, K4-K6 in csrc/guard_joins.cu.
 
 Each wrapper takes batched row-major tensors. For a CUDA tensor it
@@ -23,6 +23,7 @@ from . import plain
 NAMES = (
     "gather_rows", "segment_sum_rows", "rim_reduce",
     "set_count_rows", "distinct_first_rows", "seg_min_max_rows",
+    "rule_summary",
 )
 LAUNCHES = {name: 0 for name in NAMES}
 SHAPES = {name: Counter() for name in NAMES}
@@ -294,4 +295,27 @@ def seg_min_max_rows(seg: torch.Tensor, mask: torch.Tensor, hi: torch.Tensor,
     )
     LAUNCHES["seg_min_max_rows"] += 1
     SHAPES["seg_min_max_rows"][(d, n, s)] += 1
+    return out
+
+
+def rule_summary(statuses: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """K7: (3, R) int32 per-rule counts of PASS (0), FAIL (1) and SKIP
+    (2) over the rows d < n_valid of (D, R) int8 statuses; any other
+    value counts nowhere. n_valid is clamped to [0, D]."""
+    if not _on_cuda(statuses):
+        return plain.rule_summary(statuses, n_valid)
+    _check(statuses, torch.int8, 2, "rule_summary statuses")
+    d, r = statuses.shape
+    n = min(max(int(n_valid), 0), d)
+    out = torch.zeros((3, r), dtype=torch.int32, device=statuses.device)
+    if n == 0 or r == 0:
+        return out
+    _raise_on(
+        _lib().guard_rule_summary(
+            statuses.data_ptr(), out.data_ptr(), d, r, n, _stream(statuses)
+        ),
+        "rule_summary",
+    )
+    LAUNCHES["rule_summary"] += 1
+    SHAPES["rule_summary"][(d, r, n)] += 1
     return out

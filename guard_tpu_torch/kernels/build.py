@@ -24,7 +24,7 @@ from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
-    "guard_kernels": _PKG / "csrc" / "guard_kernels.cu",  # K1-K3
+    "guard_kernels": _PKG / "csrc" / "guard_kernels.cu",  # K1-K3, K7
     "guard_joins": _PKG / "csrc" / "guard_joins.cu",  # K4-K6
 }
 NVCC_FLAGS = [
@@ -45,6 +45,7 @@ _SIGNATURES = {
     "guard_segment_sum_uses_shared": ([_I], _I),
     "guard_rim_max_slots": ([], _I),
     "guard_rim_reduce": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    "guard_rule_summary": ([_P, _P, _I, _I, _I, _P], _I),
     "guard_set_count_scratch": ([_I], _L),
     "guard_distinct_first_scratch": ([_I], _L),
     "guard_seg_min_max_scratch": ([_I], _L),

@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the CUDA kernels (csrc/guard_kernels.cu K1-K3,
-csrc/guard_joins.cu K4-K6).
+"""Plain PyTorch versions of the CUDA kernels (csrc/guard_kernels.cu K1-K3
+and K7, csrc/guard_joins.cu K4-K6).
 
 Each computes exactly what its kernel computes, with library calls
 (`torch.gather`, `scatter_add_`, `amax`, `sort`, `searchsorted`,
-`scatter_reduce_`). The wrappers in `guard_tpu_torch.kernels` run these
+`scatter_reduce_`, `sum`). The wrappers in `guard_tpu_torch.kernels` run these
 for tensors that lie on the CPU; `chip_smoke.py` and the card-marked
 tests hold each kernel against its plain version on the card.
 """
@@ -145,3 +145,14 @@ def rim_reduce(statuses: torch.Tensor, unsure: Optional[torch.Tensor],
         any_unsure = seg_max(u, fid, n_files) > 0
     name_last = statuses.index_select(1, last_ids.long())
     return name_status, name_unsure, doc_status, any_fail, any_unsure, name_last
+
+
+def rule_summary(statuses: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """(3, R) int32: per rule, the rows d < n_valid of the (D, R) int8
+    statuses that read PASS (0), FAIL (1) and SKIP (2); any other value
+    counts nowhere."""
+    d = statuses.shape[0]
+    valid = torch.arange(d, device=statuses.device) < n_valid
+    return torch.stack(
+        [((statuses == k) & valid[:, None]).sum(0) for k in (0, 1, 2)]
+    ).to(torch.int32)

@@ -5,8 +5,10 @@ The evaluator protocol of the JAX package's ShardedBatchEvaluator
 device: `dispatch` copies a bucket's columns to the device and enqueues
 the walk (and, with a `rim_spec`, kernel K3's rim reductions) on this
 evaluator's CUDA stream without waiting; `collect` waits for that
-dispatch and returns host arrays. On the CPU the same code runs the
-plain versions of the kernels synchronously.
+dispatch and returns host arrays. `with_summary` runs the walk and
+kernel K7's per-rule counts (mesh.py:540-546) and waits for both. On
+the CPU the same code runs the plain versions of the kernels
+synchronously.
 """
 
 from __future__ import annotations
@@ -73,15 +75,21 @@ class DeviceBatchEvaluator:
     def _on_stream(self):
         return torch.cuda.stream(self._stream) if self._stream is not None else nullcontext()
 
+    def _walk(self, batch: DocBatch):
+        """Columnarize one batch on the host, copy it to the device and
+        enqueue the walk; call on this evaluator's stream. Returns the
+        (statuses (D, R) int8, unsure (D, R) bool) device tensors."""
+        arrays = self.compiled.device_arrays(batch)
+        lits = self.compiled.lit_values()
+        t_arrays, t_lits = arrays_from_numpy(arrays, lits, self.device)
+        return self._fn(t_arrays, t_lits)
+
     def dispatch(self, batch: DocBatch):
         """Enqueue one bucket: returns (out, d, rim) without waiting,
         out = (statuses, unsure) device tensors, rim the six K3 blocks
         or None."""
-        arrays = self.compiled.device_arrays(batch)
-        lits = self.compiled.lit_values()
         with self._on_stream():
-            t_arrays, t_lits = arrays_from_numpy(arrays, lits, self.device)
-            statuses, unsure = self._fn(t_arrays, t_lits)
+            statuses, unsure = self._walk(batch)
             rim = None
             if self.rim_spec is not None:
                 rim = K.rim_reduce(
@@ -113,6 +121,20 @@ class DeviceBatchEvaluator:
 
     def evaluate_bucketed(self, batch: DocBatch):
         return evaluate_bucketed(self, len(self.compiled.rules), batch)
+
+    def with_summary(self, batch: DocBatch):
+        """(statuses (d, R) int8, counts (3, R) int32) of one batch at
+        its own shape: the walk, then kernel K7's per-rule PASS, FAIL and
+        SKIP counts over its d documents, as the JAX package's
+        ShardedBatchEvaluator.with_summary (guard_tpu/parallel/mesh.py:540)
+        counts the unpadded ones; one card pads nothing. Waits once, for
+        both; does not set `last_unsure`."""
+        with self._on_stream():
+            statuses, _unsure = self._walk(batch)
+            counts = K.rule_summary(statuses, batch.n_docs)
+        if self._stream is not None:
+            self._stream.synchronize()
+        return statuses.cpu().numpy(), counts.cpu().numpy()
 
 
 def evaluate_bucketed(evaluator: DeviceBatchEvaluator, n_rules: int,

@@ -9,8 +9,11 @@ it also runs where JAX is not installed:
 Inputs are seeded with numpy: random trees with root and padding lanes
 (parent -1) for K1-K3, and for the joins rows with every entry masked
 out, duplicate pairs, negative keys, INT32_MIN and INT32_MAX keys,
-empty segments and a set twice the query's length. Results are
-integers: exact equality, no tolerance.
+empty segments and a set twice the query's length; for K7 statuses
+with values outside 0..2, n_valid below, at and beyond D, rule sets
+that span several column tiles (258 to 1,028 rules), and rows that do
+not start on a 4-byte boundary. Results
+are integers: exact equality, no tolerance.
 """
 
 import numpy as np
@@ -205,3 +208,70 @@ def test_cuda_fnvar_walk_matches_cpu(cuda_device):
     assert np.array_equal(card.unsure, cpu.unsure)
     for a, b in zip(card.rim, cpu.rim):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [0, 1, 4096, 65536])
+@pytest.mark.parametrize("r", [1, 4, 37, 258, 512, 1024, 1028])
+def test_cuda_rule_summary_matches_plain(cuda_device, d, r):
+    """R a multiple of 4 reads four columns a load, the others one; R 258
+    (256 columns a tile) and 1,028 (1,024 a tile) leave a last tile
+    nearly empty."""
+    rng = np.random.default_rng(SEED + 7 * d + r)
+    statuses, = to(cuda_device, rng.integers(-3, 6, size=(d, r), dtype=np.int8))
+    for n_valid in sorted({0, max(d - 3, 0), d, d + 5}):
+        before = K.LAUNCHES["rule_summary"]
+        got = K.rule_summary(statuses, n_valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.rule_summary(statuses, n_valid))
+        launched = K.LAUNCHES["rule_summary"] - before
+        assert launched == (1 if min(n_valid, d) > 0 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_cuda_rule_summary_of_unaligned_rows_matches_plain(cuda_device, offset):
+    """A view whose rows do not start on a 4-byte boundary reads one
+    column a load."""
+    rng = np.random.default_rng(SEED + offset)
+    flat, = to(cuda_device, rng.integers(-3, 6, size=4096 * 8 + offset, dtype=np.int8))
+    statuses = flat[offset:].view(4096, 8)
+    for n_valid in (0, 4093, 4096):
+        assert torch.equal(K.rule_summary(statuses, n_valid),
+                           plain.rule_summary(statuses, n_valid))
+
+
+@pytest.mark.cuda
+def test_cuda_rule_summary_of_no_rules_launches_nothing(cuda_device):
+    statuses = torch.zeros((16, 0), dtype=torch.int8, device=cuda_device)
+    before = K.LAUNCHES["rule_summary"]
+    got = K.rule_summary(statuses, 16)
+    assert tuple(got.shape) == (3, 0) and K.LAUNCHES["rule_summary"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_with_summary_matches_cpu(cuda_device):
+    """The flagship example documents as one batch padded to the largest,
+    as the dry run encodes them: statuses and K7 counts on the card equal
+    the CPU's, with one K7 launch."""
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops.encoder import encode_batch
+    from guard_tpu_torch.ops.ir import compile_rules_file
+    from guard_tpu_torch.parallel.device import DeviceBatchEvaluator
+    from guard_tpu_torch.workloads import FLAGSHIP_RULES, example_docs
+
+    batch, interner = encode_batch(
+        [from_plain(d) for d in example_docs(61, two_buckets=True)]
+    )
+    compiled = compile_rules_file(parse_rules_file(FLAGSHIP_RULES, "f.guard"), interner)
+    before = K.LAUNCHES["rule_summary"]
+    card = DeviceBatchEvaluator(compiled, cuda_device).with_summary(batch)
+    assert K.LAUNCHES["rule_summary"] == before + 1
+    cpu = DeviceBatchEvaluator(compiled, "cpu").with_summary(batch)
+    for a, b in zip(card, cpu):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert int(card[1].sum()) == 61 * len(compiled.rules)
+    part = K.rule_summary(torch.from_numpy(card[0]).to(cuda_device), 17)
+    assert np.array_equal(part.cpu().numpy(),
+                          plain.rule_summary(torch.from_numpy(cpu[0]), 17).numpy())
