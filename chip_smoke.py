@@ -13,9 +13,11 @@ no result line):
    started together.
 2. Kernels against their plain PyTorch versions on the card, on seeded
    inputs: K1-K3 at N in {64, 1024, 8192, 65536} with D chosen so each
-   (D, N) int32 tensor holds at least 64 MB, K4-K6 at N in {64, 1024,
-   65536} with 16 MB per (D, N) column, K7 at D in {1, 4096, 65536,
-   1048576} x R in {1, 4, 37, 512, 1024, 1028} (one byte or four a
+   (D, N) int32 tensor holds at least 64 MB, K2 also at D 1 x N 65,536
+   with S in {N, N + 1, (N + 1) * 5} (the one-document bucket), K4-K6 at
+   N in {64, 1024, 65536} with 16 MB per (D, N) column, K4 also at D 1
+   x N 65,536 with Ns in {N, 2N} and with every key equal, K7 at D in
+   {1, 4096, 65536, 1048576} x R in {1, 4, 37, 512, 1024, 1028} (one byte or four a
    load, up to two column tiles) with n_valid in {0, D - 3, D} and statuses outside 0..2:
    outputs must be equal (exact integer results, tolerance 0); kernel
    and plain times are CUDA-event medians of 20 runs; a kernel's
@@ -58,7 +60,9 @@ no result line):
 5. No JAX and no guard_tpu module was imported.
 
 The line before the last is a JSON object {"kernels": [...]} with each
-kernel's launches on its main path (K1-K3 the security policy's, K4-K6
+kernel's launches (K2 and K4 twice: at the main shape and at the
+one-document 65,536-node bucket's heaviest shape) on its main path
+(K1-K3 the security policy's, K4-K6
 the cross-reference policy's, K7 the summary's; every path's in
 `launches_by_path`, and
 for K1 the launches made by the StepFnVar arm), its error against the plain version, its
@@ -67,6 +71,18 @@ plain version's, the bound (bytes over the card's memory rate) and a
 library call's time where one computes the same function (also both
 ways). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Two measurement modes print one JSON line and skip the phases above:
+
+    python3 chip_smoke.py --design-sweep [CHECKOUT]
+    python3 chip_smoke.py --compare-designs OTHER_CHECKOUT
+
+`--design-sweep` times K2 and K4 at the main path's shapes through the
+public wrappers of CHECKOUT's guard_tpu_torch (default: this one), and,
+for this checkout, each K2 geometry and K4 form at the shapes around
+the launchers' thresholds. `--compare-designs` runs the design sweep of
+OTHER_CHECKOUT (an older design, unpacked with `git archive`) and of
+this checkout in turns, other, this, this, other, one process each.
 """
 
 from __future__ import annotations
@@ -90,6 +106,7 @@ SWEEP_N = (64, 1024, 8192, 65536)
 SWEEP_BYTES = 64 << 20
 JOIN_SWEEP_N = (64, 1024, 65536)
 JOIN_SWEEP_BYTES = 16 << 20
+WIDE_N = 65536  # the one-document bucket of the volume template
 SUMMARY_SWEEP_D = (1, 4096, 65536, 1 << 20)
 SUMMARY_SWEEP_R = (1, 4, 37, 512, 1024, 1028)
 N_SUMMARY_CHECK = 2048  # summary templates held against the CPU
@@ -116,11 +133,11 @@ REPLACES = {
 JOINS = ("set_count_rows", "distinct_first_rows", "seg_min_max_rows")
 # the kernels of the walk and the rim; K7 runs only behind with_summary
 WALK_KERNELS = tuple(name for name in SOURCES if name != "rule_summary")
-# the K4-K6 function that tells whether a shape takes the global branch
+# whether a K4-K6 launch shape takes the global-memory branch
 GLOBAL_BRANCH = {
-    "set_count_rows": ("guard_set_count_scratch", lambda shape: shape[2]),
-    "distinct_first_rows": ("guard_distinct_first_scratch", lambda shape: shape[1]),
-    "seg_min_max_rows": ("guard_seg_min_max_scratch", lambda shape: shape[2]),
+    "set_count_rows": lambda lib, shape: lib.guard_set_count_branch(shape[0], shape[2]) == 0,
+    "distinct_first_rows": lambda lib, shape: lib.guard_distinct_first_scratch(shape[1]) > 0,
+    "seg_min_max_rows": lambda lib, shape: lib.guard_seg_min_max_scratch(shape[2]) > 0,
 }
 
 
@@ -267,6 +284,15 @@ def join_inputs(gen, d: int, n: int, width: int, device):
     return org, key, mask
 
 
+def equal_key_inputs(d: int, width: int, device):
+    """(org, key, mask) join rows in which every entry is the same pair:
+    org 0, key 7, all masked in."""
+    import torch
+
+    org = torch.zeros((d, width), dtype=torch.int32, device=device)
+    return org, torch.full_like(org, 7), torch.ones((d, width), dtype=torch.bool, device=device)
+
+
 def k6_inputs(gen, d: int, n: int, device):
     """(seg, mask, hi, lo) with S = (N+1)*5: a few origins per row, so
     most segments stay empty, and extreme keys."""
@@ -338,6 +364,47 @@ def np_counts(statuses):
 # ---------------------------------------------------------------------------
 
 
+def k2_sweep_row(gen, d: int, n: int, s: int, device) -> dict:
+    """K2 against its plain version at (D, N, S), with seg lanes at -1,
+    and its times; raises where they differ."""
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.kernels import plain
+
+    val, seg = k2_inputs(gen, d, n, s, device)
+    ok = _equal(K.segment_sum_rows(val, seg, s), plain.segment_sum_rows(val, seg, s))
+    if not ok:
+        raise AssertionError(f"segment_sum_rows differs from plain at D={d} N={n} S={s}")
+    return {
+        "N": n, "D": d, "S": s, "equal": ok,
+        "branch": K._lib().guard_segment_sum_branch(d, n, s),
+        "ms": cuda_ms(lambda: K.segment_sum_rows(val, seg, s)),
+        "device_ms": graph_ms(lambda: K.segment_sum_rows(val, seg, s)),
+        "plain_ms": cuda_ms(lambda: plain.segment_sum_rows(val, seg, s)),
+        "bytes": k2_bytes(d, n, s),
+    }
+
+
+def k4_sweep_row(q, st, device) -> dict:
+    """K4 against its plain version on queries q and set st, and its
+    times; raises where they differ."""
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.kernels import plain
+
+    d, nq = q[0].shape
+    ns = st[0].shape[1]
+    ok = _equal(K.set_count_rows(*q, *st), plain.set_count_rows(*q, *st))
+    if not ok:
+        raise AssertionError(f"set_count_rows differs from plain at D={d} Nq={nq} Ns={ns}")
+    return {
+        "N": nq, "D": d, "Ns": ns, "equal": ok,
+        "branch": K._lib().guard_set_count_branch(d, ns),
+        "ms": cuda_ms(lambda: K.set_count_rows(*q, *st)),
+        "device_ms": graph_ms(lambda: K.set_count_rows(*q, *st)),
+        "plain_ms": cuda_ms(lambda: plain.set_count_rows(*q, *st)),
+        "bytes": k4_bytes(d, nq, ns),
+    }
+
+
 def phase_kernel_sweep(device) -> dict:
     """Every kernel against its plain version at the sweep shapes."""
     import torch
@@ -363,19 +430,11 @@ def phase_kernel_sweep(device) -> dict:
             raise AssertionError(f"gather_rows differs from plain at N={n}")
         del vec, idx, got, ref
         for s in (n, n + 1):
-            val, seg = k2_inputs(gen, d, n, s, device)
-            got, ref = K.segment_sum_rows(val, seg, s), plain.segment_sum_rows(val, seg, s)
-            ok = _equal(got, ref)
-            sweep["segment_sum_rows"].append({
-                "N": n, "D": d, "S": s, "equal": ok,
-                "ms": cuda_ms(lambda: K.segment_sum_rows(val, seg, s)),
-                "plain_ms": cuda_ms(lambda: plain.segment_sum_rows(val, seg, s)),
-                "bytes": k2_bytes(d, n, s),
-            })
-            if not ok:
-                raise AssertionError(f"segment_sum_rows differs from plain at N={n} S={s}")
-            del val, seg, got, ref
+            sweep["segment_sum_rows"].append(k2_sweep_row(gen, d, n, s, device))
         torch.cuda.empty_cache()
+    # the one-document bucket, also at the query-RHS width (N + 1) * 5
+    for s in (WIDE_N, WIDE_N + 1, (WIDE_N + 1) * 5):
+        sweep["segment_sum_rows"].append(k2_sweep_row(gen, 1, WIDE_N, s, device))
     # K1 over a (D, S) source, as the query-RHS compares read it
     for n in (64, 1024):
         s = (n + 1) * 5
@@ -397,15 +456,7 @@ def phase_kernel_sweep(device) -> dict:
         q = join_inputs(gen, d, n, n, device)
         for ns in (n, 2 * n):
             st = join_inputs(gen, d, n, ns, device)
-            ok = _equal(K.set_count_rows(*q, *st), plain.set_count_rows(*q, *st))
-            sweep["set_count_rows"].append({
-                "N": n, "D": d, "Ns": ns, "equal": ok,
-                "ms": cuda_ms(lambda: K.set_count_rows(*q, *st)),
-                "plain_ms": cuda_ms(lambda: plain.set_count_rows(*q, *st)),
-                "bytes": k4_bytes(d, n, ns),
-            })
-            if not ok:
-                raise AssertionError(f"set_count_rows differs from plain at N={n} Ns={ns}")
+            sweep["set_count_rows"].append(k4_sweep_row(q, st, device))
             del st
         ok = _equal(K.distinct_first_rows(*q), plain.distinct_first_rows(*q))
         sweep["distinct_first_rows"].append({
@@ -429,6 +480,18 @@ def phase_kernel_sweep(device) -> dict:
             raise AssertionError(f"seg_min_max_rows differs from plain at N={n}")
         del args
         torch.cuda.empty_cache()
+    # the one-document bucket; then every key equal (one hash slot), with
+    # org all 0 as the `.%var` key match calls it (ops/kernels.py:501)
+    q = join_inputs(gen, 1, WIDE_N, WIDE_N, device)
+    for ns in (WIDE_N, 2 * WIDE_N):
+        sweep["set_count_rows"].append(k4_sweep_row(q, join_inputs(gen, 1, WIDE_N, ns, device),
+                                                    device))
+    for d, n in ((48694, 64), (1, WIDE_N)):
+        q = equal_key_inputs(d, n, device)
+        row = k4_sweep_row(q, equal_key_inputs(d, 2 * n, device), device)
+        sweep["set_count_rows"].append({**row, "keys": "all equal"})
+    del q
+    torch.cuda.empty_cache()
     # the last shape is a rules file with no device rule: every doc SKIP
     for d, r, g, f in ((1 << 20, 64, 41, 1), (1 << 18, 256, 130, 4), (1024, 0, 0, 1)):
         args = k3_inputs(gen, d, r, g, f, device)
@@ -619,11 +682,13 @@ def phase_slice(device, tmp: Path):
     info, ev = drive_validate(device, tmp, "security", RULES, docs)
     if device.type != "cuda":
         return info, ev  # a CPU rehearsal launches no kernel
-    global_launches = sum(
-        c for (d, n, s), c in info["shapes"]["segment_sum_rows"].items() if s * 4 > 232448
+    lib = K._lib()
+    split_launches = sum(
+        c for (d, n, s), c in info["shapes"]["segment_sum_rows"].items()
+        if lib.guard_segment_sum_branch(d, n, s) == 0
     )
-    check(global_launches > 0, "K2's global-memory branch never ran")
-    info["k2_global_branch_launches"] = global_launches
+    check(split_launches > 0, "K2's split branch never ran")
+    info["k2_split_branch_launches"] = split_launches
     for name in ("gather_rows", "segment_sum_rows", "rim_reduce"):
         check(info["launches"][name] > 0, f"kernel {name} never launched on the main path")
     return info, ev
@@ -649,10 +714,8 @@ def phase_xref(device, tmp: Path):
     lib = K._lib()
     info["global_branch_launches"] = {}
     for name in JOINS:
-        fn, size = GLOBAL_BRANCH[name]
         n_global = sum(
-            c for shape, c in info["shapes"][name].items()
-            if getattr(lib, fn)(size(shape)) > 0
+            c for shape, c in info["shapes"][name].items() if GLOBAL_BRANCH[name](lib, shape)
         )
         check(n_global > 0, f"{name}'s global-memory branch never ran")
         info["global_branch_launches"][name] = n_global
@@ -1054,10 +1117,20 @@ def main_shape(shapes: dict, name: str):
     return max(shapes[name].items(), key=volume)[0]
 
 
+def wide_shape(shapes: dict, name: str):
+    """The launch shape of a kernel in the widest bucket of the main path
+    (the one-document 65,536-node bucket) that launched most often, the
+    wider output first among equals."""
+    widest = max(shape[1] for shape in shapes[name])
+    return max((item for item in shapes[name].items() if item[0][1] == widest),
+               key=lambda item: (item[1], item[0][-1]))[0]
+
+
 def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
     """Each kernel at its main-path shape (K1-K3 from the security
     policy's run, K4-K6 from the cross-reference policy's, K7 from the
-    summary's): error against plain, times (CUDA events around one call,
+    summary's), K2 and K4 also at their shape in the widest bucket:
+    error against plain, times (CUDA events around one call,
     and the device time of a graph replay), bound and library time (both
     ways where a library call computes the same function).
     `infos` maps each path's name to its phase's result."""
@@ -1087,28 +1160,31 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
         "library_ms": None,
     })
 
-    d, n, s = main_shape(slice_info["shapes"], "segment_sum_rows")
-    val, seg = k2_inputs(gen, d, n, s, device, valid_only=True)
-    seg_long = seg.long()
-    out.append({
-        "name": "segment_sum_rows", "shape": {"D": d, "N": n, "S": s},
-        "max_abs_err": _max_abs_err(
-            K.segment_sum_rows(val, seg, s), plain.segment_sum_rows(val, seg, s)
-        ),
-        "ms": cuda_ms(lambda: K.segment_sum_rows(val, seg, s)),
-        "device_ms": graph_ms(lambda: K.segment_sum_rows(val, seg, s)),
-        "plain_ms": cuda_ms(lambda: plain.segment_sum_rows(val, seg, s)),
-        "bound_ms": k2_bytes(d, n, s) / rate * 1e3,
-        # every segment id valid here, so scatter_add_ computes the same
-        "library_ms": cuda_ms(
-            lambda: torch.zeros((d, s), dtype=torch.int32, device=device)
-            .scatter_add_(1, seg_long, val)
-        ),
-        "library_device_ms": graph_ms(
-            lambda: torch.zeros((d, s), dtype=torch.int32, device=device)
-            .scatter_add_(1, seg_long, val)
-        ),
-    })
+    for d, n, s in (main_shape(slice_info["shapes"], "segment_sum_rows"),
+                    wide_shape(slice_info["shapes"], "segment_sum_rows")):
+        val, seg = k2_inputs(gen, d, n, s, device, valid_only=True)
+        seg_long = seg.long()
+
+        def library():
+            # every segment id valid here, so scatter_add_ computes the same
+            return torch.zeros((d, s), dtype=torch.int32, device=device).scatter_add_(
+                1, seg_long, val)
+
+        out.append({
+            "name": "segment_sum_rows", "shape": {"D": d, "N": n, "S": s},
+            "shape_launches": slice_info["shapes"]["segment_sum_rows"][(d, n, s)],
+            "branch": K._lib().guard_segment_sum_branch(d, n, s),
+            "max_abs_err": _max_abs_err(
+                K.segment_sum_rows(val, seg, s), plain.segment_sum_rows(val, seg, s)
+            ),
+            "ms": cuda_ms(lambda: K.segment_sum_rows(val, seg, s)),
+            "device_ms": graph_ms(lambda: K.segment_sum_rows(val, seg, s)),
+            "plain_ms": cuda_ms(lambda: plain.segment_sum_rows(val, seg, s)),
+            "bound_ms": k2_bytes(d, n, s) / rate * 1e3,
+            "library_ms": cuda_ms(library),
+            "library_device_ms": graph_ms(library),
+        })
+        del val, seg, seg_long
 
     d, r, g, f = main_shape(slice_info["shapes"], "rim_reduce")
     args = k3_inputs(gen, d, r, g, f, device)
@@ -1121,23 +1197,27 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
         "bound_ms": k3_bytes(d, r, g, f) / rate * 1e3,
         "library_ms": None,
     })
-    del vec, idx, val, seg, seg_long, args
+    del vec, idx, args
 
-    d, nq, ns = main_shape(xref_info["shapes"], "set_count_rows")
-    q = join_inputs(gen, d, nq, nq, device)
-    st = join_inputs(gen, d, nq, ns, device)
-    out.append({
-        "name": "set_count_rows", "shape": {"D": d, "Nq": nq, "Ns": ns},
-        "max_abs_err": _max_abs_err(K.set_count_rows(*q, *st), plain.set_count_rows(*q, *st)),
-        "ms": cuda_ms(lambda: K.set_count_rows(*q, *st)),
-        "device_ms": graph_ms(lambda: K.set_count_rows(*q, *st)),
-        "plain_ms": cuda_ms(lambda: plain.set_count_rows(*q, *st)),
-        "bound_ms": k4_bytes(d, nq, ns) / rate * 1e3,
-        "library_ms": None,
-        "library_note": "no one PyTorch call counts equal (org, key) pairs of one "
-                        "set per query row",
-    })
-    del st
+    for d, nq, ns in (main_shape(xref_info["shapes"], "set_count_rows"),
+                      wide_shape(xref_info["shapes"], "set_count_rows")):
+        q = join_inputs(gen, d, nq, nq, device)
+        st = join_inputs(gen, d, nq, ns, device)
+        out.append({
+            "name": "set_count_rows", "shape": {"D": d, "Nq": nq, "Ns": ns},
+            "shape_launches": xref_info["shapes"]["set_count_rows"][(d, nq, ns)],
+            "branch": K._lib().guard_set_count_branch(d, ns),
+            "max_abs_err": _max_abs_err(K.set_count_rows(*q, *st),
+                                        plain.set_count_rows(*q, *st)),
+            "ms": cuda_ms(lambda: K.set_count_rows(*q, *st)),
+            "device_ms": graph_ms(lambda: K.set_count_rows(*q, *st)),
+            "plain_ms": cuda_ms(lambda: plain.set_count_rows(*q, *st)),
+            "bound_ms": k4_bytes(d, nq, ns) / rate * 1e3,
+            "library_ms": None,
+            "library_note": "no one PyTorch call counts equal (org, key) pairs of one "
+                            "set per query row",
+        })
+        del q, st
 
     d, n = main_shape(xref_info["shapes"], "distinct_first_rows")
     q = join_inputs(gen, d, n, n, device)
@@ -1215,6 +1295,194 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
         if entry["max_abs_err"] != 0:
             raise AssertionError(f"{name} differs from plain at its main-path shape")
     return out
+
+
+# K2 (D, N, S) and K4 (D, Nq, Ns) at the main path's shapes (the main
+# shape, the 64-node bucket's other width, the one-document 65,536-node
+# bucket), then at phase 2's sweep shapes
+DESIGN_K2 = ((65536, 64, 65), (65536, 64, 64), (1, WIDE_N, WIDE_N), (1, WIDE_N, WIDE_N + 1),
+             (1, WIDE_N, (WIDE_N + 1) * 5),
+             (262144, 64, 65), (16384, 1024, 1025), (2048, 8192, 8193), (256, WIDE_N, WIDE_N))
+DESIGN_K4 = ((48694, 64, 128), (48694, 64, 64), (1, WIDE_N, WIDE_N), (1, WIDE_N, 2 * WIDE_N),
+             (65536, 64, 128), (4096, 1024, 2048), (64, WIDE_N, 2 * WIDE_N))
+# K5 (D, N) and K6 (D, N, S) at their main shapes: they share K4's hash
+# helpers and source, and must not move
+DESIGN_K5 = (48694, 64)
+DESIGN_K6 = (48694, 64, 325)
+# geometries to time K2 on around the launcher's thresholds: lanes per row
+# (8, 16, 32), 256 a block-per-row, 0 split
+K2_BRANCHES = (
+    ((65536, 64, 65), (16, 32, 256, 0)),
+    ((65536, 64, 325), (16, 32, 256, 0)),
+    ((65536, 128, 129), (32, 256)),
+    ((65536, 256, 257), (32, 256)),
+    ((32768, 512, 513), (32, 256)),
+    ((16384, 1024, 1025), (32, 256, 0)),
+    ((8192, 2048, 2049), (32, 256, 0)),
+    ((1, 2048, 2049), (32, 256, 0)),
+    ((4, 2048, 2049), (32, 256, 0)),
+    ((16, 2048, 2049), (32, 256, 0)),
+    ((1, 8192, 8193), (256, 0)),
+    ((2, 8192, 8193), (256, 0)),
+    ((4, 8192, 8193), (256, 0)),
+    ((8, 8192, 8193), (256, 0)),
+    ((64, 8192, 8193), (256, 0)),
+    ((132, 8192, 8193), (256, 0)),
+    ((1, 16384, 16385), (256, 0)),
+    ((4, 16384, 16385), (256, 0)),
+    ((16, 16384, 16385), (256, 0)),
+)
+# K4 forms: 32 a warp's table, 256 a block's table, 0 tables in global
+# scratch
+K4_BRANCHES = (
+    ((48694, 64, 64), (32, 256)),
+    ((48694, 64, 128), (32, 256)),
+    ((16842, 128, 256), (32, 256)),
+    ((1, 1024, 2048), (256, 0)),
+    ((16, 1024, 2048), (256, 0)),
+    ((132, 1024, 2048), (256, 0)),
+    ((528, 1024, 2048), (256, 0)),
+    ((4096, 1024, 2048), (256, 0)),
+    ((1, 4096, 8192), (256, 0)),
+    ((132, 4096, 8192), (256, 0)),
+    ((528, 4096, 8192), (256, 0)),
+)
+
+
+def current_stream() -> int:
+    """PyTorch's current stream, read at the call (a graph captures on
+    its own stream)."""
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def design_sweep(device) -> dict:
+    """K2 and K4 against their plain versions at DESIGN_K2 / DESIGN_K4,
+    and K5 and K6 at their main shapes, through the public wrappers only
+    (so it also runs on an older checkout's package), with their times;
+    where the library has the
+    forced-geometry entries, also each geometry at K2_BRANCHES and each
+    form at K4_BRANCHES."""
+    import torch
+
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.kernels import plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 5)
+    out = {"segment_sum_rows": [], "set_count_rows": []}
+    for d, n, s in DESIGN_K2:
+        val, seg = k2_inputs(gen, d, n, s, device)
+        check(_equal(K.segment_sum_rows(val, seg, s), plain.segment_sum_rows(val, seg, s)),
+              f"segment_sum_rows differs from plain at D={d} N={n} S={s}")
+        out["segment_sum_rows"].append({
+            "D": d, "N": n, "S": s, "bound_ms": k2_bytes(d, n, s) / 3.35e9,
+            "ms": cuda_ms(lambda: K.segment_sum_rows(val, seg, s)),
+            "device_ms": graph_ms(lambda: K.segment_sum_rows(val, seg, s)),
+        })
+    for d, nq, ns in DESIGN_K4:
+        q = join_inputs(gen, d, nq, nq, device)
+        st = join_inputs(gen, d, nq, ns, device)
+        check(_equal(K.set_count_rows(*q, *st), plain.set_count_rows(*q, *st)),
+              f"set_count_rows differs from plain at D={d} Nq={nq} Ns={ns}")
+        out["set_count_rows"].append({
+            "D": d, "Nq": nq, "Ns": ns, "bound_ms": k4_bytes(d, nq, ns) / 3.35e9,
+            "ms": cuda_ms(lambda: K.set_count_rows(*q, *st)),
+            "device_ms": graph_ms(lambda: K.set_count_rows(*q, *st)),
+        })
+    del val, seg, q, st
+    d, n = DESIGN_K5
+    q = join_inputs(gen, d, n, n, device)
+    check(_equal(K.distinct_first_rows(*q), plain.distinct_first_rows(*q)),
+          "distinct_first_rows differs from plain")
+    out["distinct_first_rows"] = {"D": d, "N": n,
+                                  "device_ms": graph_ms(lambda: K.distinct_first_rows(*q))}
+    d, n, s = DESIGN_K6
+    seg, mask, hi, lo, _s = k6_inputs(gen, d, n, device)
+    check(_equal(K.seg_min_max_rows(seg, mask, hi, lo, s), plain.seg_min_max_rows(seg, mask, hi, lo, s)),
+          "seg_min_max_rows differs from plain")
+    out["seg_min_max_rows"] = {"D": d, "N": n, "S": s, "device_ms": graph_ms(
+        lambda: K.seg_min_max_rows(seg, mask, hi, lo, s))}
+    del q, seg, mask, hi, lo
+    lib = K._lib()
+    if not hasattr(lib, "guard_segment_sum_rows_as"):
+        return out
+    out["segment_sum_branches"] = []
+    for (d, n, s), branches in K2_BRANCHES:
+        val, seg = k2_inputs(gen, d, n, s, device)
+        ref = plain.segment_sum_rows(val, seg, s)
+        row = {"D": d, "N": n, "S": s, "picked": lib.guard_segment_sum_branch(d, n, s)}
+        for b in branches:
+            def run(b=b):
+                o = torch.empty((d, s), dtype=torch.int32, device=device)
+                rc = lib.guard_segment_sum_rows_as(b, val.data_ptr(), seg.data_ptr(),
+                                                   o.data_ptr(), d, n, s, current_stream())
+                check(rc == 0, f"K2 branch {b} refused (cudaError {rc})")
+                return o
+            check(_equal(run(), ref), f"K2 branch {b} differs at D={d} N={n} S={s}")
+            row[str(b)] = graph_ms(run)
+        out["segment_sum_branches"].append(row)
+        del val, seg, ref
+    out["set_count_branches"] = []
+    for (d, nq, ns), branches in K4_BRANCHES:
+        q = join_inputs(gen, d, nq, nq, device)
+        st = join_inputs(gen, d, nq, ns, device)
+        ref = plain.set_count_rows(*q, *st)
+        row = {"D": d, "Nq": nq, "Ns": ns, "picked": lib.guard_set_count_branch(d, ns)}
+        for b in branches:
+            def run(b=b):
+                o = torch.empty((d, nq), dtype=torch.int32, device=device)
+                scratch = (torch.empty(lib.guard_set_count_scratch(d, ns), dtype=torch.uint8,
+                                       device=device).data_ptr() if b == 0 else None)
+                rc = lib.guard_set_count_rows_as(b, *(t.data_ptr() for t in (*q, *st)),
+                                                 o.data_ptr(), scratch, d, nq, ns,
+                                                 current_stream())
+                check(rc == 0, f"K4 form {b} refused (cudaError {rc})")
+                return o
+            check(_equal(run(), ref), f"K4 form {b} differs at D={d} Nq={nq} Ns={ns}")
+            row[str(b)] = graph_ms(run)
+        out["set_count_branches"].append(row)
+        del q, st, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def design_main(checkout: Path) -> int:
+    """--design-sweep: the design sweep of CHECKOUT's package, as one
+    JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+        return 2
+    sys.path.insert(0, str(checkout))
+    import guard_tpu_torch
+
+    pkg = Path(guard_tpu_torch.__file__).resolve()
+    check(checkout.resolve() in pkg.parents, f"imported {pkg}, not {checkout}'s package")
+    from guard_tpu_torch.kernels.build import load
+
+    load()
+    result = design_sweep(torch.device("cuda"))
+    print(json.dumps({"checkout": str(checkout), "card": card_line(), **result}))
+    return 0
+
+
+def compare_main(other: Path) -> int:
+    """--compare-designs: the design sweeps of OTHER and of this
+    checkout in turns (other, this, this, other), one process each."""
+    runs = []
+    for checkout in (other, ROOT, ROOT, other):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--design-sweep", str(checkout)],
+            capture_output=True, text=True, timeout=900,
+        )
+        sys.stderr.write(proc.stderr[-4000:])
+        check(proc.returncode == 0, f"design sweep of {checkout} exited {proc.returncode}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    print(json.dumps({"compare_designs": runs}))
+    return 0
 
 
 def main() -> int:
@@ -1305,7 +1573,12 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--design-sweep"]:
+            code = design_main(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
+        elif sys.argv[1:2] == ["--compare-designs"] and len(sys.argv) == 3:
+            code = compare_main(Path(sys.argv[2]))
+        else:
+            code = main()
     except Exception:
         traceback.print_exc()
         code = 1

@@ -9,15 +9,39 @@
 //                          for q_mask[d,i] and q_org[d,i] >= 0, else 0
 //       Replaces _runs (guard_tpu/ops/kernels.py:914), _set_count_sorted
 //       (:926) and _in_set_sorted (:967), which join by one lexicographic
-//       sort per document. Here one block per document row builds an
-//       open-addressing hash table of the set's 64-bit (org, key) pairs
-//       with their counts (atomicCAS on the key, atomicAdd on the count),
-//       then every query entry probes it. Bound by bytes: 9 B per set and
-//       query entry read, 4 B per output written. Counts are exact in any
-//       order. The table (a power of two of at least twice the set size,
-//       12 B a slot) lives in shared memory while it fits the 227 KB a
-//       block may opt into (sets up to 8,192 entries); larger sets use a
-//       per-block table in global scratch, and the blocks loop over rows.
+//       sort per document. Here an open-addressing hash table of the
+//       set's 64-bit (org, key) pairs with their counts (atomicCAS on the
+//       key, atomicAdd on the count) is built per row, then every query
+//       entry probes it. Bound by bytes: 9 B per set and query entry
+//       read, 4 B per output written. Counts are exact in any order. The
+//       table holds a power of two of at least twice the set's entries,
+//       12 B a slot. The first design ran one 256-thread block per row
+//       on every shape, three block barriers for about 2 KB of input at
+//       the main shape (D 48,694 x Nq 64, Ns 128), and one block alone
+//       for a one-row 65,536-node bucket. Three geometries now, chosen by
+//       the launcher from (D, Ns):
+//       - warp: a warp per row, 8 rows a block at a time, each warp
+//         with its own table in shared memory, synchronised by
+//         __syncwarp alone; a grid of one wave of resident blocks
+//         strides over the rows. Taken while 8 tables fit 24 KB (Ns <=
+//         128).
+//       - block: the same kernel with one row a block at a time (block
+//         barriers), while the table leaves room for two blocks an SM
+//         (Ns <= 4,096) and there are at least as many rows as SMs.
+//       - global: every other shape, e.g. the one-document 65,536-node
+//         bucket. Tables in global scratch, one per row for as many rows
+//         as 256 MB holds at a time, and per batch of rows three steps
+//         on the stream: one cudaMemsetAsync clears the tables, an insert
+//         grid of (set chunks, rows) fills them, a probe grid of (query
+//         chunks, rows) reads them, so the grid fills the card whatever
+//         D is. A count slot starts at -1 (the memset's 0xFF bytes) and
+//         reads back plus one.
+//       The thresholds are chip_smoke.py --design-sweep's (see
+//       kSetWarpSmem). Measured there and dropped: a hash-free form (a
+//       warp a row, set pairs in registers, each query sent round the
+//       warp by shuffle) lost to the warp's table at every Ns from 32 to
+//       256; loading four entries a lane before inserting any lost too;
+//       so did a 32-bit multiplicative hash in place of splitmix64.
 //
 //   K5 distinct_first_rows out[d,i] = entry i is the lowest index of its
 //                          (org, key) among entries with mask and org >= 0
@@ -43,8 +67,9 @@
 // shared-memory branch) and the caller's stream (PyTorch's current
 // stream), does not synchronise, and returns cudaGetLastError() so the
 // Python wrapper can raise on a refused launch. The *_scratch functions
-// tell the wrapper how many scratch bytes one block needs: 0 when the
-// shared-memory branch runs.
+// tell the wrapper how many scratch bytes the launch needs: K5 and K6 per
+// block, 0 when their shared-memory branch runs; K4 for its global
+// branch's tables, which the wrapper allocates where that branch runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,51 +137,110 @@ long long table_slots(long long entries) {
   return t;
 }
 
-template <bool kShared>
-__global__ void set_count_kernel(const int32_t* __restrict__ q_org,
-                                 const int32_t* __restrict__ q_key,
-                                 const uint8_t* __restrict__ q_mask,
-                                 const int32_t* __restrict__ s_org,
-                                 const int32_t* __restrict__ s_key,
-                                 const uint8_t* __restrict__ s_mask,
-                                 int32_t* __restrict__ out,
-                                 unsigned char* __restrict__ scratch, int d,
-                                 int nq, int ns, int t) {
-  extern __shared__ unsigned long long smem_keys[];
-  unsigned long long* keys =
-      kShared ? smem_keys
-              : (unsigned long long*)(scratch +
-                                      (size_t)blockIdx.x * t * kSlotBytes);
-  int32_t* cnt = (int32_t*)(keys + t);
+// wait for the lanes that share a row's table: a warp's lanes, or the block
+template <int G>
+__device__ __forceinline__ void group_sync() {
+  if (G <= 32) __syncwarp(); else __syncthreads();
+}
+
+// G lanes per row (32 or kThreads), kThreads / G rows a block at a time,
+// each group with its own t-slot table in shared memory
+template <int G>
+__global__ void set_count_rows_kernel(const int32_t* __restrict__ q_org,
+                                      const int32_t* __restrict__ q_key,
+                                      const uint8_t* __restrict__ q_mask,
+                                      const int32_t* __restrict__ s_org,
+                                      const int32_t* __restrict__ s_key,
+                                      const uint8_t* __restrict__ s_mask,
+                                      int32_t* __restrict__ out, int d,
+                                      int nq, int ns, int t) {
+  extern __shared__ unsigned long long tables[];
+  constexpr int kGroups = kThreads / G;
+  const int group = threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  unsigned long long* keys = tables + (size_t)group * t;
+  int32_t* cnt = (int32_t*)(tables + (size_t)kGroups * t) + (size_t)group * t;
   const unsigned int mask = (unsigned int)t - 1;
-  for (long long row = blockIdx.x; row < d; row += gridDim.x) {
-    for (int k = threadIdx.x; k < t; k += blockDim.x) {
-      keys[k] = kEmpty;
-      cnt[k] = 0;
-    }
-    __syncthreads();
-    const int32_t* so = s_org + row * ns;
-    const int32_t* sk = s_key + row * ns;
-    const uint8_t* sm = s_mask + row * ns;
-    for (int j = threadIdx.x; j < ns; j += blockDim.x) {
-      int32_t o = so[j];
-      if (sm[j] && o >= 0) atomicAdd(&cnt[insert_slot(keys, mask, pair_key(o, sk[j]))], 1);
-    }
-    __syncthreads();
-    const int32_t* qo = q_org + row * nq;
-    const int32_t* qk = q_key + row * nq;
-    const uint8_t* qm = q_mask + row * nq;
-    int32_t* o_row = out + row * nq;
-    for (int i = threadIdx.x; i < nq; i += blockDim.x) {
-      int32_t o = qo[i];
-      int32_t c = 0;
-      if (qm[i] && o >= 0) {
-        int s = find_slot(keys, mask, pair_key(o, qk[i]));
-        if (s >= 0) c = volatile_load(&cnt[s]);
+  // block-uniform loop: every lane reaches every group_sync
+  for (long long base = (long long)blockIdx.x * kGroups; base < d;
+       base += (long long)gridDim.x * kGroups) {
+    long long row = base + group;
+    bool live = row < d;
+    if (live) {
+      for (int k = lane; k < t; k += G) {
+        keys[k] = kEmpty;
+        cnt[k] = 0;
       }
-      o_row[i] = c;
     }
-    __syncthreads();  // the next row clears the table
+    group_sync<G>();
+    if (live) {
+      const int32_t* so = s_org + row * ns;
+      const int32_t* sk = s_key + row * ns;
+      const uint8_t* sm = s_mask + row * ns;
+      for (int j = lane; j < ns; j += G) {
+        int32_t o = so[j];
+        if (sm[j] && o >= 0) atomicAdd(&cnt[insert_slot(keys, mask, pair_key(o, sk[j]))], 1);
+      }
+    }
+    group_sync<G>();
+    if (live) {
+      const int32_t* qo = q_org + row * nq;
+      const int32_t* qk = q_key + row * nq;
+      const uint8_t* qm = q_mask + row * nq;
+      int32_t* o_row = out + row * nq;
+      for (int i = lane; i < nq; i += G) {
+        int32_t o = qo[i];
+        int32_t c = 0;
+        if (qm[i] && o >= 0) {
+          int s = find_slot(keys, mask, pair_key(o, qk[i]));
+          if (s >= 0) c = volatile_load(&cnt[s]);
+        }
+        o_row[i] = c;
+      }
+    }
+    group_sync<G>();  // the next row clears the table
+  }
+}
+
+// global branch: tables for `rows` rows from row0, slot counts from -1
+__global__ void set_count_insert_kernel(const int32_t* __restrict__ s_org,
+                                        const int32_t* __restrict__ s_key,
+                                        const uint8_t* __restrict__ s_mask,
+                                        unsigned long long* keys,
+                                        int32_t* cnt, long long row0,
+                                        int rows, int ns, int t) {
+  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= ns) return;
+  const unsigned int mask = (unsigned int)t - 1;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    long long at = (row0 + r) * ns + j;
+    int32_t o = s_org[at];
+    if (s_mask[at] && o >= 0) {
+      unsigned long long* k = keys + (size_t)r * t;
+      atomicAdd(&cnt[(size_t)r * t + insert_slot(k, mask, pair_key(o, s_key[at]))], 1);
+    }
+  }
+}
+
+__global__ void set_count_probe_kernel(const int32_t* __restrict__ q_org,
+                                       const int32_t* __restrict__ q_key,
+                                       const uint8_t* __restrict__ q_mask,
+                                       const unsigned long long* keys,
+                                       const int32_t* cnt,
+                                       int32_t* __restrict__ out,
+                                       long long row0, int rows, int nq, int t) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  const unsigned int mask = (unsigned int)t - 1;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    long long at = (row0 + r) * nq + i;
+    int32_t o = q_org[at];
+    int32_t c = 0;
+    if (q_mask[at] && o >= 0) {
+      int s = find_slot(keys + (size_t)r * t, mask, pair_key(o, q_key[at]));
+      if (s >= 0) c = cnt[(size_t)r * t + s] + 1;
+    }
+    out[at] = c;
   }
 }
 
@@ -269,16 +353,82 @@ int launch(SharedK shared_k, GlobalK global_k, long long smem, int d,
   return (int)cudaGetLastError();
 }
 
+// K4's geometries (guard_set_count_branch): lanes per row of a table in
+// shared memory (a warp, or the block), 0 for tables in global scratch
+enum { kSetWarp = 32, kSetBlock = kThreads, kSetGlobal = 0 };
+// K4's thresholds, from chip_smoke.py --design-sweep on an H100: a warp a
+// row while 8 tables fit kSetWarpSmem bytes (Ns <= 128; at Ns 256 a
+// block a row wins, 0.058 against 0.074 ms at D 16,842), a block a row
+// while its table leaves room for a second block on the SM (Ns <= 4,096)
+// and there are at least as many rows as SMs; global tables otherwise
+// (at Ns 8,192 they win at every D measured from 1 to 528, at Ns 2,048
+// they win at D 1 and lose from D 528)
+constexpr long long kSetWarpSmem = 24 * 1024;
+// global scratch the global branch's tables may take at a time
+constexpr long long kSetScratchBytes = 256ll << 20;
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// rows of the global branch whose tables share the scratch at a time
+int set_count_batch_rows(int d, int ns) {
+  long long per_row = table_slots(ns) * kSlotBytes;
+  long long rows = kSetScratchBytes / per_row;
+  if (rows > d) rows = d;
+  if (rows > 65535) rows = 65535;
+  return rows < 1 ? 1 : (int)rows;
+}
+
+template <int G>
+int launch_set_count(const int32_t* q_org, const int32_t* q_key,
+                     const uint8_t* q_mask, const int32_t* s_org,
+                     const int32_t* s_key, const uint8_t* s_mask,
+                     int32_t* out, int d, int nq, int ns,
+                     cudaStream_t stream) {
+  constexpr int kGroups = kThreads / G;
+  int t = (int)table_slots(ns);
+  long long smem = (long long)kGroups * t * kSlotBytes;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(set_count_rows_kernel<G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // one wave of resident blocks strides over the rows
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, set_count_rows_kernel<G>,
+                                                kThreads, (size_t)smem);
+  long long blocks = ((long long)d + kGroups - 1) / kGroups;
+  long long cap = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+  if (blocks > cap) blocks = cap;
+  set_count_rows_kernel<G><<<(unsigned)blocks, kThreads, (size_t)smem, stream>>>(
+      q_org, q_key, q_mask, s_org, s_key, s_mask, out, d, nq, ns, t);
+  return (int)cudaGetLastError();
+}
+
 long long scratch_or_zero(long long bytes) { return bytes <= kMaxSmem ? 0 : bytes; }
 
 }  // namespace
 
 extern "C" {
 
-// global scratch bytes one block of K4 needs for a set of ns entries
-// (0: the table is in shared memory)
-long long guard_set_count_scratch(int ns) {
-  return scratch_or_zero(table_slots(ns) * kSlotBytes);
+// the geometry guard_set_count_rows takes for D rows of ns set entries
+int guard_set_count_branch(int d, int ns) {
+  long long table = table_slots(ns) * kSlotBytes;
+  if (table * (kThreads / kSetWarp) <= kSetWarpSmem) return kSetWarp;
+  if (2 * table <= kMaxSmem && d >= sm_count()) return kSetBlock;
+  return kSetGlobal;
+}
+
+// global scratch bytes K4's global branch needs for (D, Ns): the tables
+// of the rows that share it at a time
+long long guard_set_count_scratch(int d, int ns) {
+  if (d == 0) return 0;
+  return (long long)set_count_batch_rows(d, ns) * table_slots(ns) * kSlotBytes;
 }
 
 long long guard_distinct_first_scratch(int n) {
@@ -289,21 +439,57 @@ long long guard_seg_min_max_scratch(int s) {
   return scratch_or_zero((long long)s * 16);
 }
 
+// K4 on a given geometry (the one guard_set_count_branch picks, or another,
+// to measure where one overtakes the next); scratch of
+// guard_set_count_scratch's size for the global branch, else null
+int guard_set_count_rows_as(int branch, const void* q_org, const void* q_key,
+                            const void* q_mask, const void* s_org,
+                            const void* s_key, const void* s_mask, void* out,
+                            void* scratch, int d, int nq, int ns,
+                            void* stream) {
+  if (d == 0 || nq == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int32_t* qo = (const int32_t*)q_org;
+  const int32_t* qk = (const int32_t*)q_key;
+  const uint8_t* qm = (const uint8_t*)q_mask;
+  const int32_t* so = (const int32_t*)s_org;
+  const int32_t* sk = (const int32_t*)s_key;
+  const uint8_t* sm = (const uint8_t*)s_mask;
+  int32_t* o = (int32_t*)out;
+  switch (branch) {
+    case kSetWarp: return launch_set_count<kSetWarp>(qo, qk, qm, so, sk, sm, o, d, nq, ns, st);
+    case kSetBlock: return launch_set_count<kSetBlock>(qo, qk, qm, so, sk, sm, o, d, nq, ns, st);
+    case kSetGlobal: break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  int t = (int)table_slots(ns);
+  int rows = set_count_batch_rows(d, ns);
+  unsigned long long* keys = (unsigned long long*)scratch;
+  int32_t* cnt = (int32_t*)(keys + (size_t)rows * t);
+  for (long long row0 = 0; row0 < d; row0 += rows) {
+    int n_rows = d - row0 < rows ? (int)(d - row0) : rows;
+    cudaError_t e = cudaMemsetAsync(scratch, 0xff, (size_t)rows * t * kSlotBytes, st);
+    if (e != cudaSuccess) return (int)e;
+    if (ns > 0) {
+      set_count_insert_kernel<<<dim3((ns + kThreads - 1) / kThreads, n_rows), kThreads, 0, st>>>(
+          so, sk, sm, keys, cnt, row0, n_rows, ns, t);
+    }
+    set_count_probe_kernel<<<dim3((nq + kThreads - 1) / kThreads, n_rows), kThreads, 0, st>>>(
+        qo, qk, qm, keys, cnt, o, row0, n_rows, nq, t);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
 int guard_set_count_rows(const void* q_org, const void* q_key,
                          const void* q_mask, const void* s_org,
                          const void* s_key, const void* s_mask, void* out,
-                         void* scratch, int d, int nq, int ns, int blocks,
-                         void* stream) {
-  if (d == 0 || nq == 0) return (int)cudaGetLastError();
-  int t = (int)table_slots(ns);
-  if (scratch == nullptr && guard_set_count_scratch(ns) != 0)
-    return (int)cudaErrorInvalidValue;
-  return launch(set_count_kernel<true>, set_count_kernel<false>,
-                (long long)t * kSlotBytes, d, blocks, (cudaStream_t)stream,
-                (const int32_t*)q_org, (const int32_t*)q_key,
-                (const uint8_t*)q_mask, (const int32_t*)s_org,
-                (const int32_t*)s_key, (const uint8_t*)s_mask,
-                (int32_t*)out, (unsigned char*)scratch, d, nq, ns, t);
+                         void* scratch, int d, int nq, int ns, void* stream) {
+  return guard_set_count_rows_as(guard_set_count_branch(d, ns), q_org, q_key,
+                                 q_mask, s_org, s_key, s_mask, out, scratch, d,
+                                 nq, ns, stream);
 }
 
 int guard_distinct_first_rows(const void* org, const void* key,

@@ -18,13 +18,34 @@
 //   K2 segment_sum_rows  out[d,s] = sum of val[d,i] over i with seg[d,i] == s
 //       Replaces _count_children (:218), _segment_count/_agg (:233, :247)
 //       and _UnresAcc.finalize (:287). Lanes with seg outside [0, S)
-//       add nothing (root and padding lanes carry seg -1). Bound by
-//       bytes: 8 B per element read plus 4 B per output bin. One block
-//       per document row; the histogram lives in shared memory when
-//       S * 4 bytes fit in the 227 KB a block may opt into (every bucket
-//       up to 32,768 nodes), and is accumulated straight into the global
-//       output row otherwise (the 65,536-node bucket). Integer atomics
-//       make the sum exact in any order.
+//       add nothing (root and padding lanes carry seg -1), and lanes with
+//       val 0 are skipped before any atomic. Bound by bytes: 8 B per
+//       element read plus 4 B per output bin written. Integer atomics
+//       make the sum exact in any order. The first design ran one
+//       256-thread block per row on every shape: at the main shape (D
+//       65,536 x N 64, S 65) three quarters of its threads had no lane
+//       and every row paid two block barriers, so block scheduling, not
+//       bytes, bound it; a one-row 65,536-node bucket ran on one SM.
+//       Three geometries now, chosen by the launcher from (D, N, S):
+//       - group: a lane group of G = 8, 16 or 32 lanes per row (the
+//         fewest that give each lane one load of the row and at most 8
+//         bins to write), 256 / G rows a block at a time, each group
+//         with its own S bins in shared memory, synchronised by
+//         __syncwarp alone; a grid of one wave of resident blocks
+//         strides over the rows. Rows are read as 16-byte loads where
+//         N % 4 == 0 and both columns start on a 16-byte boundary. A
+//         group writes its bins out coalesced and clears them in the same
+//         pass. Taken for N <= 512 while the block's bins fit 48 KB.
+//       - block: the same kernel with G = 256 (one row a block at a
+//         time, block barriers), for wider rows whose S bins fit the
+//         227 KB a block may opt into.
+//       - split: S * 4 bytes beyond shared memory (the one-document
+//         65,536-node bucket), or a few long rows (N > 4,096 and D * N <=
+//         262,144). The output is zeroed on the stream (cudaMemsetAsync,
+//         which a CUDA graph captures) and a grid of (row chunks, rows)
+//         adds with global atomics, so the grid fills the card whatever
+//         D is.
+//       The thresholds are chip_smoke.py --design-sweep's (see below).
 //
 //   K3 rim_reduce        six rim blocks from (D, R) statuses in one launch
 //       Replaces segment_doc_status (:1966), segment_any (:1994) and
@@ -79,40 +100,85 @@ __global__ void gather_rows_kernel(const int32_t* __restrict__ vec,
   out[t] = (j >= 0 && j < s) ? vec[row * s + j] : 0;
 }
 
-__global__ void segment_sum_shared_kernel(const int32_t* __restrict__ val,
-                                          const int32_t* __restrict__ seg,
-                                          int32_t* __restrict__ out,
-                                          int n, int s) {
-  extern __shared__ int32_t hist[];
-  long long row = blockIdx.x;
-  for (int k = threadIdx.x; k < s; k += blockDim.x) hist[k] = 0;
-  __syncthreads();
-  const int32_t* v = val + row * n;
-  const int32_t* g = seg + row * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int b = g[i];
-    int x = v[i];
-    if (x != 0 && b >= 0 && b < s) atomicAdd(&hist[b], x);
-  }
-  __syncthreads();
-  int32_t* o = out + row * s;
-  for (int k = threadIdx.x; k < s; k += blockDim.x) o[k] = hist[k];
+// wait for the lanes that share a row's bins: a warp's lanes, or the block
+template <int G>
+__device__ __forceinline__ void group_sync() {
+  if (G <= 32) __syncwarp(); else __syncthreads();
 }
 
-__global__ void segment_sum_global_kernel(const int32_t* __restrict__ val,
-                                          const int32_t* __restrict__ seg,
-                                          int32_t* __restrict__ out,
-                                          int n, int s) {
-  long long row = blockIdx.x;
-  int32_t* o = out + row * s;
-  for (int k = threadIdx.x; k < s; k += blockDim.x) o[k] = 0;
-  __syncthreads();
-  const int32_t* v = val + row * n;
-  const int32_t* g = seg + row * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int b = g[i];
-    int x = v[i];
-    if (x != 0 && b >= 0 && b < s) atomicAdd(&o[b], x);
+__device__ __forceinline__ void bin_add(int32_t* hist, int s, int b, int x) {
+  if (x != 0 && (unsigned)b < (unsigned)s) atomicAdd(&hist[b], x);
+}
+
+// G lanes per row, kThreads / G rows a block at a time; V elements a
+// load (4: one 16-byte load of val and one of seg)
+template <int G, int V>
+__global__ void segment_sum_rows_kernel(const int32_t* __restrict__ val,
+                                        const int32_t* __restrict__ seg,
+                                        int32_t* __restrict__ out,
+                                        int d, int n, int s) {
+  extern __shared__ int32_t bins[];
+  constexpr int kGroups = kThreads / G;
+  const int group = threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  int32_t* hist = bins + (size_t)group * s;
+  for (int k = lane; k < s; k += G) hist[k] = 0;
+  group_sync<G>();
+  // block-uniform loop: every lane reaches every group_sync
+  for (long long base = (long long)blockIdx.x * kGroups; base < d;
+       base += (long long)gridDim.x * kGroups) {
+    long long row = base + group;
+    bool live = row < d;
+    if (live) {
+      const int32_t* v = val + row * n;
+      const int32_t* g = seg + row * n;
+      if (V == 4) {
+        for (int i = lane * 4; i < n; i += G * 4) {
+          int4 x = *(const int4*)(v + i);
+          int4 b = *(const int4*)(g + i);
+          bin_add(hist, s, b.x, x.x);
+          bin_add(hist, s, b.y, x.y);
+          bin_add(hist, s, b.z, x.z);
+          bin_add(hist, s, b.w, x.w);
+        }
+      } else {
+        for (int i = lane; i < n; i += G) bin_add(hist, s, g[i], v[i]);
+      }
+    }
+    group_sync<G>();
+    if (live) {
+      int32_t* o = out + row * s;
+      for (int k = lane; k < s; k += G) {
+        o[k] = hist[k];
+        hist[k] = 0;
+      }
+    }
+    group_sync<G>();
+  }
+}
+
+// grid (chunks of kSplitThreads * V lanes, rows); out zeroed beforehand
+template <int V>
+__global__ void segment_sum_split_kernel(const int32_t* __restrict__ val,
+                                         const int32_t* __restrict__ seg,
+                                         int32_t* __restrict__ out,
+                                         int d, int n, int s) {
+  long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (i >= n) return;
+  for (long long row = blockIdx.y; row < d; row += gridDim.y) {
+    const int32_t* v = val + row * n + i;
+    const int32_t* g = seg + row * n + i;
+    int32_t* o = out + row * s;
+    if (V == 4) {
+      int4 x = *(const int4*)v;
+      int4 b = *(const int4*)g;
+      bin_add(o, s, b.x, x.x);
+      bin_add(o, s, b.y, x.y);
+      bin_add(o, s, b.z, x.z);
+      bin_add(o, s, b.w, x.w);
+    } else {
+      bin_add(o, s, *g, *v);
+    }
   }
 }
 
@@ -266,6 +332,55 @@ void launch_rule_summary(const int8_t* statuses, int32_t* out, int rows,
       statuses, out, rows, r, width, chunk);
 }
 
+// K2's geometries (guard_segment_sum_branch): lanes per row for the
+// group branch, 256 for block, 0 for split
+enum { kSegGroup8 = 8, kSegGroup16 = 16, kSegGroup32 = 32, kSegBlock = 256,
+       kSegSplit = 0 };
+
+// K2's thresholds, from chip_smoke.py --design-sweep on an H100: rows up
+// to kSegGroupMaxN nodes take a lane group while the block's bins fit
+// kSegGroupSmem bytes (the group wins up to N 512, the block from N
+// 1,024); rows longer than kSegSplitMinN take the split grid while the
+// batch holds at most kSegSplitMaxElems elements (at N 8,192 split wins
+// up to D 8 and loses at D 64, at N 16,384 it wins at D 16; at N 2,048
+// one block a row wins at every D)
+constexpr int kSegGroupMaxN = 512;
+constexpr long long kSegGroupSmem = 48 * 1024;
+constexpr int kSegSplitMinN = 4096;
+constexpr long long kSegSplitMaxElems = 1 << 18;
+// threads a block of K2's split branch
+constexpr int kSplitThreads = 128;
+// blocks of `kernel` (kThreads threads, smem bytes) the card holds at once
+template <typename Kernel>
+long long one_wave(Kernel kernel, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  return (long long)sms * (per_sm > 0 ? per_sm : 1);
+}
+
+template <int G>
+int launch_segment_sum(bool vec4, const int32_t* val, const int32_t* seg,
+                       int32_t* out, int d, int n, int s,
+                       cudaStream_t stream) {
+  constexpr int kGroups = kThreads / G;
+  size_t smem = (size_t)kGroups * s * 4;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = vec4 ? segment_sum_rows_kernel<G, 4> : segment_sum_rows_kernel<G, 1>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // one wave of resident blocks strides over the rows
+  long long blocks = ((long long)d + kGroups - 1) / kGroups;
+  long long cap = one_wave(kernel, smem);
+  if (blocks > cap) blocks = cap;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(val, seg, out, d, n, s);
+  return (int)cudaGetLastError();
+}
+
 int blocks_for(long long total) {
   return (int)((total + kThreads - 1) / kThreads);
 }
@@ -284,29 +399,55 @@ int guard_gather_rows(const void* vec, const void* idx, void* out, int d,
   return (int)cudaGetLastError();
 }
 
-// 1 when (D, S) rows accumulate in shared memory, 0 when in global memory
-int guard_segment_sum_uses_shared(int s) {
-  return (long long)s * 4 <= kMaxSmem ? 1 : 0;
+// the geometry guard_segment_sum_rows takes for (D, N, S)
+int guard_segment_sum_branch(int d, int n, int s) {
+  long long bins = (long long)s * 4;
+  // the fewest lanes that give each one load (16 bytes where N % 4 == 0)
+  // and at most 8 bins to write out
+  int loads = n % 4 == 0 ? n / 4 : n;
+  int g = kSegGroup8;
+  while (g < kSegGroup32 && (loads > g || s > 8 * g)) g *= 2;
+  if (n <= kSegGroupMaxN && bins * (kThreads / g) <= kSegGroupSmem) return g;
+  bool few_long_rows = n > kSegSplitMinN && (long long)d * n <= kSegSplitMaxElems;
+  if (bins <= kMaxSmem && !few_long_rows) return kSegBlock;
+  return kSegSplit;
+}
+
+// K2 on a given geometry (the one guard_segment_sum_branch picks, or
+// another, to measure where one overtakes the next)
+int guard_segment_sum_rows_as(int branch, const void* val, const void* seg,
+                              void* out, int d, int n, int s, void* stream) {
+  if (d == 0 || s == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int32_t* v = (const int32_t*)val;
+  const int32_t* g = (const int32_t*)seg;
+  int32_t* o = (int32_t*)out;
+  bool vec4 = n % 4 == 0 && (((uintptr_t)val | (uintptr_t)seg) & 15) == 0;
+  if (branch == kSegSplit) {
+    cudaError_t e = cudaMemsetAsync(out, 0, (size_t)d * s * 4, st);
+    if (e != cudaSuccess) return (int)e;
+    if (n == 0) return (int)cudaGetLastError();
+    int per_block = kSplitThreads * (vec4 ? 4 : 1);
+    dim3 grid((n + per_block - 1) / per_block, d < 65535 ? d : 65535);
+    if (vec4)
+      segment_sum_split_kernel<4><<<grid, kSplitThreads, 0, st>>>(v, g, o, d, n, s);
+    else
+      segment_sum_split_kernel<1><<<grid, kSplitThreads, 0, st>>>(v, g, o, d, n, s);
+    return (int)cudaGetLastError();
+  }
+  switch (branch) {
+    case kSegGroup8: return launch_segment_sum<8>(vec4, v, g, o, d, n, s, st);
+    case kSegGroup16: return launch_segment_sum<16>(vec4, v, g, o, d, n, s, st);
+    case kSegGroup32: return launch_segment_sum<32>(vec4, v, g, o, d, n, s, st);
+    case kSegBlock: return launch_segment_sum<256>(vec4, v, g, o, d, n, s, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int guard_segment_sum_rows(const void* val, const void* seg, void* out,
                            int d, int n, int s, void* stream) {
-  if (d == 0 || s == 0) return (int)cudaGetLastError();
-  size_t smem = (size_t)s * 4;
-  if (guard_segment_sum_uses_shared(s)) {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          segment_sum_shared_kernel,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    segment_sum_shared_kernel<<<d, kThreads, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)val, (const int32_t*)seg, (int32_t*)out, n, s);
-  } else {
-    segment_sum_global_kernel<<<d, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)val, (const int32_t*)seg, (int32_t*)out, n, s);
-  }
-  return (int)cudaGetLastError();
+  return guard_segment_sum_rows_as(guard_segment_sum_branch(d, n, s), val,
+                                   seg, out, d, n, s, stream);
 }
 
 // largest 2G + 3F accumulator count one block holds

@@ -3,8 +3,9 @@ csrc/guard_kernels.cu, K4-K6 in csrc/guard_joins.cu.
 
 Each wrapper takes batched row-major tensors. For a CUDA tensor it
 checks dtype, shape and contiguity, launches its kernel on PyTorch's
-current stream and adds one to its entry in `LAUNCHES`; a refused
-launch raises. For a CPU tensor it returns the plain PyTorch version
+current stream and adds one to its entry in `LAUNCHES` (one a call,
+also where the launcher issues a memset and several grids, as K2 and K4
+do for one-document buckets); a refused launch raises. For a CPU tensor it returns the plain PyTorch version
 (`kernels/plain.py`) and counts nothing. There is no other path.
 
 `SHAPES` records the argument shape of every launch, so a measurement
@@ -182,9 +183,9 @@ _SCRATCH_BYTES = 256 << 20
 
 
 def _join_scratch(lib, fn_name: str, d: int, size: int, dev) -> Tuple[torch.Tensor, int]:
-    """Global-memory scratch for a join kernel whose per-row table does
-    not fit one block's shared memory: (scratch bytes, blocks). Empty
-    when the table fits, and the kernel then runs one block per row."""
+    """Global-memory scratch for K5 or K6 where a row's table does not
+    fit one block's shared memory: (scratch bytes, blocks). Empty when
+    the table fits, and the kernel then runs one block per row."""
     per_block = getattr(lib, fn_name)(size)
     if per_block == 0:
         return torch.empty(0, dtype=torch.uint8, device=dev), d
@@ -217,13 +218,17 @@ def set_count_rows(q_org: torch.Tensor, q_key: torch.Tensor, q_mask: torch.Tenso
     if out.numel() == 0:
         return out
     lib = _lib()
-    scratch, blocks = _join_scratch(lib, "guard_set_count_scratch", d, ns, q_org.device)
+    # tables in global scratch where the launcher takes its global branch
+    scratch = None
+    if lib.guard_set_count_branch(d, ns) == 0:
+        scratch = torch.empty(lib.guard_set_count_scratch(d, ns), dtype=torch.uint8,
+                              device=q_org.device)
     _raise_on(
         lib.guard_set_count_rows(
             q_org.data_ptr(), q_key.data_ptr(), q_mask.data_ptr(),
             s_org.data_ptr(), s_key.data_ptr(), s_mask.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch.numel() else None,
-            d, nq, ns, blocks, _stream(q_org),
+            scratch.data_ptr() if scratch is not None else None,
+            d, nq, ns, _stream(q_org),
         ),
         "set_count_rows",
     )

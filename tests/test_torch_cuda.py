@@ -12,8 +12,12 @@ out, duplicate pairs, negative keys, INT32_MIN and INT32_MAX keys,
 empty segments and a set twice the query's length; for K7 statuses
 with values outside 0..2, n_valid below, at and beyond D, rule sets
 that span several column tiles (258 to 1,028 rules), and rows that do
-not start on a 4-byte boundary. Results
-are integers: exact equality, no tolerance.
+not start on a 4-byte boundary. K2 and K4 are held on every geometry
+their launchers choose from (a lane group, a block or a split grid per
+row for K2; a warp's, a block's or a global table per row for K4), at
+the shapes around each threshold, at D 0 and D 1 x N 65,536, and on
+rows that do not start on a 16-byte boundary. Results are integers:
+exact equality, no tolerance.
 """
 
 import numpy as np
@@ -275,3 +279,214 @@ def test_cuda_with_summary_matches_cpu(cuda_device):
     part = K.rule_summary(torch.from_numpy(card[0]).to(cuda_device), 17)
     assert np.array_equal(part.cpu().numpy(),
                           plain.rule_summary(torch.from_numpy(cpu[0]), 17).numpy())
+
+
+# K2 geometries (guard_segment_sum_branch): lanes per row, 256 a block
+# per row, 0 a split grid
+K2_GEOMETRIES = (8, 16, 32, 256, 0)
+
+
+def k2_rows(rng, d: int, n: int, s: int):
+    """(val, seg): values 0..3 (a quarter of them 0, skipped before the
+    atomic) and segment ids in [-2, S + 2), so lanes at -1, at S and
+    beyond S add nothing."""
+    val = rng.integers(0, 4, size=(d, n)).astype(np.int32)
+    seg = rng.integers(-2, s + 2, size=(d, n)).astype(np.int32)
+    return val, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16, 32, 33, 64, 65, 128, 512, 513, 1024, 2048])
+@pytest.mark.parametrize("d", [1, 16, 200])
+def test_cuda_segment_sum_geometry_boundaries_match_plain(cuda_device, n, d):
+    """N across the lane-group sizes (8, 16, 32 lanes a row), the group
+    and block limit (N 512 / 513) and D across the SM count, with S at N,
+    N + 1 and the query-RHS width (N + 1) * 5."""
+    rng = np.random.default_rng(SEED + 13 * n + d)
+    for s in (n, n + 1, (n + 1) * 5):
+        val, seg = to(cuda_device, *k2_rows(rng, d, n, s))
+        got = K.segment_sum_rows(val, seg, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.segment_sum_rows(val, seg, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", K2_GEOMETRIES)
+@pytest.mark.parametrize("n,s", [(8, 9), (64, 65), (64, 325), (100, 101), (1024, 1025)])
+def test_cuda_segment_sum_every_geometry_matches_plain(cuda_device, geometry, n, s):
+    """Each geometry forced on the same rows, whichever the launcher
+    would pick, including 16-byte and single-element loads."""
+    lib = K._lib()
+    rng = np.random.default_rng(SEED + 17 * n + geometry)
+    val, seg = to(cuda_device, *k2_rows(rng, 300, n, s))
+    out = torch.empty((300, s), dtype=torch.int32, device=cuda_device)
+    rc = lib.guard_segment_sum_rows_as(
+        geometry, val.data_ptr(), seg.data_ptr(), out.data_ptr(), 300, n, s,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(out, plain.segment_sum_rows(val, seg, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [65536, 65537, 65537 * 5])
+def test_cuda_segment_sum_one_wide_row_matches_plain(cuda_device, s):
+    """The one-document 65,536-node bucket takes the split grid and
+    counts one launch."""
+    n = 65536
+    rng = np.random.default_rng(SEED + s)
+    val, seg = to(cuda_device, *k2_rows(rng, 1, n, s))
+    assert K._lib().guard_segment_sum_branch(1, n, s) == 0
+    before = K.LAUNCHES["segment_sum_rows"]
+    got = K.segment_sum_rows(val, seg, s)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["segment_sum_rows"] == before + 1
+    assert K.SHAPES["segment_sum_rows"][(1, n, s)] >= 1
+    assert torch.equal(got, plain.segment_sum_rows(val, seg, s))
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_parent_histogram_matches_plain(cuda_device):
+    """Child counts over random trees (seg = parent column, many lanes of
+    one row on one bin), as _count_children calls it, from the 64-node
+    bucket to one 65,536-node document."""
+    for d, n in ((4096, 64), (64, 4096), (1, 65536)):
+        rng = np.random.default_rng(SEED + n)
+        parents, = to(cuda_device, _batch(rng, d, n) if n <= 4096
+                      else _tree(rng, n, 60002)[None])
+        pred = (torch.rand(parents.shape, device=cuda_device) < 0.6).to(torch.int32)
+        got = K.segment_sum_rows(pred, parents, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.segment_sum_rows(pred, parents, n))
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_of_no_rows_launches_nothing(cuda_device):
+    for d, n, s in ((0, 64, 65), (0, 65536, 65537), (4, 64, 0)):
+        val = torch.zeros((d, n), dtype=torch.int32, device=cuda_device)
+        before = K.LAUNCHES["segment_sum_rows"]
+        got = K.segment_sum_rows(val, val, s)
+        assert tuple(got.shape) == (d, s)
+        assert K.LAUNCHES["segment_sum_rows"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_cuda_segment_sum_of_unaligned_rows_matches_plain(cuda_device, offset):
+    """Columns that do not start on a 16-byte boundary read one element
+    a load (offset 4 starts on one, and reads 16 bytes)."""
+    rng = np.random.default_rng(SEED + offset)
+    for d, n, s in ((4096, 64, 65), (1, 65536, 65537)):
+        val, seg = to(cuda_device, *k2_rows(rng, 1, d * n + offset, s))
+        v = val[0, offset:].view(d, n)
+        g = seg[0, offset:].view(d, n)
+        got = K.segment_sum_rows(v, g, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.segment_sum_rows(v, g, s))
+
+
+# K4 forms (guard_set_count_branch): 32 a warp's table, 256 a block's, 0
+# tables in global scratch
+K4_FORMS = (32, 256, 0)
+
+
+def equal_key_rows(d: int, width: int):
+    """Every entry the same pair (org 0, key 7), all masked in: one hash
+    slot takes every insert."""
+    org = np.zeros((d, width), np.int32)
+    return org, np.full((d, width), 7, np.int32), np.ones((d, width), bool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,ns", [(8, 8), (64, 31), (64, 64), (64, 128), (64, 129),
+                                   (100, 256), (1024, 2048), (2048, 4096), (2048, 8192),
+                                   (2048, 8193)])
+@pytest.mark.parametrize("d", [1, 300])
+def test_cuda_set_count_geometry_boundaries_match_plain(cuda_device, nq, ns, d):
+    """Ns across the warp-table limit (128 / 256), the block-table limit
+    (4,096 / 8,192) and the shared-memory limit (8,193), Ns below and
+    above Nq, with D 1 (global tables) and D beyond the SM count."""
+    rng = np.random.default_rng(SEED + 19 * ns + nq + d)
+    q = to(cuda_device, *join_rows(rng, d, nq, nq))
+    s = to(cuda_device, *join_rows(rng, d, nq, ns))
+    got = K.set_count_rows(*q, *s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.set_count_rows(*q, *s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", K4_FORMS)
+@pytest.mark.parametrize("nq,ns", [(8, 8), (64, 64), (64, 128), (128, 256)])
+def test_cuda_set_count_every_form_matches_plain(cuda_device, form, nq, ns):
+    lib = K._lib()
+    rng = np.random.default_rng(SEED + 23 * ns + form)
+    q = to(cuda_device, *join_rows(rng, 300, nq, nq))
+    s = to(cuda_device, *join_rows(rng, 300, nq, ns))
+    out = torch.empty((300, nq), dtype=torch.int32, device=cuda_device)
+    scratch = torch.empty(lib.guard_set_count_scratch(300, ns), dtype=torch.uint8,
+                          device=cuda_device)
+    rc = lib.guard_set_count_rows_as(
+        form, *(t.data_ptr() for t in (*q, *s)), out.data_ptr(),
+        scratch.data_ptr() if form == 0 else None, 300, nq, ns,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(out, plain.set_count_rows(*q, *s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", [65536, 131072])
+def test_cuda_set_count_one_wide_row_matches_plain(cuda_device, ns):
+    """The one-document 65,536-node bucket takes global tables and
+    counts one launch for its memset and two grids."""
+    n = 65536
+    rng = np.random.default_rng(SEED + ns)
+    q = to(cuda_device, *join_rows(rng, 1, n, n))
+    s = to(cuda_device, *join_rows(rng, 1, n, ns))
+    assert K._lib().guard_set_count_branch(1, ns) == 0
+    before = K.LAUNCHES["set_count_rows"]
+    got = K.set_count_rows(*q, *s)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["set_count_rows"] == before + 1
+    assert torch.equal(got, plain.set_count_rows(*q, *s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nq,ns", [(300, 64, 128), (4, 4096, 8192), (1, 65536, 131072)])
+def test_cuda_set_count_all_equal_keys_matches_plain(cuda_device, d, nq, ns):
+    q = to(cuda_device, *equal_key_rows(d, nq))
+    s = to(cuda_device, *equal_key_rows(d, ns))
+    got = K.set_count_rows(*q, *s)
+    torch.cuda.synchronize()
+    assert (got == ns).all()
+    assert torch.equal(got, plain.set_count_rows(*q, *s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_cuda_set_count_of_unaligned_rows_matches_plain(cuda_device, offset):
+    """Query and set rows cut from one buffer at an offset of 1, 2 and 4
+    elements."""
+    rng = np.random.default_rng(SEED + 29 * offset)
+    for d, nq, ns in ((300, 64, 128), (1, 65536, 65536)):
+        # row 1 of join_rows (row 0 is masked out)
+        flat_q = to(cuda_device, *join_rows(rng, 2, nq, d * nq + offset))
+        flat_s = to(cuda_device, *join_rows(rng, 2, nq, d * ns + offset))
+        q = tuple(t[1, offset:].view(d, nq) for t in flat_q)
+        s = tuple(t[1, offset:].view(d, ns) for t in flat_s)
+        got = K.set_count_rows(*q, *s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.set_count_rows(*q, *s))
+
+
+@pytest.mark.cuda
+def test_cuda_set_count_of_no_rows_launches_nothing(cuda_device):
+    for d, nq, ns in ((0, 64, 128), (0, 65536, 131072), (4, 0, 64)):
+        q = to(cuda_device, *equal_key_rows(d, nq))
+        s = to(cuda_device, *equal_key_rows(d, ns))
+        before = K.LAUNCHES["set_count_rows"]
+        got = K.set_count_rows(*q, *s)
+        assert tuple(got.shape) == (d, nq)
+        assert K.LAUNCHES["set_count_rows"] == before

@@ -177,3 +177,86 @@ def test_join_wrappers_refuse_mixed_devices():
     meta = tuple(x.to("meta") for x in q)
     with pytest.raises(ValueError):
         K.set_count_rows(*q, *meta)
+
+
+def _set_count_against_jax(q, s):
+    """Plain K4 against vmapped _set_count_sorted and _in_set_sorted."""
+    nq = q[0].shape[1]
+    want = jax.vmap(lambda *a: jk._set_count_sorted(nq, *a))(*jx(*q, *s))
+    got = plain.set_count_rows(*t(*q, *s))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    in_set = jax.vmap(lambda *a: jk._in_set_sorted(nq, *a))(*jx(*q, *s))
+    np.testing.assert_array_equal((got > 0).numpy(), np.asarray(in_set))
+    return got
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_set_count_rows_all_equal_keys_matches_jax(n):
+    """Every set entry the same pair (one hash slot takes them all); the
+    queries that carry it count every masked set entry."""
+    rng = np.random.default_rng(SEED + 13 * n)
+    d = 6
+    q = list(join_rows(rng, d, n, n))
+    q[0][:, ::2], q[1][:, ::2] = 0, 7
+    s_mask = rng.random((d, 2 * n)) < 0.8
+    s = (np.zeros((d, 2 * n), np.int32), np.full((d, 2 * n), 7, np.int32), s_mask)
+    got = _set_count_against_jax(q, s)
+    hit = q[2] & (q[0] == 0) & (q[1] == 7)
+    np.testing.assert_array_equal(got.numpy()[hit], np.repeat(s_mask.sum(1), n)[hit.ravel()])
+
+
+@pytest.mark.parametrize("n", [64, 200])
+def test_set_count_rows_with_org_zero_matches_jax(n):
+    """org all 0 on both sides, as the `.%var` key match calls it
+    (ops/kernels.py:501-507): node key ids against the variable's
+    string ids, multiplicities included."""
+    rng = np.random.default_rng(SEED + 17 * n)
+    d = 8
+    zeros = np.zeros((d, n), np.int32)
+    node_key = np.where(rng.random((d, n)) < 0.7, rng.integers(0, 12, size=(d, n)), -1
+                        ).astype(np.int32)
+    vs = np.where(rng.random((d, n)) < 0.3, rng.integers(0, 12, size=(d, n)), -1
+                  ).astype(np.int32)
+    good = vs >= 0
+    got = _set_count_against_jax((zeros, node_key, node_key >= 0), (zeros, vs, good))
+    assert (got > 1).any()
+
+
+@pytest.mark.parametrize("nq,ns", [(64, 100), (64, 257)])
+def test_set_count_rows_set_not_a_power_of_two_matches_jax(nq, ns):
+    rng = np.random.default_rng(SEED + ns)
+    _set_count_against_jax(join_rows(rng, 8, nq, nq), join_rows(rng, 8, nq, ns))
+
+
+@pytest.mark.parametrize("nq,ns", [(64, 31), (200, 8)])
+def test_set_count_rows_set_shorter_than_queries_matches_jax(nq, ns):
+    rng = np.random.default_rng(SEED + 5 * ns)
+    _set_count_against_jax(join_rows(rng, 8, nq, nq), join_rows(rng, 8, nq, ns))
+
+
+@pytest.mark.parametrize("how", ["mask_off", "org_negative"])
+def test_set_count_rows_fully_excluded_set_matches_jax(how):
+    """A set of 2N entries, every one excluded (mask off, or masked in
+    with org < 0): every query reads 0."""
+    n = 64
+    rng = np.random.default_rng(SEED + len(how))
+    q = join_rows(rng, 6, n, n)
+    org, key, mask = join_rows(rng, 6, n, 2 * n)
+    if how == "mask_off":
+        mask = np.zeros_like(mask)
+    else:
+        org, mask = -1 - np.abs(org), np.ones_like(mask)
+    got = _set_count_against_jax(q, (org.astype(np.int32), key, mask))
+    assert not got.any()
+
+
+@pytest.mark.parametrize("ns", [4096, 8192])
+def test_set_count_rows_one_wide_document_matches_jax(ns):
+    """One document of 4,096 query entries, alone in its row."""
+    n = 4096
+    rng = np.random.default_rng(SEED + ns)
+    q = [a[1:2] for a in join_rows(rng, 2, n, n)]
+    s = [a[1:2] for a in join_rows(rng, 2, n, ns)]
+    got = _set_count_against_jax(q, s)
+    assert (got > 1).any()

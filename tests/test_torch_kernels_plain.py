@@ -18,7 +18,7 @@ import torch
 from guard_tpu.ops import kernels as jk
 from guard_tpu_torch import kernels as K
 from guard_tpu_torch.kernels import plain
-from test_torch_cuda import _batch, _rim_case
+from test_torch_cuda import _batch, _rim_case, _tree
 
 SEED = 7
 
@@ -152,3 +152,88 @@ def test_wrappers_use_plain_on_cpu():
         K.segment_sum_rows(vec, parents, 17), plain.segment_sum_rows(vec, parents, 17)
     )
     assert K.LAUNCHES == before  # nothing launched, nothing counted
+
+
+def _k2_cases_against_jax(parents: np.ndarray, rng, pred=None, counts=None):
+    """Plain K2 as the walk calls it for _count_children, _segment_count
+    and _UnresAcc.finalize, against the JAX functions row by row. The
+    miss labels run from -1 to N + 5: lanes at -1, at S = N + 1 and
+    beyond S add nothing."""
+    d, n = parents.shape
+    if pred is None:
+        pred = rng.random(parents.shape) < 0.6
+    sel = np.where(rng.random(parents.shape) < 0.4, 0,
+                   rng.integers(1, n + 1, size=parents.shape)).astype(np.int32)
+    labels = rng.integers(-1, n + 6, size=parents.shape).astype(np.int32)
+    if counts is None:
+        counts = rng.integers(0, 4, size=parents.shape).astype(np.int32)
+    active = pred & (sel > 0)
+    children = plain.segment_sum_rows(
+        torch.from_numpy(pred.astype(np.int32)), torch.from_numpy(parents), n)
+    per_origin = plain.segment_sum_rows(
+        torch.from_numpy(active.astype(np.int32)),
+        torch.from_numpy(np.where(active, sel, 0).astype(np.int32)), n + 1)
+    misses = plain.segment_sum_rows(
+        torch.from_numpy(np.where(labels > 0, counts, 0).astype(np.int32)),
+        torch.from_numpy(labels), n + 1)
+    for r, doc in enumerate(_jax_docs(parents)):
+        np.testing.assert_array_equal(
+            children[r].numpy(), np.asarray(jk._count_children(doc, jnp.asarray(pred[r]))))
+        np.testing.assert_array_equal(
+            per_origin[r].numpy(),
+            np.asarray(jk._segment_count(doc, jnp.asarray(sel[r]), jnp.asarray(pred[r]))))
+        acc = jk._UnresAcc(doc)
+        acc.miss_labels = jnp.asarray(labels[r])
+        acc.miss_count = jnp.asarray(counts[r])
+        acc.touched = True
+        np.testing.assert_array_equal(misses[r].numpy(), np.asarray(acc.finalize(doc, False)))
+    return children, per_origin, misses
+
+
+@pytest.mark.parametrize("n", [8, 16, 32, 33, 64, 65, 128])
+def test_segment_sum_plain_matches_jax_at_row_geometry_boundaries(n):
+    """N across the lane-group sizes the kernel picks (8, 16 and 32 lanes
+    a row, 16-byte loads where N % 4 == 0)."""
+    rng = np.random.default_rng(SEED + 31 * n)
+    _k2_cases_against_jax(_batch(rng, 6, n), rng)
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_segment_sum_plain_matches_jax_on_one_wide_document(n):
+    """One document alone in its bucket, the shape of the split grid."""
+    rng = np.random.default_rng(SEED + n)
+    parents = _tree(rng, n, int(0.9 * n))[None]
+    outs = _k2_cases_against_jax(parents, rng)
+    assert all(o.any() for o in outs)
+
+
+@pytest.mark.parametrize("where", ["minus_one", "at_s", "beyond_s"])
+def test_segment_sum_plain_drops_lanes_outside_the_segments(where):
+    """Every miss label -1, S (= N + 1) or beyond S: the finalize
+    histogram stays zero, as the JAX package's does."""
+    n = 64
+    rng = np.random.default_rng(SEED + len(where))
+    parents = _batch(rng, 5, n)
+    label = {"minus_one": -1, "at_s": n + 1, "beyond_s": n + 40}[where]
+    labels = np.full(parents.shape, label, np.int32)
+    counts = rng.integers(1, 4, size=parents.shape).astype(np.int32)
+    got = plain.segment_sum_rows(
+        torch.from_numpy(np.where(labels > 0, counts, 0).astype(np.int32)),
+        torch.from_numpy(labels), n + 1)
+    assert not got.any()
+    for r, doc in enumerate(_jax_docs(parents)):
+        acc = jk._UnresAcc(doc)
+        acc.miss_labels = jnp.asarray(labels[r])
+        acc.miss_count = jnp.asarray(counts[r])
+        acc.touched = True
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(acc.finalize(doc, False)))
+
+
+@pytest.mark.parametrize("n", [64, 4096])
+def test_segment_sum_plain_of_all_zero_values_matches_jax(n):
+    """pred false and miss counts 0 everywhere: every histogram is zero."""
+    rng = np.random.default_rng(SEED + 3 * n)
+    parents = _batch(rng, 3, n) if n <= 64 else _tree(rng, n, n)[None]
+    outs = _k2_cases_against_jax(parents, rng, pred=np.zeros(parents.shape, bool),
+                                 counts=np.zeros(parents.shape, np.int32))
+    assert not any(o.any() for o in outs)
