@@ -18,7 +18,8 @@ no result line):
    N in {64, 1024, 65536} with 16 MB per (D, N) column, K4 also at D 1
    x N 65,536 with Ns in {N, 2N} and with every key equal, K7 at D in
    {1, 4096, 65536, 1048576} x R in {1, 4, 37, 512, 1024, 1028} (one byte or four a
-   load, up to two column tiles) with n_valid in {0, D - 3, D} and statuses outside 0..2:
+   load, up to two column tiles) with n_valid in {0, D - 3, D} and statuses outside 0..2,
+   K5 and K6 also at D 1 x N 65,536 and with every key equal:
    outputs must be equal (exact integer results, tolerance 0); kernel
    and plain times are CUDA-event medians of 20 runs; a kernel's
    device time (`device_ms`) is that of 20 calls captured into one CUDA
@@ -60,7 +61,7 @@ no result line):
 5. No JAX and no guard_tpu module was imported.
 
 The line before the last is a JSON object {"kernels": [...]} with each
-kernel's launches (K2 and K4 twice: at the main shape and at the
+kernel's launches (K1-K6 twice: at the main shape and at the
 one-document 65,536-node bucket's heaviest shape) on its main path
 (K1-K3 the security policy's, K4-K6
 the cross-reference policy's, K7 the summary's; every path's in
@@ -77,12 +78,14 @@ Two measurement modes print one JSON line and skip the phases above:
     python3 chip_smoke.py --design-sweep [CHECKOUT]
     python3 chip_smoke.py --compare-designs OTHER_CHECKOUT
 
-`--design-sweep` times K2 and K4 at the main path's shapes through the
-public wrappers of CHECKOUT's guard_tpu_torch (default: this one), and,
-for this checkout, each K2 geometry and K4 form at the shapes around
-the launchers' thresholds. `--compare-designs` runs the design sweep of
-OTHER_CHECKOUT (an older design, unpacked with `git archive`) and of
-this checkout in turns, other, this, this, other, one process each.
+`--design-sweep` times K2, K4, K5 and K6 at the main path's shapes
+through the public wrappers of CHECKOUT's guard_tpu_torch (default:
+this one), K6 beside scatter_reduce_, and, where CHECKOUT has the
+forced-form entries, each K2 geometry and K4, K5 and K6 form at the
+shapes around the launchers' thresholds. `--compare-designs` runs the
+design sweep of OTHER_CHECKOUT (an older design, unpacked with `git
+archive`) and of this checkout in turns, other, this, this, other, one
+process each.
 """
 
 from __future__ import annotations
@@ -133,11 +136,11 @@ REPLACES = {
 JOINS = ("set_count_rows", "distinct_first_rows", "seg_min_max_rows")
 # the kernels of the walk and the rim; K7 runs only behind with_summary
 WALK_KERNELS = tuple(name for name in SOURCES if name != "rule_summary")
-# whether a K4-K6 launch shape takes the global-memory branch
-GLOBAL_BRANCH = {
-    "set_count_rows": lambda lib, shape: lib.guard_set_count_branch(shape[0], shape[2]) == 0,
-    "distinct_first_rows": lambda lib, shape: lib.guard_distinct_first_scratch(shape[1]) > 0,
-    "seg_min_max_rows": lambda lib, shape: lib.guard_seg_min_max_scratch(shape[2]) > 0,
+# the form a K4-K6 launch shape takes (0: tables in global memory)
+BRANCH = {
+    "set_count_rows": lambda lib, shape: lib.guard_set_count_branch(shape[0], shape[2]),
+    "distinct_first_rows": lambda lib, shape: lib.guard_distinct_first_branch(*shape),
+    "seg_min_max_rows": lambda lib, shape: lib.guard_seg_min_max_branch(*shape),
 }
 
 
@@ -308,6 +311,24 @@ def k6_inputs(gen, d: int, n: int, device):
     return seg, mask, hi, lo, (n + 1) * 5
 
 
+def k6_segments(gen, d: int, n: int, s: int, device, how: str):
+    """(seg, mask, hi, lo) of k6_inputs with the segment ids spread `how`
+    (K6_SEGMENTS): its 40 segments; the 5 kind classes of origin 1, as a
+    shared query RHS labels every entry (ops/kernels.py:806); or uniform
+    over [-1, S), a segment of its own for nearly every entry. Every
+    segment id lies in [0, S) but the uniform spread's -1 entries, which
+    are masked out."""
+    import torch
+
+    seg, mask, hi, lo, _s = k6_inputs(gen, d, n, device)
+    if how == "shared":
+        seg = 5 + seg % 5
+    elif how == "uniform":
+        seg = torch.randint(-1, s, (d, n), generator=gen, device=device, dtype=torch.int32)
+        mask = mask & (seg >= 0)
+    return seg % s if how == "40" else seg, mask, hi, lo
+
+
 def _equal(a, b) -> bool:
     if isinstance(a, tuple):
         return all(_equal(x, y) for x, y in zip(a, b))
@@ -405,6 +426,46 @@ def k4_sweep_row(q, st, device) -> dict:
     }
 
 
+def k5_sweep_row(q, device) -> dict:
+    """K5 against its plain version on rows q, and its times; raises
+    where they differ."""
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.kernels import plain
+
+    d, n = q[0].shape
+    ok = _equal(K.distinct_first_rows(*q), plain.distinct_first_rows(*q))
+    if not ok:
+        raise AssertionError(f"distinct_first_rows differs from plain at D={d} N={n}")
+    return {
+        "N": n, "D": d, "equal": ok,
+        "branch": K._lib().guard_distinct_first_branch(d, n),
+        "ms": cuda_ms(lambda: K.distinct_first_rows(*q)),
+        "device_ms": graph_ms(lambda: K.distinct_first_rows(*q)),
+        "plain_ms": cuda_ms(lambda: plain.distinct_first_rows(*q)),
+        "bytes": k5_bytes(d, n),
+    }
+
+
+def k6_sweep_row(args, s: int, device) -> dict:
+    """K6 against its plain version on (seg, mask, hi, lo) with S
+    segments, and its times; raises where they differ."""
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.kernels import plain
+
+    d, n = args[0].shape
+    ok = _equal(K.seg_min_max_rows(*args, s), plain.seg_min_max_rows(*args, s))
+    if not ok:
+        raise AssertionError(f"seg_min_max_rows differs from plain at D={d} N={n} S={s}")
+    return {
+        "N": n, "D": d, "S": s, "equal": ok,
+        "branch": K._lib().guard_seg_min_max_branch(d, n, s),
+        "ms": cuda_ms(lambda: K.seg_min_max_rows(*args, s)),
+        "device_ms": graph_ms(lambda: K.seg_min_max_rows(*args, s)),
+        "plain_ms": cuda_ms(lambda: plain.seg_min_max_rows(*args, s), reps=5),
+        "bytes": k6_bytes(d, n, s),
+    }
+
+
 def phase_kernel_sweep(device) -> dict:
     """Every kernel against its plain version at the sweep shapes."""
     import torch
@@ -458,26 +519,10 @@ def phase_kernel_sweep(device) -> dict:
             st = join_inputs(gen, d, n, ns, device)
             sweep["set_count_rows"].append(k4_sweep_row(q, st, device))
             del st
-        ok = _equal(K.distinct_first_rows(*q), plain.distinct_first_rows(*q))
-        sweep["distinct_first_rows"].append({
-            "N": n, "D": d, "equal": ok,
-            "ms": cuda_ms(lambda: K.distinct_first_rows(*q)),
-            "plain_ms": cuda_ms(lambda: plain.distinct_first_rows(*q)),
-            "bytes": k5_bytes(d, n),
-        })
-        if not ok:
-            raise AssertionError(f"distinct_first_rows differs from plain at N={n}")
+        sweep["distinct_first_rows"].append(k5_sweep_row(q, device))
         del q
         *args, s = k6_inputs(gen, d, n, device)
-        ok = _equal(K.seg_min_max_rows(*args, s), plain.seg_min_max_rows(*args, s))
-        sweep["seg_min_max_rows"].append({
-            "N": n, "D": d, "S": s, "equal": ok,
-            "ms": cuda_ms(lambda: K.seg_min_max_rows(*args, s)),
-            "plain_ms": cuda_ms(lambda: plain.seg_min_max_rows(*args, s), reps=5),
-            "bytes": k6_bytes(d, n, s),
-        })
-        if not ok:
-            raise AssertionError(f"seg_min_max_rows differs from plain at N={n}")
+        sweep["seg_min_max_rows"].append(k6_sweep_row(args, s, device))
         del args
         torch.cuda.empty_cache()
     # the one-document bucket; then every key equal (one hash slot), with
@@ -486,11 +531,19 @@ def phase_kernel_sweep(device) -> dict:
     for ns in (WIDE_N, 2 * WIDE_N):
         sweep["set_count_rows"].append(k4_sweep_row(q, join_inputs(gen, 1, WIDE_N, ns, device),
                                                     device))
+    sweep["distinct_first_rows"].append(k5_sweep_row(q, device))
+    *args, s = k6_inputs(gen, 1, WIDE_N, device)
+    sweep["seg_min_max_rows"].append(k6_sweep_row(args, s, device))
     for d, n in ((48694, 64), (1, WIDE_N)):
         q = equal_key_inputs(d, n, device)
         row = k4_sweep_row(q, equal_key_inputs(d, 2 * n, device), device)
         sweep["set_count_rows"].append({**row, "keys": "all equal"})
-    del q
+        sweep["distinct_first_rows"].append({**k5_sweep_row(q, device), "keys": "all equal"})
+        # every entry in segment 0 with the same key
+        seg = torch.zeros_like(q[0])
+        row = k6_sweep_row((seg, q[2], q[1], q[1]), (n + 1) * 5, device)
+        sweep["seg_min_max_rows"].append({**row, "keys": "all equal"})
+    del q, args, seg
     torch.cuda.empty_cache()
     # the last shape is a rules file with no device rule: every doc SKIP
     for d, r, g, f in ((1 << 20, 64, 41, 1), (1 << 18, 256, 130, 4), (1024, 0, 0, 1)):
@@ -715,7 +768,7 @@ def phase_xref(device, tmp: Path):
     info["global_branch_launches"] = {}
     for name in JOINS:
         n_global = sum(
-            c for shape, c in info["shapes"][name].items() if GLOBAL_BRANCH[name](lib, shape)
+            c for shape, c in info["shapes"][name].items() if BRANCH[name](lib, shape) == 0
         )
         check(n_global > 0, f"{name}'s global-memory branch never ran")
         info["global_branch_launches"][name] = n_global
@@ -789,7 +842,8 @@ def phase_breakdown(device, evaluation) -> list:
     time to enqueue one walk, the walk plus K3 on the card (CUDA events),
     and from a torch.profiler trace of one walk the card's kernel time,
     launch count and the kernels that take the most of it. The busy
-    share is kernel time over the walk's event time."""
+    share is kernel time over the walk's event time. `port_kernels` lists
+    the hand-written kernels' entries of the same trace."""
     import copy
 
     import numpy as np
@@ -862,6 +916,15 @@ def phase_breakdown(device, evaluation) -> list:
                 {"name": e.key[:80], "count": e.count,
                  "ms": e.self_device_time_total / 1e3}
                 for e in top
+            ],
+            # every hand-written kernel: csrc/*.cu defines them in an
+            # anonymous namespace and names nothing of PyTorch's at::
+            "port_kernels": [
+                {"name": e.key[:80], "count": e.count,
+                 "ms": e.self_device_time_total / 1e3}
+                for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+                if e.key.startswith(("(anonymous namespace)::", "void (anonymous namespace)::"))
+                and "at::" not in e.key
             ],
         })
     return out
@@ -1126,13 +1189,39 @@ def wide_shape(shapes: dict, name: str):
                key=lambda item: (item[1], item[0][-1]))[0]
 
 
+def seg_min_max_library(seg, mask, hi, lo, s: int):
+    """One PyTorch call per extreme that computes K6's function, as
+    packed int64 keys: scatter_reduce_ amin and amax into tables filled
+    with the empty-segment sentinels. Every segment id must lie in
+    [0, s)."""
+    import torch
+
+    from guard_tpu_torch.kernels import plain
+
+    d = seg.shape[0]
+    packed = plain.pack_key(hi, lo)
+    at = torch.where(mask, seg, 0).long()
+    lo_keys = torch.where(mask, packed, (1 << 63) - 1)
+    hi_keys = torch.where(mask, packed, -(1 << 63))
+
+    def library():
+        mn = torch.full((d, s), (1 << 63) - 1, dtype=torch.int64, device=seg.device)
+        mx = torch.full((d, s), -(1 << 63), dtype=torch.int64, device=seg.device)
+        mn.scatter_reduce_(1, at, lo_keys, "amin")
+        mx.scatter_reduce_(1, at, hi_keys, "amax")
+        return mn, mx
+
+    return library
+
+
 def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
     """Each kernel at its main-path shape (K1-K3 from the security
     policy's run, K4-K6 from the cross-reference policy's, K7 from the
-    summary's), K2 and K4 also at their shape in the widest bucket:
-    error against plain, times (CUDA events around one call,
-    and the device time of a graph replay), bound and library time (both
-    ways where a library call computes the same function).
+    summary's), K1-K6 also at their shape in the one-document bucket
+    (K3 at its launch with the fewest documents): error against plain,
+    times (CUDA events around one call, and the device time of a graph
+    replay), bound and library time (both ways where a library call
+    computes the same function).
     `infos` maps each path's name to its phase's result."""
     import torch
 
@@ -1145,20 +1234,22 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
     gen.manual_seed(SEED + 1)
     out = []
 
-    d, n, s = main_shape(slice_info["shapes"], "gather_rows")
-    vec = torch.randint(0, n + 1, (d, s), generator=gen, device=device, dtype=torch.int32)
-    idx = tree_rows(gen, d, n, device)
-    out.append({
-        "name": "gather_rows", "shape": {"D": d, "N": n, "S": s},
-        "max_abs_err": _max_abs_err(K.gather_rows(vec, idx), plain.gather_rows(vec, idx)),
-        "ms": cuda_ms(lambda: K.gather_rows(vec, idx)),
-        "device_ms": graph_ms(lambda: K.gather_rows(vec, idx)),
-        "plain_ms": cuda_ms(lambda: plain.gather_rows(vec, idx)),
-        "bound_ms": k1_bytes(d, n, s) / rate * 1e3,
-        # torch.gather does not mask negative indices: no one call
-        # computes this function
-        "library_ms": None,
-    })
+    for d, n, s in (main_shape(slice_info["shapes"], "gather_rows"),
+                    wide_shape(slice_info["shapes"], "gather_rows")):
+        vec = torch.randint(0, n + 1, (d, s), generator=gen, device=device, dtype=torch.int32)
+        idx = tree_rows(gen, d, n, device)
+        out.append({
+            "name": "gather_rows", "shape": {"D": d, "N": n, "S": s},
+            "shape_launches": slice_info["shapes"]["gather_rows"][(d, n, s)],
+            "max_abs_err": _max_abs_err(K.gather_rows(vec, idx), plain.gather_rows(vec, idx)),
+            "ms": cuda_ms(lambda: K.gather_rows(vec, idx)),
+            "device_ms": graph_ms(lambda: K.gather_rows(vec, idx)),
+            "plain_ms": cuda_ms(lambda: plain.gather_rows(vec, idx)),
+            "bound_ms": k1_bytes(d, n, s) / rate * 1e3,
+            # torch.gather does not mask negative indices: no one call
+            # computes this function
+            "library_ms": None,
+        })
 
     for d, n, s in (main_shape(slice_info["shapes"], "segment_sum_rows"),
                     wide_shape(slice_info["shapes"], "segment_sum_rows")):
@@ -1186,17 +1277,21 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
         })
         del val, seg, seg_long
 
-    d, r, g, f = main_shape(slice_info["shapes"], "rim_reduce")
-    args = k3_inputs(gen, d, r, g, f, device)
-    out.append({
-        "name": "rim_reduce", "shape": {"D": d, "R": r, "G": g, "F": f},
-        "max_abs_err": _max_abs_err(K.rim_reduce(*args, g, f), plain.rim_reduce(*args, g, f)),
-        "ms": cuda_ms(lambda: K.rim_reduce(*args, g, f)),
-        "device_ms": graph_ms(lambda: K.rim_reduce(*args, g, f)),
-        "plain_ms": cuda_ms(lambda: plain.rim_reduce(*args, g, f)),
-        "bound_ms": k3_bytes(d, r, g, f) / rate * 1e3,
-        "library_ms": None,
-    })
+    # the rim of the largest bucket, then of the one-document bucket
+    for d, r, g, f in (main_shape(slice_info["shapes"], "rim_reduce"),
+                       min(slice_info["shapes"]["rim_reduce"])):
+        args = k3_inputs(gen, d, r, g, f, device)
+        out.append({
+            "name": "rim_reduce", "shape": {"D": d, "R": r, "G": g, "F": f},
+            "shape_launches": slice_info["shapes"]["rim_reduce"][(d, r, g, f)],
+            "max_abs_err": _max_abs_err(K.rim_reduce(*args, g, f),
+                                        plain.rim_reduce(*args, g, f)),
+            "ms": cuda_ms(lambda: K.rim_reduce(*args, g, f)),
+            "device_ms": graph_ms(lambda: K.rim_reduce(*args, g, f)),
+            "plain_ms": cuda_ms(lambda: plain.rim_reduce(*args, g, f)),
+            "bound_ms": k3_bytes(d, r, g, f) / rate * 1e3,
+            "library_ms": None,
+        })
     del vec, idx, args
 
     for d, nq, ns in (main_shape(xref_info["shapes"], "set_count_rows"),
@@ -1219,49 +1314,47 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
         })
         del q, st
 
-    d, n = main_shape(xref_info["shapes"], "distinct_first_rows")
-    q = join_inputs(gen, d, n, n, device)
-    out.append({
-        "name": "distinct_first_rows", "shape": {"D": d, "N": n},
-        "max_abs_err": _max_abs_err(K.distinct_first_rows(*q), plain.distinct_first_rows(*q)),
-        "ms": cuda_ms(lambda: K.distinct_first_rows(*q)),
-        "device_ms": graph_ms(lambda: K.distinct_first_rows(*q)),
-        "plain_ms": cuda_ms(lambda: plain.distinct_first_rows(*q)),
-        "bound_ms": k5_bytes(d, n) / rate * 1e3,
-        "library_ms": None,
-        "library_note": "torch.unique has no per-row form and does not mark the "
-                        "lowest index",
-    })
-    del q
+    xref_shapes = xref_info["shapes"]
+    for d, n in (main_shape(xref_shapes, "distinct_first_rows"),
+                 wide_shape(xref_shapes, "distinct_first_rows")):
+        q = join_inputs(gen, d, n, n, device)
+        out.append({
+            "name": "distinct_first_rows", "shape": {"D": d, "N": n},
+            "shape_launches": xref_shapes["distinct_first_rows"][(d, n)],
+            "branch": K._lib().guard_distinct_first_branch(d, n),
+            "max_abs_err": _max_abs_err(K.distinct_first_rows(*q),
+                                        plain.distinct_first_rows(*q)),
+            "ms": cuda_ms(lambda: K.distinct_first_rows(*q)),
+            "device_ms": graph_ms(lambda: K.distinct_first_rows(*q)),
+            "plain_ms": cuda_ms(lambda: plain.distinct_first_rows(*q)),
+            "bound_ms": k5_bytes(d, n) / rate * 1e3,
+            "library_ms": None,
+            "library_note": "torch.unique has no per-row form and does not mark the "
+                            "lowest index",
+        })
+        del q
 
-    d, n, s = main_shape(xref_info["shapes"], "seg_min_max_rows")
-    seg, mask, hi, lo, _s = k6_inputs(gen, d, n, device)
-    seg = seg % s
-    packed = plain.pack_key(hi, lo)
-    at = torch.where(mask, seg, 0).long()
-    lo_keys = torch.where(mask, packed, (1 << 63) - 1)
-    hi_keys = torch.where(mask, packed, -(1 << 63))
-
-    def library():
-        mn = torch.full((d, s), (1 << 63) - 1, dtype=torch.int64, device=device)
-        mx = torch.full((d, s), -(1 << 63), dtype=torch.int64, device=device)
-        mn.scatter_reduce_(1, at, lo_keys, "amin")
-        mx.scatter_reduce_(1, at, hi_keys, "amax")
-        return mn, mx
-
-    out.append({
-        "name": "seg_min_max_rows", "shape": {"D": d, "N": n, "S": s},
-        "max_abs_err": _max_abs_err(
-            K.seg_min_max_rows(seg, mask, hi, lo, s), plain.seg_min_max_rows(seg, mask, hi, lo, s)
-        ),
-        "ms": cuda_ms(lambda: K.seg_min_max_rows(seg, mask, hi, lo, s)),
-        "device_ms": graph_ms(lambda: K.seg_min_max_rows(seg, mask, hi, lo, s)),
-        "plain_ms": cuda_ms(lambda: plain.seg_min_max_rows(seg, mask, hi, lo, s)),
-        "bound_ms": k6_bytes(d, n, s) / rate * 1e3,
-        # scatter_reduce_ amin + amax over the packed int64 keys
-        "library_ms": cuda_ms(library),
-        "library_device_ms": graph_ms(library),
-    })
+    for d, n, s in (main_shape(xref_shapes, "seg_min_max_rows"),
+                    wide_shape(xref_shapes, "seg_min_max_rows")):
+        seg, mask, hi, lo, _s = k6_inputs(gen, d, n, device)
+        seg = seg % s
+        library = seg_min_max_library(seg, mask, hi, lo, s)
+        out.append({
+            "name": "seg_min_max_rows", "shape": {"D": d, "N": n, "S": s},
+            "shape_launches": xref_shapes["seg_min_max_rows"][(d, n, s)],
+            "branch": K._lib().guard_seg_min_max_branch(d, n, s),
+            "max_abs_err": _max_abs_err(K.seg_min_max_rows(seg, mask, hi, lo, s),
+                                        plain.seg_min_max_rows(seg, mask, hi, lo, s)),
+            "ms": cuda_ms(lambda: K.seg_min_max_rows(seg, mask, hi, lo, s)),
+            "device_ms": graph_ms(lambda: K.seg_min_max_rows(seg, mask, hi, lo, s)),
+            "plain_ms": cuda_ms(lambda: plain.seg_min_max_rows(seg, mask, hi, lo, s)),
+            "bound_ms": k6_bytes(d, n, s) / rate * 1e3,
+            # scatter_reduce_ amin + amax over the packed int64 keys
+            "library_ms": cuda_ms(library),
+            "library_device_ms": graph_ms(library),
+        })
+        del seg, mask, hi, lo, library
+        torch.cuda.empty_cache()
 
     d, r, n_valid = main_shape(infos["summary"]["shapes"], "rule_summary")
     st = torch.randint(0, 3, (d, r), generator=gen, device=device, dtype=torch.int8)
@@ -1305,10 +1398,14 @@ DESIGN_K2 = ((65536, 64, 65), (65536, 64, 64), (1, WIDE_N, WIDE_N), (1, WIDE_N, 
              (262144, 64, 65), (16384, 1024, 1025), (2048, 8192, 8193), (256, WIDE_N, WIDE_N))
 DESIGN_K4 = ((48694, 64, 128), (48694, 64, 64), (1, WIDE_N, WIDE_N), (1, WIDE_N, 2 * WIDE_N),
              (65536, 64, 128), (4096, 1024, 2048), (64, WIDE_N, 2 * WIDE_N))
-# K5 (D, N) and K6 (D, N, S) at their main shapes: they share K4's hash
-# helpers and source, and must not move
-DESIGN_K5 = (48694, 64)
-DESIGN_K6 = (48694, 64, 325)
+# K5 (D, N) and K6 (D, N, S) at the xref path's three shapes, then at
+# phase 2's widest sweep shape
+DESIGN_K5 = ((48694, 64), (16842, 128), (1, WIDE_N), (64, WIDE_N))
+DESIGN_K6 = ((48694, 64, 325), (16842, 128, 645), (1, WIDE_N, (WIDE_N + 1) * 5),
+             (64, WIDE_N, (WIDE_N + 1) * 5))
+# how K6's segment ids spread, as k6_segments makes them: 40 segments
+# (k6_inputs), the 5 of a shared RHS, or uniform over [-1, S)
+K6_SEGMENTS = ("40", "shared", "uniform")
 # geometries to time K2 on around the launcher's thresholds: lanes per row
 # (8, 16, 32), 256 a block-per-row, 0 split
 K2_BRANCHES = (
@@ -1347,6 +1444,46 @@ K4_BRANCHES = (
     ((132, 4096, 8192), (256, 0)),
     ((528, 4096, 8192), (256, 0)),
 )
+# K5 forms, as K4's: 32 a warp's table, 256 a block's, 0 global tables
+K5_BRANCHES = (
+    ((1, 64), (32, 256, 0)),
+    ((132, 64), (32, 0)),
+    ((48694, 64), (32, 256)),
+    ((16842, 128), (32, 256)),
+    ((16842, 256), (32, 256)),
+    ((1, 1024), (256, 0)),
+    ((16, 1024), (256, 0)),
+    ((132, 1024), (256, 0)),
+    ((528, 1024), (256, 0)),
+    ((4096, 1024), (256, 0)),
+    ((1, 2048), (256, 0)),
+    ((16, 2048), (256, 0)),
+    ((1, 4096), (256, 0)),
+    ((16, 4096), (256, 0)),
+    ((132, 4096), (256, 0)),
+    ((528, 4096), (256, 0)),
+)
+# K6 forms: 256 a block's table per row in shared memory, 0 the grid
+# over global tables
+K6_BRANCHES = (
+    ((1, 64, 325), (256, 0)),
+    ((16, 64, 325), (256, 0)),
+    ((132, 64, 325), (256, 0)),
+    ((528, 64, 325), (256, 0)),
+    ((48694, 64, 325), (256, 0)),
+    ((16842, 128, 645), (256, 0)),
+    ((1, 1024, 5125), (256, 0)),
+    ((16, 1024, 5125), (256, 0)),
+    ((132, 1024, 5125), (256, 0)),
+    ((528, 1024, 5125), (256, 0)),
+    ((4096, 1024, 5125), (256, 0)),
+    ((1, 1536, 7685), (256, 0)),
+    ((16, 1536, 7685), (256, 0)),
+    ((1, 2048, 10245), (256, 0)),
+    ((16, 2048, 10245), (256, 0)),
+    ((132, 2048, 10245), (256, 0)),
+    ((528, 2048, 10245), (256, 0)),
+)
 
 
 def current_stream() -> int:
@@ -1358,11 +1495,12 @@ def current_stream() -> int:
 
 
 def design_sweep(device) -> dict:
-    """K2 and K4 against their plain versions at DESIGN_K2 / DESIGN_K4,
-    and K5 and K6 at their main shapes, through the public wrappers only
-    (so it also runs on an older checkout's package), with their times;
-    where the library has the
-    forced-geometry entries, also each geometry at K2_BRANCHES and each
+    """K2, K4, K5 and K6 against their plain versions at DESIGN_K2,
+    DESIGN_K4, DESIGN_K5 and DESIGN_K6 (K6 beside scatter_reduce_),
+    through the public wrappers only (so it also runs on an older
+    checkout's package), with their times; where the library has the
+    forced-form entries, also each K5 form at K5_BRANCHES and each K6
+    form at K6_BRANCHES, and each K2 geometry at K2_BRANCHES and each K4
     form at K4_BRANCHES."""
     import torch
 
@@ -1392,20 +1530,39 @@ def design_sweep(device) -> dict:
             "device_ms": graph_ms(lambda: K.set_count_rows(*q, *st)),
         })
     del val, seg, q, st
-    d, n = DESIGN_K5
-    q = join_inputs(gen, d, n, n, device)
-    check(_equal(K.distinct_first_rows(*q), plain.distinct_first_rows(*q)),
-          "distinct_first_rows differs from plain")
-    out["distinct_first_rows"] = {"D": d, "N": n,
-                                  "device_ms": graph_ms(lambda: K.distinct_first_rows(*q))}
-    d, n, s = DESIGN_K6
-    seg, mask, hi, lo, _s = k6_inputs(gen, d, n, device)
-    check(_equal(K.seg_min_max_rows(seg, mask, hi, lo, s), plain.seg_min_max_rows(seg, mask, hi, lo, s)),
-          "seg_min_max_rows differs from plain")
-    out["seg_min_max_rows"] = {"D": d, "N": n, "S": s, "device_ms": graph_ms(
-        lambda: K.seg_min_max_rows(seg, mask, hi, lo, s))}
-    del q, seg, mask, hi, lo
+    out["distinct_first_rows"] = []
+    for d, n in DESIGN_K5:
+        q = join_inputs(gen, d, n, n, device)
+        check(_equal(K.distinct_first_rows(*q), plain.distinct_first_rows(*q)),
+              f"distinct_first_rows differs from plain at D={d} N={n}")
+        out["distinct_first_rows"].append({
+            "D": d, "N": n, "bound_ms": k5_bytes(d, n) / 3.35e9,
+            "ms": cuda_ms(lambda: K.distinct_first_rows(*q)),
+            "device_ms": graph_ms(lambda: K.distinct_first_rows(*q)),
+        })
+        del q
+    out["seg_min_max_rows"] = []
+    for d, n, s in DESIGN_K6:
+        # every spread of segment ids at the one-document shape
+        for how in K6_SEGMENTS if d == 1 else K6_SEGMENTS[:1]:
+            seg, mask, hi, lo = k6_segments(gen, d, n, s, device, how)
+            check(_equal(K.seg_min_max_rows(seg, mask, hi, lo, s),
+                         plain.seg_min_max_rows(seg, mask, hi, lo, s)),
+                  f"seg_min_max_rows differs from plain at D={d} N={n} S={s} ({how})")
+            library = seg_min_max_library(seg, mask, hi, lo, s)
+            out["seg_min_max_rows"].append({
+                "D": d, "N": n, "S": s, "segments": how,
+                "bound_ms": k6_bytes(d, n, s) / 3.35e9,
+                "ms": cuda_ms(lambda: K.seg_min_max_rows(seg, mask, hi, lo, s)),
+                "device_ms": graph_ms(lambda: K.seg_min_max_rows(seg, mask, hi, lo, s)),
+                # scatter_reduce_ amin + amax over the packed int64 keys
+                "library_device_ms": graph_ms(library),
+            })
+            del seg, mask, hi, lo, library
+            torch.cuda.empty_cache()
     lib = K._lib()
+    if hasattr(lib, "guard_distinct_first_rows_as"):
+        out.update(join_form_sweep(lib, gen, device))
     if not hasattr(lib, "guard_segment_sum_rows_as"):
         return out
     out["segment_sum_branches"] = []
@@ -1444,6 +1601,56 @@ def design_sweep(device) -> dict:
             row[str(b)] = graph_ms(run)
         out["set_count_branches"].append(row)
         del q, st, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def join_form_sweep(lib, gen, device) -> dict:
+    """Each K5 form at K5_BRANCHES and each K6 form at K6_BRANCHES
+    against the plain versions, with their device times."""
+    import torch
+
+    from guard_tpu_torch.kernels import plain
+
+    out = {"distinct_first_branches": [], "seg_min_max_branches": []}
+    for (d, n), forms in K5_BRANCHES:
+        q = join_inputs(gen, d, n, n, device)
+        ref = plain.distinct_first_rows(*q)
+        scratch = torch.empty(lib.guard_distinct_first_scratch(d, n), dtype=torch.uint8,
+                              device=device)
+        row = {"D": d, "N": n, "picked": lib.guard_distinct_first_branch(d, n)}
+        for form in forms:
+            def run(form=form):
+                o = torch.empty((d, n), dtype=torch.bool, device=device)
+                rc = lib.guard_distinct_first_rows_as(
+                    form, *(t.data_ptr() for t in q), o.data_ptr(),
+                    scratch.data_ptr() if form == 0 else None, d, n, current_stream())
+                check(rc == 0, f"K5 form {form} refused (cudaError {rc})")
+                return o
+            check(_equal(run(), ref), f"K5 form {form} differs at D={d} N={n}")
+            row[str(form)] = graph_ms(run)
+        out["distinct_first_branches"].append(row)
+        del q, ref, scratch
+    for (d, n, s), forms in K6_BRANCHES:
+        seg, mask, hi, lo, _s = k6_inputs(gen, d, n, device)
+        args = (seg % s, mask, hi, lo)
+        ref = plain.seg_min_max_rows(*args, s)
+        scratch = torch.empty(lib.guard_seg_min_max_scratch(d, s), dtype=torch.uint8,
+                              device=device)
+        row = {"D": d, "N": n, "S": s, "picked": lib.guard_seg_min_max_branch(d, n, s)}
+        for form in forms:
+            def run(form=form):
+                o = tuple(torch.empty((d, s), dtype=torch.int32, device=device)
+                          for _ in range(4))
+                rc = lib.guard_seg_min_max_rows_as(
+                    form, *(t.data_ptr() for t in (*args, *o)),
+                    scratch.data_ptr() if form == 0 else None, d, n, s, current_stream())
+                check(rc == 0, f"K6 form {form} refused (cudaError {rc})")
+                return o
+            check(_equal(run(), ref), f"K6 form {form} differs at D={d} N={n} S={s}")
+            row[str(form)] = graph_ms(run)
+        out["seg_min_max_branches"].append(row)
+        del seg, mask, hi, lo, args, ref, scratch
     torch.cuda.empty_cache()
     return out
 
@@ -1511,38 +1718,51 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f}s")
 
+    clock = [time.perf_counter()]
+
+    def took() -> str:
+        """Seconds since the previous call (or the phases' start)."""
+        now = time.perf_counter()
+        secs, clock[0] = now - clock[0], now
+        return f"{secs:.1f}s"
+
     sweep = phase_kernel_sweep(device)
-    log("phase 2 (kernels vs plain) ok")
+    log(f"phase 2 (kernels vs plain) ok in {took()}")
     with tempfile.TemporaryDirectory(prefix="guard_smoke_") as td:
         tmp = Path(td)
         slice_info, evaluation = phase_slice(device, tmp)
-        log(f"phase 3 (slice) ok: {json.dumps({k: v for k, v in slice_info.items() if k != 'shapes'})}")
+        log(f"phase 3 (slice) ok in {took()}: "
+            f"{json.dumps({k: v for k, v in slice_info.items() if k != 'shapes'})}")
         breakdown = phase_breakdown(device, evaluation)
         del evaluation
-        log(f"phase 3 (breakdown): {json.dumps(breakdown)}")
+        log(f"phase 3 (breakdown) in {took()}: {json.dumps(breakdown)}")
         xref_info, evaluation = phase_xref(device, tmp)
-        log(f"phase 3 (xref) ok: {json.dumps({k: v for k, v in xref_info.items() if k != 'shapes'})}")
+        log(f"phase 3 (xref) ok in {took()}: "
+            f"{json.dumps({k: v for k, v in xref_info.items() if k != 'shapes'})}")
         xref_breakdown = phase_breakdown(device, evaluation)
         del evaluation
-        log(f"phase 3 (xref breakdown): {json.dumps(xref_breakdown)}")
+        log(f"phase 3 (xref breakdown) in {took()}: {json.dumps(xref_breakdown)}")
         fnvar_info, evaluation = phase_fnvar(device, tmp)
-        log(f"phase 3 (fnvar) ok: {json.dumps({k: v for k, v in fnvar_info.items() if k != 'shapes'})}")
+        log(f"phase 3 (fnvar) ok in {took()}: "
+            f"{json.dumps({k: v for k, v in fnvar_info.items() if k != 'shapes'})}")
         fnvar_breakdown = phase_breakdown(device, evaluation)
         del evaluation
-        log(f"phase 3 (fnvar breakdown): {json.dumps(fnvar_breakdown)}")
+        log(f"phase 3 (fnvar breakdown) in {took()}: {json.dumps(fnvar_breakdown)}")
         flagship = phase_flagship(device)
-        log(f"phase 3 (flagship) ok: {flagship}")
+        log(f"phase 3 (flagship) ok in {took()}: {flagship}")
         corpus = phase_corpus(device)
-        log(f"phase 3 (corpus) ok: {corpus}")
+        log(f"phase 3 (corpus) ok in {took()}: {corpus}")
         summary_info = phase_summary(device)
-        log(f"phase 3 (summary) ok: {json.dumps({k: v for k, v in summary_info.items() if k != 'shapes'})}")
+        log(f"phase 3 (summary) ok in {took()}: "
+            f"{json.dumps({k: v for k, v in summary_info.items() if k != 'shapes'})}")
         entry_info = phase_entry(device)
-        log(f"phase 3 (entry) ok: {json.dumps(entry_info)}")
+        log(f"phase 3 (entry) ok in {took()}: {json.dumps(entry_info)}")
         cli = phase_cli(tmp)
-        log(f"phase 4 (cli) ok: {cli}")
+        log(f"phase 4 (cli) ok in {took()}: {cli}")
     infos = {"security": slice_info, "xref": xref_info, "fnvar": fnvar_info,
              "summary": summary_info, "entry": entry_info}
     kernels = contract_kernels(device, infos, sweep, card)
+    log(f"kernels line in {took()}")
     leaked = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")

@@ -4,7 +4,7 @@ csrc/guard_kernels.cu, K4-K6 in csrc/guard_joins.cu.
 Each wrapper takes batched row-major tensors. For a CUDA tensor it
 checks dtype, shape and contiguity, launches its kernel on PyTorch's
 current stream and adds one to its entry in `LAUNCHES` (one a call,
-also where the launcher issues a memset and several grids, as K2 and K4
+also where the launcher issues a memset and several grids, as K2 and K4-K6
 do for one-document buckets); a refused launch raises. For a CPU tensor it returns the plain PyTorch version
 (`kernels/plain.py`) and counts nothing. There is no other path.
 
@@ -15,7 +15,7 @@ can time each kernel at the shapes the evaluation actually gave it.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -177,22 +177,6 @@ def rim_reduce(statuses: torch.Tensor, unsure: Optional[torch.Tensor],
     return out
 
 
-# scratch a global-memory join branch may take: blocks beyond what fits
-# loop over the remaining rows
-_SCRATCH_BYTES = 256 << 20
-
-
-def _join_scratch(lib, fn_name: str, d: int, size: int, dev) -> Tuple[torch.Tensor, int]:
-    """Global-memory scratch for K5 or K6 where a row's table does not
-    fit one block's shared memory: (scratch bytes, blocks). Empty when
-    the table fits, and the kernel then runs one block per row."""
-    per_block = getattr(lib, fn_name)(size)
-    if per_block == 0:
-        return torch.empty(0, dtype=torch.uint8, device=dev), d
-    blocks = max(1, min(d, _SCRATCH_BYTES // per_block))
-    return torch.empty(blocks * per_block, dtype=torch.uint8, device=dev), blocks
-
-
 def set_count_rows(q_org: torch.Tensor, q_key: torch.Tensor, q_mask: torch.Tensor,
                    s_org: torch.Tensor, s_key: torch.Tensor,
                    s_mask: torch.Tensor) -> torch.Tensor:
@@ -253,12 +237,16 @@ def distinct_first_rows(org: torch.Tensor, key: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _lib()
-    scratch, blocks = _join_scratch(lib, "guard_distinct_first_scratch", d, n, org.device)
+    # tables in global scratch where the launcher takes its global form
+    scratch = None
+    if lib.guard_distinct_first_branch(d, n) == 0:
+        scratch = torch.empty(lib.guard_distinct_first_scratch(d, n), dtype=torch.uint8,
+                              device=org.device)
     _raise_on(
         lib.guard_distinct_first_rows(
             org.data_ptr(), key.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch.numel() else None,
-            d, n, blocks, _stream(org),
+            scratch.data_ptr() if scratch is not None else None,
+            d, n, _stream(org),
         ),
         "distinct_first_rows",
     )
@@ -288,13 +276,17 @@ def seg_min_max_rows(seg: torch.Tensor, mask: torch.Tensor, hi: torch.Tensor,
     if d == 0 or s == 0:
         return out
     lib = _lib()
-    scratch, blocks = _join_scratch(lib, "guard_seg_min_max_scratch", d, s, seg.device)
+    # tables in global scratch where the launcher takes its grid form
+    scratch = None
+    if lib.guard_seg_min_max_branch(d, n, s) == 0:
+        scratch = torch.empty(lib.guard_seg_min_max_scratch(d, s), dtype=torch.uint8,
+                              device=seg.device)
     _raise_on(
         lib.guard_seg_min_max_rows(
             seg.data_ptr(), mask.data_ptr(), hi.data_ptr(), lo.data_ptr(),
             *(t.data_ptr() for t in out),
-            scratch.data_ptr() if scratch.numel() else None,
-            d, n, s, blocks, _stream(seg),
+            scratch.data_ptr() if scratch is not None else None,
+            d, n, s, _stream(seg),
         ),
         "seg_min_max_rows",
     )

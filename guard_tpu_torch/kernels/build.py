@@ -49,12 +49,16 @@ _SIGNATURES = {
     "guard_rule_summary": ([_P, _P, _I, _I, _I, _P], _I),
     "guard_set_count_branch": ([_I, _I], _I),
     "guard_set_count_scratch": ([_I, _I], _L),
-    "guard_distinct_first_scratch": ([_I], _L),
-    "guard_seg_min_max_scratch": ([_I], _L),
     "guard_set_count_rows": ([_P] * 8 + [_I] * 3 + [_P], _I),
     "guard_set_count_rows_as": ([_I] + [_P] * 8 + [_I] * 3 + [_P], _I),
-    "guard_distinct_first_rows": ([_P] * 5 + [_I] * 3 + [_P], _I),
-    "guard_seg_min_max_rows": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    "guard_distinct_first_branch": ([_I, _I], _I),
+    "guard_distinct_first_scratch": ([_I, _I], _L),
+    "guard_distinct_first_rows": ([_P] * 5 + [_I] * 2 + [_P], _I),
+    "guard_distinct_first_rows_as": ([_I] + [_P] * 5 + [_I] * 2 + [_P], _I),
+    "guard_seg_min_max_branch": ([_I, _I, _I], _I),
+    "guard_seg_min_max_scratch": ([_I, _I], _L),
+    "guard_seg_min_max_rows": ([_P] * 9 + [_I] * 3 + [_P], _I),
+    "guard_seg_min_max_rows_as": ([_I] + [_P] * 9 + [_I] * 3 + [_P], _I),
 }
 
 

@@ -490,3 +490,235 @@ def test_cuda_set_count_of_no_rows_launches_nothing(cuda_device):
         got = K.set_count_rows(*q, *s)
         assert tuple(got.shape) == (d, nq)
         assert K.LAUNCHES["set_count_rows"] == before
+
+
+# K5 forms (guard_distinct_first_branch): 32 a warp's table, 256 a
+# block's, 0 tables in global scratch
+K5_FORMS = (32, 256, 0)
+
+
+def distinct_first_as(form: int, org, key, mask) -> torch.Tensor:
+    """K5 on a forced form, through guard_distinct_first_rows_as."""
+    lib = K._lib()
+    d, n = org.shape
+    out = torch.empty_like(mask)
+    scratch = torch.empty(lib.guard_distinct_first_scratch(d, n), dtype=torch.uint8,
+                          device=org.device)
+    rc = lib.guard_distinct_first_rows_as(
+        form, org.data_ptr(), key.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if form == 0 else None, d, n,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert rc == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 64, 100, 128, 129, 256, 1024, 1025, 2048, 4096, 4097,
+                               8192])
+@pytest.mark.parametrize("d", [1, 300])
+def test_cuda_distinct_first_form_boundaries_match_plain(cuda_device, n, d):
+    """N across the warp-table limit (128 / 129), the limit of a block's
+    table for fewer rows than SMs (1,024 / 1,025), the block-table limit
+    (4,096 / 4,097) and beyond, with D 1 and D beyond the SM count,
+    through the public wrapper."""
+    rng = np.random.default_rng(SEED + 31 * n + d)
+    q = to(cuda_device, *join_rows(rng, d, n, n))
+    got = K.distinct_first_rows(*q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.distinct_first_rows(*q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", K5_FORMS)
+@pytest.mark.parametrize("n", [8, 64, 100, 128, 256])
+def test_cuda_distinct_first_every_form_matches_plain(cuda_device, form, n):
+    rng = np.random.default_rng(SEED + 37 * n + form)
+    q = to(cuda_device, *join_rows(rng, 300, n, n))
+    assert torch.equal(distinct_first_as(form, *q), plain.distinct_first_rows(*q))
+
+
+@pytest.mark.cuda
+def test_cuda_distinct_first_one_wide_row_matches_plain(cuda_device):
+    """The one-document 65,536-node bucket takes global tables and
+    counts one launch for its memset and two grids."""
+    n = 65536
+    rng = np.random.default_rng(SEED + n)
+    q = to(cuda_device, *join_rows(rng, 2, n, n))
+    q = tuple(t[1:2] for t in q)  # row 0 of join_rows is masked out
+    assert K._lib().guard_distinct_first_branch(1, n) == 0
+    before = K.LAUNCHES["distinct_first_rows"]
+    got = K.distinct_first_rows(*q)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["distinct_first_rows"] == before + 1
+    assert K.SHAPES["distinct_first_rows"][(1, n)] >= 1
+    assert torch.equal(got, plain.distinct_first_rows(*q))
+    assert got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,d,n", [(32, 300, 64), (32, 4, 1024), (256, 300, 64),
+                                      (256, 4, 4096), (0, 300, 64), (0, 4, 4096),
+                                      (0, 1, 65536)])
+def test_cuda_distinct_first_all_equal_keys_matches_plain(cuda_device, form, d, n):
+    """Every entry the same pair: entry 0 alone is first, on each form at
+    widths whose tables it holds (a warp's up to N 1,024, a block's up
+    to N 8,192)."""
+    q = to(cuda_device, *equal_key_rows(d, n))
+    got = distinct_first_as(form, *q)
+    want = torch.zeros_like(got)
+    want[:, 0] = True
+    assert torch.equal(got, want)
+    assert torch.equal(got, plain.distinct_first_rows(*q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_cuda_distinct_first_of_unaligned_rows_matches_plain(cuda_device, offset):
+    rng = np.random.default_rng(SEED + 43 * offset)
+    for d, n in ((300, 64), (200, 128), (1, 65536)):
+        flat = to(cuda_device, *join_rows(rng, 2, n, d * n + offset))
+        q = tuple(t[1, offset:].view(d, n) for t in flat)
+        got = K.distinct_first_rows(*q)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.distinct_first_rows(*q))
+
+
+@pytest.mark.cuda
+def test_cuda_distinct_first_of_no_rows_launches_nothing(cuda_device):
+    for d, n in ((0, 64), (0, 65536), (4, 0)):
+        q = to(cuda_device, *equal_key_rows(d, n))
+        before = K.LAUNCHES["distinct_first_rows"]
+        got = K.distinct_first_rows(*q)
+        assert tuple(got.shape) == (d, n)
+        assert K.LAUNCHES["distinct_first_rows"] == before
+
+
+# K6 forms (guard_seg_min_max_branch): 256 a block's table per row in
+# shared memory, 0 the grid over tables in global scratch
+K6_FORMS = (256, 0)
+
+
+def seg_rows(rng, d: int, n: int, s: int, origins: int = 4):
+    """(seg, mask, hi, lo): segments origin * 5 + kind from a few origins
+    (most segments empty), extreme keys, row 0 masked out."""
+    seg = (rng.integers(0, origins, size=(d, n)) * 5
+           + rng.integers(0, 5, size=(d, n))).astype(np.int32) % max(s, 1)
+    mask = rng.random((d, n)) < 0.6
+    mask[0] = False
+    vals = np.array([I32_MIN, I32_MIN + 1, -1, 0, 1, I32_MAX - 1, I32_MAX], np.int32)
+    return seg, mask, rng.choice(vals, size=(d, n)), rng.choice(vals, size=(d, n))
+
+
+def seg_min_max_as(form: int, seg, mask, hi, lo, s: int):
+    """K6 on a forced form, through guard_seg_min_max_rows_as."""
+    lib = K._lib()
+    d, n = seg.shape
+    out = tuple(torch.empty((d, s), dtype=torch.int32, device=seg.device) for _ in range(4))
+    scratch = torch.empty(lib.guard_seg_min_max_scratch(d, s), dtype=torch.uint8,
+                          device=seg.device)
+    rc = lib.guard_seg_min_max_rows_as(
+        form, seg.data_ptr(), mask.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+        *(t.data_ptr() for t in out), scratch.data_ptr() if form == 0 else None,
+        d, n, s, torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert rc == 0
+    return out
+
+
+def assert_seg_min_max_equal(got, want):
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(8, 45), (64, 325), (128, 645), (1024, 5125),
+                                 (1025, 5126), (1536, 7685), (2048, 14528),
+                                 (2048, 14529), (4096, 20485)])
+@pytest.mark.parametrize("d", [1, 131, 132, 300])
+def test_cuda_seg_min_max_form_boundaries_match_plain(cuda_device, n, s, d):
+    """S across the limit of a block's table for fewer rows than SMs
+    (5,125 / 5,126), the shared-memory limit (14,528 / 14,529), and D
+    across the SM count, through the public wrapper."""
+    rng = np.random.default_rng(SEED + 47 * s + d)
+    args = to(cuda_device, *seg_rows(rng, d, n, s, origins=max(4, n // 8)))
+    got = K.seg_min_max_rows(*args, s)
+    torch.cuda.synchronize()
+    assert_seg_min_max_equal(got, plain.seg_min_max_rows(*args, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", K6_FORMS)
+@pytest.mark.parametrize("d,n,s", [(300, 64, 325), (300, 128, 645), (8, 100, 505),
+                                   (1, 1024, 5125), (3, 257, 1)])
+def test_cuda_seg_min_max_every_form_matches_plain(cuda_device, form, d, n, s):
+    rng = np.random.default_rng(SEED + 53 * n + form)
+    args = to(cuda_device, *seg_rows(rng, d, n, s))
+    assert_seg_min_max_equal(seg_min_max_as(form, *args, s),
+                             plain.seg_min_max_rows(*args, s))
+
+
+@pytest.mark.cuda
+def test_cuda_seg_min_max_one_wide_row_matches_plain(cuda_device):
+    """The one-document 65,536-node bucket at S 327,685 takes the grid
+    and counts one launch for its memset and two grids."""
+    n, s = 65536, 327685
+    rng = np.random.default_rng(SEED + s)
+    seg, mask, hi, lo = seg_rows(rng, 2, n, s, origins=n // 8)
+    args = to(cuda_device, *(a[1:2] for a in (seg, mask, hi, lo)))
+    assert K._lib().guard_seg_min_max_branch(1, n, s) == 0
+    before = K.LAUNCHES["seg_min_max_rows"]
+    got = K.seg_min_max_rows(*args, s)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["seg_min_max_rows"] == before + 1
+    assert K.SHAPES["seg_min_max_rows"][(1, n, s)] >= 1
+    assert_seg_min_max_equal(got, plain.seg_min_max_rows(*args, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["masked_out", "one_segment", "edge_ids"])
+@pytest.mark.parametrize("form,d,n,s", [(256, 300, 64, 325), (256, 1, 2048, 10245),
+                                        (0, 300, 64, 325), (0, 1, 65536, 327685)])
+def test_cuda_seg_min_max_edge_cases_match_plain(cuda_device, form, how, d, n, s):
+    """Every entry masked out (sentinels everywhere); every entry in one
+    segment with extreme hi and lo; and segment ids at S - 1, S and -1,
+    on both forms (the block form where its table fits)."""
+    rng = np.random.default_rng(SEED + 59 * n + len(how))
+    seg, mask, hi, lo = seg_rows(rng, d, n, s)
+    if how == "masked_out":
+        mask = np.zeros_like(mask)
+    elif how == "one_segment":
+        seg = np.zeros_like(seg)
+        mask = np.ones_like(mask)
+    else:
+        seg = rng.choice(np.array([s - 1, s, -1], np.int32), size=(d, n))
+    args = to(cuda_device, seg, mask, hi, lo)
+    got = seg_min_max_as(form, *args, s)
+    assert_seg_min_max_equal(got, plain.seg_min_max_rows(*args, s))
+    if how == "masked_out":
+        assert (got[0] == I32_MAX).all() and (got[3] == I32_MIN).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_cuda_seg_min_max_of_unaligned_rows_matches_plain(cuda_device, offset):
+    rng = np.random.default_rng(SEED + 61 * offset)
+    for d, n, s in ((300, 64, 325), (1, 65536, 327685)):
+        flat = to(cuda_device, *seg_rows(rng, 2, d * n + offset, s, origins=64))
+        args = tuple(t[1, offset:].view(d, n) for t in flat)
+        got = K.seg_min_max_rows(*args, s)
+        torch.cuda.synchronize()
+        assert_seg_min_max_equal(got, plain.seg_min_max_rows(*args, s))
+
+
+@pytest.mark.cuda
+def test_cuda_seg_min_max_of_no_rows_launches_nothing(cuda_device):
+    for d, n, s in ((0, 64, 325), (0, 65536, 327685), (4, 64, 0)):
+        args = to(cuda_device, *seg_rows(np.random.default_rng(SEED), max(d, 1), n, max(s, 1)))
+        args = tuple(t[:d] for t in args)
+        before = K.LAUNCHES["seg_min_max_rows"]
+        got = K.seg_min_max_rows(*args, s)
+        assert all(tuple(t.shape) == (d, s) for t in got)
+        assert K.LAUNCHES["seg_min_max_rows"] == before

@@ -260,3 +260,135 @@ def test_set_count_rows_one_wide_document_matches_jax(ns):
     s = [a[1:2] for a in join_rows(rng, 2, n, ns)]
     got = _set_count_against_jax(q, s)
     assert (got > 1).any()
+
+
+def _distinct_first_against_jax(org, key, mask):
+    """Plain K5 against vmapped _distinct_first_sorted, exactly."""
+    want = jax.vmap(jk._distinct_first_sorted)(*jx(org, key, mask))
+    got = plain.distinct_first_rows(*t(org, key, mask))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    return got
+
+
+def _seg_min_max_against_jax(seg, mask, hi, lo, s):
+    """Plain K6 against vmapped _seg_min_max_keys, exactly."""
+    (mnh, mnl), (mxh, mxl) = jax.vmap(
+        lambda *a: jk._seg_min_max_keys(*a, s)
+    )(*jx(seg, mask, hi, lo))
+    got = plain.seg_min_max_rows(*t(seg, mask, hi, lo), s)
+    for a, b in zip(got, (mnh, mnl, mxh, mxl)):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    return got
+
+
+def seg_rows(rng, d: int, n: int, s: int, origins: int = 4, kinds: int = 5):
+    """(seg, mask, hi, lo): segments origin * kinds + kind from a few
+    origins (most segments empty), extreme and negative keys."""
+    seg = (rng.integers(0, origins, size=(d, n)) * kinds
+           + rng.integers(0, kinds, size=(d, n))).astype(np.int32)
+    assert seg.max() < s
+    mask = rng.random((d, n)) < 0.5
+    return seg, mask, rng.choice(KEYS, size=(d, n)), rng.choice(KEYS, size=(d, n))
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_distinct_first_rows_one_wide_document_matches_jax(n):
+    """One document of 4,096 or 8,192 entries alone in its row, as the
+    one-document bucket gives K5 its global form."""
+    rng = np.random.default_rng(SEED + 31 * n)
+    org, key, mask = (a[1:2] for a in join_rows(rng, 2, n, n))
+    got = _distinct_first_against_jax(org, key, mask)
+    valid = mask & (org >= 0)
+    pairs = {(int(o), int(k)) for o, k in zip(org[valid], key[valid])}
+    assert int(got.sum()) == len(pairs) > 1
+
+
+@pytest.mark.parametrize("n", [100, 257])
+def test_distinct_first_rows_not_a_power_of_two_matches_jax(n):
+    rng = np.random.default_rng(SEED + 37 * n)
+    _distinct_first_against_jax(*join_rows(rng, 9, n, n))
+
+
+@pytest.mark.parametrize("n", [8, 64, 200])
+def test_distinct_first_rows_all_one_pair_matches_jax(n):
+    """Every entry the same pair (one hash slot takes every insert): the
+    first entry with mask set is the only True one of its row."""
+    rng = np.random.default_rng(SEED + 41 * n)
+    d = 6
+    org = np.zeros((d, n), np.int32)
+    key = np.full((d, n), I32_MIN, np.int32)
+    mask = rng.random((d, n)) < 0.7
+    mask[0] = True
+    mask[1] = False
+    got = _distinct_first_against_jax(org, key, mask).numpy()
+    for r in range(d):
+        hits = np.flatnonzero(mask[r])
+        assert list(np.flatnonzero(got[r])) == ([int(hits[0])] if len(hits) else [])
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_seg_min_max_rows_one_wide_document_matches_jax(n):
+    """One document at the query-RHS width S = (N + 1) * 5, as the
+    one-document bucket gives K6 its grid form."""
+    rng = np.random.default_rng(SEED + 43 * n)
+    s = (n + 1) * 5
+    got = _seg_min_max_against_jax(*seg_rows(rng, 1, n, s, origins=n // 8), s)
+    assert (got[0] < I32_MAX).any() and (got[0] == I32_MAX).any()
+
+
+@pytest.mark.parametrize("n", [100, 257])
+def test_seg_min_max_rows_not_a_power_of_two_matches_jax(n):
+    rng = np.random.default_rng(SEED + 47 * n)
+    s = (n + 1) * 5
+    _seg_min_max_against_jax(*seg_rows(rng, 9, n, s), s)
+
+
+@pytest.mark.parametrize("n", [64, 257])
+def test_seg_min_max_rows_all_masked_out_matches_jax(n):
+    """No entry under the mask: every segment reads the sentinels."""
+    rng = np.random.default_rng(SEED + 53 * n)
+    s = (n + 1) * 5
+    seg, mask, hi, lo = seg_rows(rng, 5, n, s)
+    got = _seg_min_max_against_jax(seg, np.zeros_like(mask), hi, lo, s)
+    assert (got[0] == I32_MAX).all() and (got[1] == I32_MAX).all()
+    assert (got[2] == I32_MIN).all() and (got[3] == I32_MIN).all()
+
+
+@pytest.mark.parametrize("n", [64, 257])
+def test_seg_min_max_rows_one_segment_extreme_keys_matches_jax(n):
+    """Every entry in segment 0, hi and lo drawn from INT32_MIN, INT32_MAX
+    and their neighbours: the fold compares the full 64-bit key."""
+    rng = np.random.default_rng(SEED + 59 * n)
+    d, s = 6, (n + 1) * 5
+    extremes = np.array([I32_MIN, I32_MIN + 1, -1, 0, I32_MAX - 1, I32_MAX], np.int32)
+    hi = rng.choice(extremes, size=(d, n))
+    lo = rng.choice(extremes, size=(d, n))
+    mask = rng.random((d, n)) < 0.8
+    got = _seg_min_max_against_jax(np.zeros((d, n), np.int32), mask, hi, lo, s)
+    for r in range(d):
+        keys = sorted(zip(hi[r][mask[r]].tolist(), lo[r][mask[r]].tolist()))
+        assert (int(got[0][r, 0]), int(got[1][r, 0])) == keys[0]
+        assert (int(got[2][r, 0]), int(got[3][r, 0])) == keys[-1]
+    assert (got[0][:, 1:] == I32_MAX).all()
+
+
+@pytest.mark.parametrize("n", [64, 257])
+def test_seg_min_max_rows_segment_ids_at_the_edges_matches_jax(n):
+    """Segment ids at S - 1 (the last segment, also where the reference
+    parks excluded entries), at S and at -1 (outside: they add nothing)."""
+    rng = np.random.default_rng(SEED + 61 * n)
+    d, s = 6, (n + 1) * 5
+    seg = rng.choice(np.array([s - 1, s, -1, 0], np.int32), size=(d, n))
+    mask = rng.random((d, n)) < 0.7
+    hi = rng.choice(KEYS, size=(d, n))
+    lo = rng.choice(KEYS, size=(d, n))
+    got = _seg_min_max_against_jax(seg, mask, hi, lo, s)
+    inside = mask & (seg == s - 1)
+    for r in range(d):
+        if inside[r].any():
+            keys = sorted(zip(hi[r][inside[r]].tolist(), lo[r][inside[r]].tolist()))
+            assert (int(got[0][r, s - 1]), int(got[1][r, s - 1])) == keys[0]
+            assert (int(got[2][r, s - 1]), int(got[3][r, s - 1])) == keys[-1]
+    assert (got[0][:, 1:s - 1] == I32_MAX).all()
