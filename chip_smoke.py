@@ -16,10 +16,13 @@ no result line):
    (D, N) int32 tensor holds at least 64 MB, K2 also at D 1 x N 65,536
    with S in {N, N + 1, (N + 1) * 5} (the one-document bucket), K4-K6 at
    N in {64, 1024, 65536} with 16 MB per (D, N) column, K4 also at D 1
-   x N 65,536 with Ns in {N, 2N} and with every key equal, K7 at D in
-   {1, 4096, 65536, 1048576} x R in {1, 4, 37, 512, 1024, 1028} (one byte or four a
-   load, up to two column tiles) with n_valid in {0, D - 3, D} and statuses outside 0..2,
-   K5 and K6 also at D 1 x N 65,536 and with every key equal:
+   x N 65,536 with Ns in {N, 2N} and with every key equal, K3 at D x R
+   x G x F in {1048576 x 64 x 41 x 1, 262144 x 256 x 130 x 4, 65536 x
+   512 x 512 x 64, 1024 x 0 x 0 x 1} with and without unsure bits, K7 at
+   D in {1, 4096, 65536, 1048576} x R in {1, 4, 5, 36, 37, 38, 39, 512,
+   1024, 1028} (every R % 4, up to two column tiles) with n_valid in {0,
+   D - 3, D} and statuses outside 0..2, K5 and K6 also at D 1 x N 65,536
+   and with every key equal:
    outputs must be equal (exact integer results, tolerance 0); kernel
    and plain times are CUDA-event medians of 20 runs; a kernel's
    device time (`device_ms`) is that of 20 calls captured into one CUDA
@@ -61,7 +64,7 @@ no result line):
 5. No JAX and no guard_tpu module was imported.
 
 The line before the last is a JSON object {"kernels": [...]} with each
-kernel's launches (K1-K6 twice: at the main shape and at the
+kernel's launches (every kernel twice: at the main shape and at the
 one-document 65,536-node bucket's heaviest shape) on its main path
 (K1-K3 the security policy's, K4-K6
 the cross-reference policy's, K7 the summary's; every path's in
@@ -78,11 +81,12 @@ Two measurement modes print one JSON line and skip the phases above:
     python3 chip_smoke.py --design-sweep [CHECKOUT]
     python3 chip_smoke.py --compare-designs OTHER_CHECKOUT
 
-`--design-sweep` times K2, K4, K5 and K6 at the main path's shapes
-through the public wrappers of CHECKOUT's guard_tpu_torch (default:
-this one), K6 beside scatter_reduce_, and, where CHECKOUT has the
-forced-form entries, each K2 geometry and K4, K5 and K6 form at the
-shapes around the launchers' thresholds. `--compare-designs` runs the
+`--design-sweep` times K2, K4, K5, K6, K3 and K7 at the main path's
+shapes (K3 and K7 also at their sweep shapes) through the public
+wrappers of CHECKOUT's guard_tpu_torch (default: this one), K6 beside
+scatter_reduce_, and, where CHECKOUT has the forced-form entries, each
+K2 geometry and K3, K4, K5, K6 and K7 form at the shapes around the
+launchers' thresholds. `--compare-designs` runs the
 design sweep of OTHER_CHECKOUT (an older design, unpacked with `git
 archive`) and of this checkout in turns, other, this, this, other, one
 process each.
@@ -111,7 +115,8 @@ JOIN_SWEEP_N = (64, 1024, 65536)
 JOIN_SWEEP_BYTES = 16 << 20
 WIDE_N = 65536  # the one-document bucket of the volume template
 SUMMARY_SWEEP_D = (1, 4096, 65536, 1 << 20)
-SUMMARY_SWEEP_R = (1, 4, 37, 512, 1024, 1028)
+# every R % 4 (R 36-39), full packs (512) and a last tile of one word (1,028)
+SUMMARY_SWEEP_R = (1, 4, 5, 36, 37, 38, 39, 512, 1024, 1028)
 N_SUMMARY_CHECK = 2048  # summary templates held against the CPU
 REPS = 20
 SOURCES = {
@@ -545,8 +550,10 @@ def phase_kernel_sweep(device) -> dict:
         sweep["seg_min_max_rows"].append({**row, "keys": "all equal"})
     del q, args, seg
     torch.cuda.empty_cache()
-    # the last shape is a rules file with no device rule: every doc SKIP
-    for d, r, g, f in ((1 << 20, 64, 41, 1), (1 << 18, 256, 130, 4), (1024, 0, 0, 1)):
+    # a full pack (512 rules of 64 files); the last shape is a rules file
+    # with no device rule: every doc SKIP
+    for d, r, g, f in ((1 << 20, 64, 41, 1), (1 << 18, 256, 130, 4), (65536, 512, 512, 64),
+                       (1024, 0, 0, 1)):
         args = k3_inputs(gen, d, r, g, f, device)
         for with_unsure in (True, False):
             a = args if with_unsure else (args[0], None) + args[2:]
@@ -554,8 +561,9 @@ def phase_kernel_sweep(device) -> dict:
             ok = _equal(got, ref)
             sweep["rim_reduce"].append({
                 "D": d, "R": r, "G": g, "F": f, "unsure": with_unsure,
-                "equal": ok,
+                "equal": ok, "branch": K._lib().guard_rim_reduce_branch(d, r, g, f),
                 "ms": cuda_ms(lambda: K.rim_reduce(*a, g, f)),
+                "device_ms": graph_ms(lambda: K.rim_reduce(*a, g, f)),
                 "plain_ms": cuda_ms(lambda: plain.rim_reduce(*a, g, f), reps=5),
                 "bytes": k3_bytes(d, r, g, f, with_unsure),
             })
@@ -1217,8 +1225,8 @@ def seg_min_max_library(seg, mask, hi, lo, s: int):
 def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
     """Each kernel at its main-path shape (K1-K3 from the security
     policy's run, K4-K6 from the cross-reference policy's, K7 from the
-    summary's), K1-K6 also at their shape in the one-document bucket
-    (K3 at its launch with the fewest documents): error against plain,
+    summary's), each also at its shape in the one-document bucket (K3
+    and K7 at their launch with the fewest documents): error against plain,
     times (CUDA events around one call, and the device time of a graph
     replay), bound and library time (both ways where a library call
     computes the same function).
@@ -1284,6 +1292,7 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
         out.append({
             "name": "rim_reduce", "shape": {"D": d, "R": r, "G": g, "F": f},
             "shape_launches": slice_info["shapes"]["rim_reduce"][(d, r, g, f)],
+            "branch": K._lib().guard_rim_reduce_branch(d, r, g, f),
             "max_abs_err": _max_abs_err(K.rim_reduce(*args, g, f),
                                         plain.rim_reduce(*args, g, f)),
             "ms": cuda_ms(lambda: K.rim_reduce(*args, g, f)),
@@ -1356,20 +1365,25 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
         del seg, mask, hi, lo, library
         torch.cuda.empty_cache()
 
-    d, r, n_valid = main_shape(infos["summary"]["shapes"], "rule_summary")
-    st = torch.randint(0, 3, (d, r), generator=gen, device=device, dtype=torch.int8)
-    out.append({
-        "name": "rule_summary", "shape": {"D": d, "R": r, "n_valid": n_valid},
-        "max_abs_err": _max_abs_err(K.rule_summary(st, n_valid),
-                                    plain.rule_summary(st, n_valid)),
-        "ms": cuda_ms(lambda: K.rule_summary(st, n_valid)),
-        "device_ms": graph_ms(lambda: K.rule_summary(st, n_valid)),
-        "plain_ms": cuda_ms(lambda: plain.rule_summary(st, n_valid)),
-        "bound_ms": k7_bytes(n_valid, r) / rate * 1e3,
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes masked per-column counts "
-                        "of three values",
-    })
+    # the summary of the largest bucket, then of the one-document bucket
+    summary_shapes = infos["summary"]["shapes"]["rule_summary"]
+    for d, r, n_valid in (main_shape(infos["summary"]["shapes"], "rule_summary"),
+                          min(summary_shapes)):
+        st = torch.randint(0, 3, (d, r), generator=gen, device=device, dtype=torch.int8)
+        out.append({
+            "name": "rule_summary", "shape": {"D": d, "R": r, "n_valid": n_valid},
+            "shape_launches": summary_shapes[(d, r, n_valid)],
+            "branch": K._lib().guard_rule_summary_branch(d, r, n_valid),
+            "max_abs_err": _max_abs_err(K.rule_summary(st, n_valid),
+                                        plain.rule_summary(st, n_valid)),
+            "ms": cuda_ms(lambda: K.rule_summary(st, n_valid)),
+            "device_ms": graph_ms(lambda: K.rule_summary(st, n_valid)),
+            "plain_ms": cuda_ms(lambda: plain.rule_summary(st, n_valid)),
+            "bound_ms": k7_bytes(n_valid, r) / rate * 1e3,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes masked per-column counts "
+                            "of three values",
+        })
     main_path = {"rule_summary": "summary", **{name: "xref" for name in JOINS}}
     for entry in out:
         name = entry["name"]
@@ -1403,6 +1417,68 @@ DESIGN_K4 = ((48694, 64, 128), (48694, 64, 64), (1, WIDE_N, WIDE_N), (1, WIDE_N,
 DESIGN_K5 = ((48694, 64), (16842, 128), (1, WIDE_N), (64, WIDE_N))
 DESIGN_K6 = ((48694, 64, 325), (16842, 128, 645), (1, WIDE_N, (WIDE_N + 1) * 5),
              (64, WIDE_N, (WIDE_N + 1) * 5))
+# K3 (D, R, G, F) at the main path's shapes (the security policy's
+# 64-node bucket, the xref and fnvar policies' 64-, 128- and 64-node
+# buckets, the one-document bucket), then at phase 2's sweep shapes and
+# a full pack
+DESIGN_K3 = ((65536, 4, 4, 1), (48694, 5, 5, 1), (16842, 5, 5, 1), (64985, 5, 5, 1),
+             (1, 4, 4, 1), (1, 5, 5, 1),
+             (1 << 20, 64, 41, 1), (1 << 18, 256, 130, 4), (65536, 512, 512, 64))
+# K7 (D, R, n_valid) at the summary's two buckets and the entry point's
+# batch, then over 1,048,576 rows at every R % 4 and the widths of the
+# phase 2 sweep, and a full pack of 512 rules at 65,536 rows
+DESIGN_K7 = ((65536, 4, 65536), (1, 4, 1), (8, 2, 8),
+             *(((1 << 20), r, 1 << 20) for r in (4, 5, 36, 37, 38, 39, 512, 1024, 1028)),
+             (65536, 512, 65536))
+# K3 forms: 1 a thread a row, 32 a warp a row, 256 a block a row
+K3_BRANCHES = (
+    ((1, 4, 4, 1), (1, 32, 256)),
+    ((64, 5, 5, 1), (1, 32, 256)),
+    ((256, 5, 5, 1), (1, 32, 256)),
+    ((1024, 5, 5, 1), (1, 32, 256)),
+    ((4096, 5, 5, 1), (1, 32, 256)),
+    ((8192, 5, 5, 1), (1, 32)),
+    ((16842, 5, 5, 1), (1, 32, 256)),
+    ((65536, 4, 4, 1), (1, 32, 256)),
+    ((65536, 5, 5, 1), (1, 32, 256)),
+    ((65536, 16, 8, 2), (1, 32)),
+    ((65536, 32, 24, 8), (1, 32)),
+    ((65536, 64, 41, 1), (1, 32)),
+    ((65536, 64, 64, 4), (1, 32)),
+    ((1 << 20, 64, 41, 1), (1, 32)),
+    ((65536, 128, 20, 2), (1, 32)),
+    ((65536, 256, 64, 4), (1, 32)),
+    ((16384, 1024, 64, 8), (1, 32)),
+    ((65536, 256, 65, 4), (32, 256)),
+    ((1 << 18, 256, 130, 4), (32, 256)),
+    ((65536, 512, 512, 64), (32, 256)),
+)
+# K7 forms: 1 one block writes every counter, 2 one cluster of 16 blocks
+# whose block 0 writes every counter; 8 or 16 a grid that reads words of
+# that many bytes and adds into the zeroed output
+K7_BRANCHES = (
+    ((1, 4, 1), (1, 2, 8)),
+    ((8, 2, 8), (1, 2, 8)),
+    ((1024, 4, 1024), (1, 2, 8)),
+    ((4096, 4, 4096), (1, 2, 8)),
+    ((16384, 4, 16384), (1, 2, 8)),
+    ((65536, 4, 65536), (2, 8, 16)),
+    ((131072, 4, 131072), (2, 8, 16)),
+    ((262144, 4, 262144), (2, 8, 16)),
+    ((64, 37, 64), (1, 2, 8)),
+    ((1024, 37, 1024), (1, 2, 8)),
+    ((16384, 37, 16384), (2, 8, 16)),
+    ((64, 512, 64), (1, 2, 8)),
+    ((1024, 512, 1024), (2, 8, 16)),
+    ((65536, 512, 65536), (8, 16)),
+    ((1 << 20, 4, 1 << 20), (8, 16)),
+    ((1 << 20, 5, 1 << 20), (8, 16)),
+    ((1 << 20, 36, 1 << 20), (8, 16)),
+    ((1 << 20, 37, 1 << 20), (8, 16)),
+    ((1 << 20, 512, 1 << 20), (8, 16)),
+    ((1 << 20, 1024, 1 << 20), (8, 16)),
+    ((1 << 20, 1028, 1 << 20), (8, 16)),
+)
 # how K6's segment ids spread, as k6_segments makes them: 40 segments
 # (k6_inputs), the 5 of a shared RHS, or uniform over [-1, S)
 K6_SEGMENTS = ("40", "shared", "uniform")
@@ -1495,13 +1571,14 @@ def current_stream() -> int:
 
 
 def design_sweep(device) -> dict:
-    """K2, K4, K5 and K6 against their plain versions at DESIGN_K2,
-    DESIGN_K4, DESIGN_K5 and DESIGN_K6 (K6 beside scatter_reduce_),
-    through the public wrappers only (so it also runs on an older
-    checkout's package), with their times; where the library has the
-    forced-form entries, also each K5 form at K5_BRANCHES and each K6
-    form at K6_BRANCHES, and each K2 geometry at K2_BRANCHES and each K4
-    form at K4_BRANCHES."""
+    """K2, K4, K5, K6, K3 and K7 against their plain versions at
+    DESIGN_K2, DESIGN_K4, DESIGN_K5, DESIGN_K6 (K6 beside
+    scatter_reduce_), DESIGN_K3 and DESIGN_K7, through the public
+    wrappers only (so it also runs on an older checkout's package), with
+    their times; where the library has the forced-form entries, also
+    each K3 form at K3_BRANCHES and each K7 form at K7_BRANCHES, each K5
+    form at K5_BRANCHES and each K6 form at K6_BRANCHES, and each K2
+    geometry at K2_BRANCHES and each K4 form at K4_BRANCHES."""
     import torch
 
     from guard_tpu_torch import kernels as K
@@ -1560,7 +1637,32 @@ def design_sweep(device) -> dict:
             })
             del seg, mask, hi, lo, library
             torch.cuda.empty_cache()
+    out["rim_reduce"] = []
+    for d, r, g, f in DESIGN_K3:
+        args = k3_inputs(gen, d, r, g, f, device)
+        check(_equal(K.rim_reduce(*args, g, f), plain.rim_reduce(*args, g, f)),
+              f"rim_reduce differs from plain at D={d} R={r} G={g} F={f}")
+        out["rim_reduce"].append({
+            "D": d, "R": r, "G": g, "F": f, "bound_ms": k3_bytes(d, r, g, f) / 3.35e9,
+            "ms": cuda_ms(lambda: K.rim_reduce(*args, g, f)),
+            "device_ms": graph_ms(lambda: K.rim_reduce(*args, g, f)),
+        })
+        del args
+    out["rule_summary"] = []
+    for d, r, n_valid in DESIGN_K7:
+        st = torch.randint(-3, 6, (d, r), generator=gen, device=device, dtype=torch.int8)
+        check(_equal(K.rule_summary(st, n_valid), plain.rule_summary(st, n_valid)),
+              f"rule_summary differs from plain at D={d} R={r} n_valid={n_valid}")
+        out["rule_summary"].append({
+            "D": d, "R": r, "n_valid": n_valid, "bound_ms": k7_bytes(n_valid, r) / 3.35e9,
+            "ms": cuda_ms(lambda: K.rule_summary(st, n_valid)),
+            "device_ms": graph_ms(lambda: K.rule_summary(st, n_valid)),
+        })
+        del st
+    torch.cuda.empty_cache()
     lib = K._lib()
+    if hasattr(lib, "guard_rim_reduce_as"):
+        out.update(rim_summary_form_sweep(lib, gen, device))
     if hasattr(lib, "guard_distinct_first_rows_as"):
         out.update(join_form_sweep(lib, gen, device))
     if not hasattr(lib, "guard_segment_sum_rows_as"):
@@ -1601,6 +1703,53 @@ def design_sweep(device) -> dict:
             row[str(b)] = graph_ms(run)
         out["set_count_branches"].append(row)
         del q, st, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def rim_summary_form_sweep(lib, gen, device) -> dict:
+    """Each K3 form at K3_BRANCHES and each K7 form at K7_BRANCHES
+    against the plain versions, with their device times."""
+    import torch
+
+    from guard_tpu_torch.kernels import plain
+
+    out = {"rim_reduce_branches": [], "rule_summary_branches": []}
+    for (d, r, g, f), forms in K3_BRANCHES:
+        args = k3_inputs(gen, d, r, g, f, device)
+        ref = plain.rim_reduce(*args, g, f)
+        row = {"D": d, "R": r, "G": g, "F": f,
+               "picked": lib.guard_rim_reduce_branch(d, r, g, f)}
+        for form in forms:
+            def run(form=form):
+                o = tuple(torch.empty((d, w), dtype=torch.int8, device=device)
+                          for w in (g, g, f, f, f, g))
+                rc = lib.guard_rim_reduce_as(form, *(t.data_ptr() for t in args),
+                                             *(t.data_ptr() for t in o), d, r, g, f,
+                                             current_stream())
+                check(rc == 0, f"K3 form {form} refused (cudaError {rc})")
+                return tuple(t.view(torch.bool) if i in (1, 3, 4) else t
+                             for i, t in enumerate(o))
+            check(_equal(run(), ref), f"K3 form {form} differs at D={d} R={r} G={g} F={f}")
+            row[str(form)] = graph_ms(run)
+        out["rim_reduce_branches"].append(row)
+        del args, ref
+    for (d, r, n_valid), forms in K7_BRANCHES:
+        st = torch.randint(-3, 6, (d, r), generator=gen, device=device, dtype=torch.int8)
+        ref = plain.rule_summary(st, n_valid)
+        row = {"D": d, "R": r, "n_valid": n_valid,
+               "picked": lib.guard_rule_summary_branch(d, r, n_valid)}
+        for form in forms:
+            def run(form=form):
+                o = torch.empty((3, r), dtype=torch.int32, device=device)
+                rc = lib.guard_rule_summary_as(form, st.data_ptr(), o.data_ptr(), d, r,
+                                               n_valid, current_stream())
+                check(rc == 0, f"K7 form {form} refused (cudaError {rc})")
+                return o
+            check(_equal(run(), ref), f"K7 form {form} differs at D={d} R={r}")
+            row[str(form)] = graph_ms(run)
+        out["rule_summary_branches"].append(row)
+        del st, ref
     torch.cuda.empty_cache()
     return out
 

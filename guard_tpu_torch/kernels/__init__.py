@@ -148,19 +148,12 @@ def rim_reduce(statuses: torch.Tensor, unsure: Optional[torch.Tensor],
         if t.shape[0] != size:
             raise ValueError(f"rim_reduce {what}: length {t.shape[0]}, want {size}")
     lib = _lib()
-    if 2 * n_groups + 3 * n_files > lib.guard_rim_max_slots():
+    if 2 * n_groups + 3 * n_files > lib.rim_max_slots:
         raise ValueError(
             f"rim_reduce: {n_groups} groups and {n_files} files exceed one "
             "block's shared memory"
         )
-    dev = statuses.device
-    name_status = torch.empty((d, n_groups), dtype=torch.int8, device=dev)
-    name_unsure = torch.empty((d, n_groups), dtype=torch.bool, device=dev)
-    doc_status = torch.empty((d, n_files), dtype=torch.int8, device=dev)
-    any_fail = torch.empty((d, n_files), dtype=torch.bool, device=dev)
-    any_unsure = torch.empty((d, n_files), dtype=torch.bool, device=dev)
-    name_last = torch.empty((d, n_groups), dtype=torch.int8, device=dev)
-    out = (name_status, name_unsure, doc_status, any_fail, any_unsure, name_last)
+    out = _rim_blocks(d, n_groups, n_files, statuses.device)
     if d == 0:
         return out
     _raise_on(
@@ -175,6 +168,21 @@ def rim_reduce(statuses: torch.Tensor, unsure: Optional[torch.Tensor],
     LAUNCHES["rim_reduce"] += 1
     SHAPES["rim_reduce"][(d, r, n_groups, n_files)] += 1
     return out
+
+
+def _rim_blocks(d: int, g: int, f: int, device):
+    """K3's six outputs as views of one int8 buffer (one allocation a
+    call), each block on 128-byte lines of its own, so the writes of two
+    blocks never share a line; the flags are bool views."""
+    widths = (g, g, f, f, f, g)
+    sizes = [-(-d * w // 128) * 128 for w in widths]
+    buf = torch.empty(sum(sizes), dtype=torch.int8, device=device)
+    out, offset = [], 0
+    for i, (w, size) in enumerate(zip(widths, sizes)):
+        block = buf.as_strided((d, w), (w, 1), offset)
+        out.append(block.view(torch.bool) if i in (1, 3, 4) else block)
+        offset += size
+    return tuple(out)
 
 
 def set_count_rows(q_org: torch.Tensor, q_key: torch.Tensor, q_mask: torch.Tensor,
@@ -304,9 +312,11 @@ def rule_summary(statuses: torch.Tensor, n_valid: int) -> torch.Tensor:
     _check(statuses, torch.int8, 2, "rule_summary statuses")
     d, r = statuses.shape
     n = min(max(int(n_valid), 0), d)
-    out = torch.zeros((3, r), dtype=torch.int32, device=statuses.device)
     if n == 0 or r == 0:
-        return out
+        return torch.zeros((3, r), dtype=torch.int32, device=statuses.device)
+    # the launcher writes every counter (one block) or zeroes the output
+    # on the stream before its grid adds into it
+    out = torch.empty((3, r), dtype=torch.int32, device=statuses.device)
     _raise_on(
         _lib().guard_rule_summary(
             statuses.data_ptr(), out.data_ptr(), d, r, n, _stream(statuses)

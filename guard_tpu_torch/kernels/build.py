@@ -46,7 +46,11 @@ _SIGNATURES = {
     "guard_segment_sum_rows_as": ([_I, _P, _P, _P, _I, _I, _I, _P], _I),
     "guard_rim_max_slots": ([], _I),
     "guard_rim_reduce": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    "guard_rim_reduce_branch": ([_I] * 4, _I),
+    "guard_rim_reduce_as": ([_I] + [_P] * 11 + [_I] * 4 + [_P], _I),
     "guard_rule_summary": ([_P, _P, _I, _I, _I, _P], _I),
+    "guard_rule_summary_branch": ([_I] * 3, _I),
+    "guard_rule_summary_as": ([_I, _P, _P, _I, _I, _I, _P], _I),
     "guard_set_count_branch": ([_I, _I], _I),
     "guard_set_count_scratch": ([_I, _I], _L),
     "guard_set_count_rows": ([_P] * 8 + [_I] * 3 + [_P], _I),
@@ -137,5 +141,7 @@ def load():
             missing = sorted(set(_SIGNATURES) - set(fns))
             if missing:
                 raise RuntimeError(f"kernel libraries lack {missing}")
-            _LIB = SimpleNamespace(libraries=libs, **fns)
+            # K3's largest 2G + 3F, read once
+            _LIB = SimpleNamespace(libraries=libs, rim_max_slots=fns["guard_rim_max_slots"](),
+                                   **fns)
         return _LIB

@@ -16,7 +16,11 @@ not start on a 4-byte boundary. K2 and K4 are held on every geometry
 their launchers choose from (a lane group, a block or a split grid per
 row for K2; a warp's, a block's or a global table per row for K4), at
 the shapes around each threshold, at D 0 and D 1 x N 65,536, and on
-rows that do not start on a 16-byte boundary. Results are integers:
+rows that do not start on a 16-byte boundary. K3 and K7 are held on
+every form their launchers choose from (a thread, a warp or a block per
+row for K3; one block, one cluster or a grid of 8- or 16-byte words for
+K7) at the main path's and the sweep's widths, off a 16-byte boundary,
+at every R % 16 and at n_valid 0, 1, D - 3 and D. Results are integers:
 exact equality, no tolerance.
 """
 
@@ -218,9 +222,8 @@ def test_cuda_fnvar_walk_matches_cpu(cuda_device):
 @pytest.mark.parametrize("d", [0, 1, 4096, 65536])
 @pytest.mark.parametrize("r", [1, 4, 37, 258, 512, 1024, 1028])
 def test_cuda_rule_summary_matches_plain(cuda_device, d, r):
-    """R a multiple of 4 reads four columns a load, the others one; R 258
-    (256 columns a tile) and 1,028 (1,024 a tile) leave a last tile
-    nearly empty."""
+    """Every R is read in whole words, P = W / gcd(R, W) rows a period;
+    R 258 and 1,028 take a period wider than one tile of words."""
     rng = np.random.default_rng(SEED + 7 * d + r)
     statuses, = to(cuda_device, rng.integers(-3, 6, size=(d, r), dtype=np.int8))
     for n_valid in sorted({0, max(d - 3, 0), d, d + 5}):
@@ -235,8 +238,8 @@ def test_cuda_rule_summary_matches_plain(cuda_device, d, r):
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [1, 2, 4])
 def test_cuda_rule_summary_of_unaligned_rows_matches_plain(cuda_device, offset):
-    """A view whose rows do not start on a 4-byte boundary reads one
-    column a load."""
+    """A view whose rows do not start on a 4-byte boundary: the bytes
+    before the first word boundary are counted apart."""
     rng = np.random.default_rng(SEED + offset)
     flat, = to(cuda_device, rng.integers(-3, 6, size=4096 * 8 + offset, dtype=np.int8))
     statuses = flat[offset:].view(4096, 8)
@@ -722,3 +725,185 @@ def test_cuda_seg_min_max_of_no_rows_launches_nothing(cuda_device):
         got = K.seg_min_max_rows(*args, s)
         assert all(tuple(t.shape) == (d, s) for t in got)
         assert K.LAUNCHES["seg_min_max_rows"] == before
+
+
+# K3 forms (guard_rim_reduce_branch): 1 a thread a row, 32 a warp a row,
+# 256 a block a row
+K3_FORMS = (1, 32, 256)
+# (D, R, G, F): the main path's widths, D 1 and D not a multiple of a
+# block's 256 rows, then wider rule axes up to a full pack of 512 rules
+# (G 64 and 65 on both sides of the thread form's 64-bit masks, F 33
+# across a 32-bit word), and no rule at all
+K3_SHAPES = ((1, 4, 4, 1), (300, 4, 4, 1), (257, 5, 5, 1), (513, 16, 8, 2),
+             (1000, 64, 41, 1), (300, 64, 64, 64), (200, 37, 65, 33),
+             (100, 256, 130, 4), (64, 512, 512, 64), (50, 0, 0, 1))
+K3_CASES = [(form, shape) for form in K3_FORMS for shape in K3_SHAPES
+            if form != 1 or (shape[2] <= 64 and shape[3] <= 64)]
+
+
+def rim_inputs(dev, d: int, r: int, g: int, f: int, offset: int = 0):
+    """_rim_case's arrays on the card; statuses and unsure as views that
+    start `offset` bytes into their buffers."""
+    statuses, unsure, gid, fid, last = _rim_case(
+        np.random.default_rng(SEED + d + 3 * r + g), d, r, g, f)
+    if offset:
+        flat = np.zeros((2, d * r + offset), np.int8)
+        flat[0, offset:] = statuses.ravel()
+        flat[1, offset:] = unsure.ravel()
+        st, un = to(dev, flat[0], flat[1].astype(bool))
+        st, un = st[offset:].view(d, r), un[offset:].view(d, r)
+    else:
+        st, un = to(dev, statuses, unsure)
+    return (st, un, *to(dev, gid, fid, last))
+
+
+def rim_as(form: int, statuses, unsure, gid, fid, last, g: int, f: int):
+    """K3 forced onto one form, its six outputs in their own tensors."""
+    d, r = statuses.shape
+    out = tuple(torch.empty((d, w), dtype=torch.int8, device=statuses.device)
+                for w in (g, g, f, f, f, g))
+    rc = K._lib().guard_rim_reduce_as(
+        form, statuses.data_ptr(), None if unsure is None else unsure.data_ptr(),
+        gid.data_ptr(), fid.data_ptr(), last.data_ptr(), *(t.data_ptr() for t in out),
+        d, r, g, f, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"K3 form {form} refused (cudaError {rc})"
+    torch.cuda.synchronize()
+    return tuple(t.view(torch.bool) if i in (1, 3, 4) else t for i, t in enumerate(out))
+
+
+def assert_rim_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_unsure", [True, False])
+@pytest.mark.parametrize("form,shape", K3_CASES)
+def test_cuda_rim_reduce_every_form_matches_plain(cuda_device, form, shape, with_unsure):
+    d, r, g, f = shape
+    st, un, gid, fid, last = rim_inputs(cuda_device, d, r, g, f)
+    un = un if with_unsure else None
+    assert_rim_equal(rim_as(form, st, un, gid, fid, last, g, f),
+                     plain.rim_reduce(st, un, gid, fid, last, g, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 4, 8])
+@pytest.mark.parametrize("form,shape", [(form, shape) for form, shape in K3_CASES
+                                        if shape[1] in (4, 16, 64, 512)])
+def test_cuda_rim_reduce_off_a_16_byte_boundary_matches_plain(cuda_device, form, shape,
+                                                              offset):
+    """Statuses and unsure bits that start 1 to 8 bytes past a 16-byte
+    boundary: the thread form reads them a byte or a word a load."""
+    d, r, g, f = shape
+    args = rim_inputs(cuda_device, d, r, g, f, offset)
+    assert_rim_equal(rim_as(form, *args, g, f), plain.rim_reduce(*args, g, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(65536, 4, 4, 1), (48694, 5, 5, 1), (1, 4, 4, 1),
+                                   (1 << 18, 256, 130, 4), (65536, 512, 512, 64)])
+def test_cuda_rim_reduce_main_path_shapes_match_plain(cuda_device, shape):
+    """The wrapper at the main path's shapes and the sweep's: the form it
+    picks, one launch counted a call, six views of one buffer."""
+    d, r, g, f = shape
+    args = rim_inputs(cuda_device, d, r, g, f)
+    before = K.LAUNCHES["rim_reduce"]
+    got = K.rim_reduce(*args, g, f)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rim_reduce"] == before + 1
+    assert_rim_equal(got, plain.rim_reduce(*args, g, f))
+    assert_rim_equal(K.rim_reduce(args[0], None, *args[2:], g, f),
+                     plain.rim_reduce(args[0], None, *args[2:], g, f))
+
+
+@pytest.mark.cuda
+def test_cuda_rim_reduce_of_no_rows_launches_nothing(cuda_device):
+    st, un, gid, fid, last = rim_inputs(cuda_device, 4, 5, 5, 1)
+    before = K.LAUNCHES["rim_reduce"]
+    got = K.rim_reduce(st[:0], un[:0], gid, fid, last, 5, 1)
+    assert [tuple(t.shape) for t in got] == [(0, 5), (0, 5), (0, 1), (0, 1), (0, 1), (0, 5)]
+    assert K.LAUNCHES["rim_reduce"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_rim_reduce_thread_form_refuses_wide_masks(cuda_device):
+    """The thread form holds 64 groups and 64 files; the launcher never
+    picks it beyond, and a forced launch there is refused."""
+    st, un, gid, fid, last = rim_inputs(cuda_device, 8, 65, 65, 1)
+    lib = K._lib()
+    assert lib.guard_rim_reduce_branch(8, 65, 65, 1) != 1
+    out = torch.empty((8, 65), dtype=torch.int8, device=cuda_device)
+    rc = lib.guard_rim_reduce_as(1, st.data_ptr(), un.data_ptr(), gid.data_ptr(),
+                                 fid.data_ptr(), last.data_ptr(), *[out.data_ptr()] * 6,
+                                 8, 65, 65, 1, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+# K7 forms (guard_rule_summary_branch): 1 one block writes every counter,
+# 2 one cluster of 16 blocks whose block 0 writes every counter; 8 and 16
+# a grid of words of that many bytes adds into the output the launcher
+# zeroes
+K7_FORMS = (1, 2, 8, 16)
+
+
+def summary_as(form: int, statuses, n_valid: int):
+    d, r = statuses.shape
+    out = torch.full((3, r), -1, dtype=torch.int32, device=statuses.device)
+    rc = K._lib().guard_rule_summary_as(form, statuses.data_ptr(), out.data_ptr(), d, r,
+                                        n_valid, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"K7 form {form} refused (cudaError {rc})"
+    torch.cuda.synchronize()
+    return out
+
+
+def summary_rows(dev, d: int, r: int, offset: int):
+    """(D, R) statuses with values outside 0..2, as a view that starts
+    `offset` bytes into its buffer."""
+    rng = np.random.default_rng(SEED + 13 * d + r + offset)
+    flat, = to(dev, rng.integers(-3, 6, size=d * r + offset, dtype=np.int8))
+    return flat[offset:].view(d, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("r", range(16, 32))
+@pytest.mark.parametrize("form", K7_FORMS)
+def test_cuda_rule_summary_every_form_matches_plain(cuda_device, form, r, offset):
+    """Every R % 16 (periods of 1 to 16 rows) on a base 0 to 3 bytes
+    past a word boundary, n_valid 0, 1, D - 3 and D."""
+    statuses = summary_rows(cuda_device, 300, r, offset)
+    for n_valid in (0, 1, 297, 300):
+        assert torch.equal(summary_as(form, statuses, n_valid),
+                           plain.rule_summary(statuses, n_valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("d,r", [(65536, 4), (1 << 20, 37), (4099, 36), (4099, 38), (4099, 39),
+                                 (65536, 512), (2000, 1028), (8, 2), (1, 4)])
+def test_cuda_rule_summary_picked_form_matches_plain(cuda_device, d, r, offset):
+    """The wrapper at the main path's and the sweep's widths: one launch
+    counted where a row is valid, none where n_valid is 0."""
+    statuses = summary_rows(cuda_device, d, r, offset)
+    for n_valid in sorted({0, 1, max(d - 3, 0), d}):
+        before = K.LAUNCHES["rule_summary"]
+        got = K.rule_summary(statuses, n_valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.rule_summary(statuses, n_valid))
+        assert K.LAUNCHES["rule_summary"] - before == (1 if n_valid else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_rule_summary_direct_form_refuses_a_period_of_several_tiles(cuda_device):
+    """One block (or one cluster) writes every counter only where one
+    tile spans a period (R 1,028: 257 words); the launcher picks a grid
+    there."""
+    statuses = summary_rows(cuda_device, 4, 1028, 0)
+    lib = K._lib()
+    assert lib.guard_rule_summary_branch(4, 1028, 4) not in (1, 2)
+    out = torch.empty((3, 1028), dtype=torch.int32, device=cuda_device)
+    for form in (1, 2):
+        rc = lib.guard_rule_summary_as(form, statuses.data_ptr(), out.data_ptr(), 4, 1028,
+                                       4, torch.cuda.current_stream().cuda_stream)
+        assert rc != 0

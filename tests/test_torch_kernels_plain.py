@@ -4,7 +4,9 @@ K1 gather_rows, K2 segment_sum_rows and K3 rim_reduce have plain PyTorch
 versions that run on the CPU; each is held here against the JAX
 package's primitive it replaces (gather formulation), row by row, on
 seeded inputs with the edge cases of the traversal: root and padding
-lanes (parent -1), empty segments, and origin labels 0..N. The CUDA
+lanes (parent -1), empty segments, and origin labels 0..N; K3 also at
+its kernel's design widths (up to a full pack of 512 rules) and on
+edge tables. The CUDA
 kernels themselves are held against the plain versions on a card in
 tests/test_torch_cuda.py. Results are integers: exact equality, no
 tolerance.
@@ -140,6 +142,57 @@ def test_rim_reduce_plain_matches_jax(shape, with_unsure):
     assert (got[0][:, g - 1] == 2).all()
     if f > 1:
         assert (got[2][:, f - 1] == 2).all() and not got[3][:, f - 1].any()
+
+
+def _rim_against_jax(statuses, unsure, gid, fid, last, g, f):
+    want = jk.rim_reduce(
+        jnp.asarray(statuses), None if unsure is None else jnp.asarray(unsure),
+        jnp.asarray(gid), jnp.asarray(fid), jnp.asarray(last), g, f,
+    )
+    got = plain.rim_reduce(
+        torch.from_numpy(statuses), None if unsure is None else torch.from_numpy(unsure),
+        torch.from_numpy(gid), torch.from_numpy(fid), torch.from_numpy(last), g, f,
+    )
+    dtypes = (torch.int8, torch.bool, torch.int8, torch.bool, torch.bool, torch.int8)
+    for a, b, dt in zip(got, want, dtypes):
+        assert a.dtype == dt and tuple(a.shape) == np.asarray(b).shape
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    return got
+
+
+# (D, R, G, F): K3's design shapes cut to a few documents (64 rules in
+# 41 groups; 256 in 130 groups over 4 files; a full pack of 512 rules in
+# 512 groups over 64 files), one group, G 64 and 65 on both sides of a
+# 64-bit mask word, F 33 across a 32-bit word, and no rule at all
+RIM_DESIGN_SHAPES = [(6, 64, 41, 1), (5, 256, 130, 4), (3, 512, 512, 64), (7, 9, 1, 1),
+                     (5, 80, 64, 2), (5, 80, 65, 2), (6, 40, 10, 33), (4, 0, 0, 1)]
+
+
+@pytest.mark.parametrize("with_unsure", [True, False])
+@pytest.mark.parametrize("shape", RIM_DESIGN_SHAPES)
+def test_rim_reduce_plain_matches_jax_at_the_design_shapes(shape, with_unsure):
+    d, r, g, f = shape
+    rng = np.random.default_rng(SEED + 3 * d + r + g)
+    statuses, unsure, gid, fid, last = _rim_case(rng, d, r, g, f)
+    _rim_against_jax(statuses, unsure if with_unsure else None, gid, fid, last, g, f)
+
+
+@pytest.mark.parametrize("case", ["every_group_empty", "last_on_the_first_rule"])
+def test_rim_reduce_plain_matches_jax_on_edge_tables(case):
+    """Group ids all past the last group (every group empty: SKIP and
+    no unsure bit), or every group's last rule the first rule."""
+    d, r, g, f = 6, 12, 5, 3
+    rng = np.random.default_rng(SEED + len(case))
+    statuses, unsure, gid, fid, last = _rim_case(rng, d, r, g, f)
+    if case == "every_group_empty":
+        gid = np.full(r, g, np.int32)
+    else:
+        last = np.zeros(g, np.int32)
+    got = _rim_against_jax(statuses, unsure, gid, fid, last, g, f)
+    if case == "every_group_empty":
+        assert (got[0] == 2).all() and not got[1].any()
+    else:
+        assert torch.equal(got[5], torch.from_numpy(statuses[:, :1]).expand(d, g))
 
 
 def test_wrappers_use_plain_on_cpu():

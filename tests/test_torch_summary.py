@@ -3,9 +3,10 @@ the JAX package.
 
   * K7's plain version, which the wrapper runs for CPU tensors, equals a
     numpy count of PASS (0), FAIL (1) and SKIP (2) over the first
-    n_valid rows, for empty and non-empty shapes, statuses outside 0..2
-    and random int8 matrices (hypothesis); on the CPU it launches and
-    counts nothing;
+    n_valid rows, for empty and non-empty shapes, statuses outside 0..2,
+    random int8 matrices (hypothesis), and R 36 to 39 and 1,028 with
+    n_valid at every remainder of a 16-row period; on the CPU it
+    launches and counts nothing;
   * the port's `DeviceBatchEvaluator(compiled, "cpu").with_summary`
     returns the same (d, R) statuses and (3, R) counts as the JAX
     package's `ShardedBatchEvaluator(compiled, default_mesh())
@@ -100,6 +101,22 @@ def test_rule_summary_plain_matches_numpy(d, r, valid):
 def test_rule_summary_plain_matches_numpy_on_random_int8(statuses, n_valid):
     got = plain.rule_summary(torch.from_numpy(statuses), n_valid).numpy()
     np.testing.assert_array_equal(got, numpy_counts(statuses, min(n_valid, len(statuses))))
+
+
+@pytest.mark.parametrize("d", [40, 47])
+@pytest.mark.parametrize("r", [36, 37, 38, 39, 1028])
+def test_rule_summary_plain_at_every_remainder_of_a_period(r, d):
+    """R at every R % 4 and a width whose last column tile holds one
+    word (1,028): the kernel reads whole periods of 16 / gcd(R, 16) rows
+    and the rows that fill no period apart, so n_valid takes every
+    remainder of a 16-row period (twice), and D."""
+    rng = np.random.default_rng(7 * r + d)
+    statuses = rng.integers(-3, 6, size=(d, r)).astype(np.int8)
+    t = torch.from_numpy(statuses)
+    for n_valid in [*range(33), d]:
+        got = plain.rule_summary(t, n_valid)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (3, r)
+        np.testing.assert_array_equal(got.numpy(), numpy_counts(statuses, n_valid))
 
 
 def test_rule_summary_on_cpu_launches_nothing():
