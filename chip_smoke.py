@@ -10,7 +10,8 @@ no result line):
    (nvidia-smi), build the seven CUDA kernels from
    guard_tpu_torch/csrc/guard_kernels.cu (K1-K3, K7) and
    guard_tpu_torch/csrc/guard_joins.cu (K4-K6), one nvcc per source,
-   started together.
+   started together, and beside them the native oracle
+   (native/oracle.cpp, ops/native_oracle.build_native) with g++.
 2. Kernels against their plain PyTorch versions on the card, on seeded
    inputs: K1-K3 at N in {64, 1024, 8192, 65536} with D chosen so each
    (D, N) int32 tensor holds at least 64 MB, K2 also at D 1 x N 65,536
@@ -32,7 +33,21 @@ no result line):
    policy over 65,536 seeded templates plus one 12,000-volume template
    (the 65,536-node bucket), with every kernel launch counter set to 0
    just before and read just after. Statuses, unsure bits and rim
-   blocks must equal a CPU evaluation of the same batch. Then the
+   blocks must equal a CPU evaluation of the same batch. Then full
+   reports of the same documents (phase `report`, their trees reused)
+   through Validate on the card without --statuses-only: (a) the
+   single-line report and (b) the structured JSON, with the native
+   oracle built, each with every counter set to 0 just before and read
+   just after: rc 19, the FAIL set of the statuses-only run, every
+   report's rule statuses equal to the rim's, the first 2,048 reports
+   equal to the CPU evaluator's (simplified_report_from_root), and at
+   least one report built by the native oracle; then on the first 4,096
+   templates (c) the same two runs with the native oracle off, whose
+   reruns must go through the spawn pool, byte-identical to the first
+   4,096 documents of (a) and (b), and (d) SARIF and JUnit, which must
+   parse and equal the same runs on the CPU; then (e) the single-line
+   run over all 65,537 with the native oracle off, every FAIL rerun in
+   the pool, byte-identical to (a). Then the
    cross-reference policy (workloads.XREF_RULES: query-RHS compares and
    `.%var` interpolation, kernels K4-K6) the same way over 65,536 seeded
    make_xref_template templates plus the volume template, with its own
@@ -47,7 +62,9 @@ no result line):
    the port's CPU evaluator (core/evaluator.eval_rules_file). Then the flagship
    rules over the example documents, and all 249 rules files of
    corpus/rules over the corpus's own test inputs, each on the card and
-   on the CPU, exactly equal.
+   on the CPU, exactly equal; then each of them through Validate over
+   its own tests' inputs, the single-line report with `-S all` and the
+   structured JSON, on the card and on the CPU, byte-equal.
    Then the per-rule summary (phase `summary`): the security policy over
    65,536 seeded templates plus the volume template, built in memory,
    encoded per bucket and counted by DeviceBatchEvaluator.with_summary
@@ -60,15 +77,17 @@ no result line):
    and dryrun().
 4. The CLI: `python -m guard_tpu_torch validate --statuses-only` in a
    subprocess over one PASS and one FAIL template: rc 19 and the
-   expected stdout bytes.
-5. No JAX and no guard_tpu module was imported.
+   expected stdout bytes; then `validate -z -o json -S none` over the
+   same two: rc 19 and the CPU evaluator's reports.
+5. No JAX and no guard_tpu module was imported, and a worker of the
+   oracle rerun pool holds no torch, JAX or guard_tpu module.
 
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches (every kernel twice: at the main shape and at the
 one-document 65,536-node bucket's heaviest shape) on its main path
 (K1-K3 the security policy's, K4-K6
 the cross-reference policy's, K7 the summary's; every path's in
-`launches_by_path`, and
+`launches_by_path`, the report phase's run (a) among them, and
 for K1 the launches made by the StepFnVar arm), its error against the plain version, its
 time (`ms`, host cost included, and `device_ms`, the card's alone), the
 plain version's, the bound (bytes over the card's memory rate) and a
@@ -94,6 +113,7 @@ process each.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -646,18 +666,21 @@ def sync(device) -> None:
 
 
 def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
-                   per_rule: bool = False, oracle_docs=()) -> dict:
+                   per_rule: bool = False, oracle_docs=()):
     """Write `docs` as a directory of templates and run the user's entry
     point (commands.validate.Validate, statuses-only) over them on the
     card, every kernel counter set to 0 just before and read just after.
     Checks the result (with `per_rule`, that every rule both PASSes and
     FAILs somewhere; that the CPU oracle reran exactly the documents
-    `oracle_docs` names), then compares it with a CPU evaluation."""
+    `oracle_docs` names), then compares it with a CPU evaluation.
+    Returns (info, evaluation, data files); the data files hold the
+    trees the run built, for a later run over the same documents."""
     import numpy as np
     import torch
 
     from guard_tpu_torch import kernels as K
-    from guard_tpu_torch.commands.validate import Validate
+    from guard_tpu_torch.commands.files import DATA_FILE_EXTENSIONS, gather
+    from guard_tpu_torch.commands.validate import DataFile, Validate
     from guard_tpu_torch.ops import kernels as walk
     from guard_tpu_torch.ops.ir import FAIL, PASS, SKIP
     from guard_tpu_torch.utils.io import Reader, Writer
@@ -670,13 +693,18 @@ def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
     rules.write_text(rules_text)
     del docs
 
-    cmd = Validate(rules=[str(rules)], data=[str(data)], statuses_only=True,
-                   device=str(device))
     writer = Writer.buffered()
     K.reset_launches()
     fnvar_before = dict(walk.FNVAR_STEPS)
     sync(device)
     t0 = time.perf_counter()
+    # the files are read here, as `-d` would read them, inside the run
+    data_files = [
+        DataFile(name=f.name, content=f.read_text())
+        for f in gather([str(data)], DATA_FILE_EXTENSIONS)
+    ]
+    cmd = Validate(rules=[str(rules)], prepared_data=data_files, statuses_only=True,
+                   device=str(device))
     rc = cmd.execute(writer, Reader())
     sync(device)
     wall = time.perf_counter() - t0
@@ -712,7 +740,7 @@ def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
     check(device_fails <= fail_lines <= device_fails + len(oracle_docs),
           "summary lines disagree with doc statuses")
     check(rc == (19 if fail_lines else 0), f"rc {rc} disagrees with statuses")
-    n_big = max(int((b.node_kind >= 0).sum(axis=1).max()) for b, _ in ev.groups)
+    n_big = max(int((b.node_kind >= 0).sum(axis=1).max()) for b, _ in fr.groups)
     check(n_big > 32768, f"volume template has only {n_big} nodes")
     t0 = time.perf_counter()
     compare_on_cpu(ev)
@@ -727,7 +755,7 @@ def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
         "device_docs_per_s": n_docs / secs["device"],
         "seconds": secs, "cpu_compare_s": cpu_s, "oracle_docs": ev.oracle_docs,
         "launches": launches, "fnvar_steps": fnvar_steps, "shapes": shapes,
-    }, ev
+    }, ev, data_files
 
 
 def phase_slice(device, tmp: Path):
@@ -740,9 +768,9 @@ def phase_slice(device, tmp: Path):
     rng = np.random.default_rng(SEED)
     docs = [make_template(rng, i) for i in range(N_TEMPLATES)]
     docs.append(volume_template(N_VOLUMES))
-    info, ev = drive_validate(device, tmp, "security", RULES, docs)
+    info, ev, data_files = drive_validate(device, tmp, "security", RULES, docs)
     if device.type != "cuda":
-        return info, ev  # a CPU rehearsal launches no kernel
+        return info, ev, data_files  # a CPU rehearsal launches no kernel
     lib = K._lib()
     split_launches = sum(
         c for (d, n, s), c in info["shapes"]["segment_sum_rows"].items()
@@ -752,7 +780,7 @@ def phase_slice(device, tmp: Path):
     info["k2_split_branch_launches"] = split_launches
     for name in ("gather_rows", "segment_sum_rows", "rim_reduce"):
         check(info["launches"][name] > 0, f"kernel {name} never launched on the main path")
-    return info, ev
+    return info, ev, data_files
 
 
 def phase_xref(device, tmp: Path):
@@ -767,7 +795,7 @@ def phase_xref(device, tmp: Path):
     rng = np.random.default_rng(SEED + 2)
     docs = [make_xref_template(rng, i) for i in range(N_TEMPLATES)]
     docs.append(volume_template(N_VOLUMES))
-    info, ev = drive_validate(device, tmp, "xref", XREF_RULES, docs, per_rule=True)
+    info, ev, _files = drive_validate(device, tmp, "xref", XREF_RULES, docs, per_rule=True)
     if device.type != "cuda":
         return info, ev  # a CPU rehearsal launches no kernel
     for name in WALK_KERNELS:
@@ -808,9 +836,9 @@ def phase_fnvar(device, tmp: Path):
     sample = docs[:N_FNVAR_CHECK]
     exotic_idx = np.where(exotic)[0].tolist()
     check(exotic_idx, "no exotic template: the oracle would not run")
-    info, ev = drive_validate(device, tmp, "fnvar", FNVAR_RULES, docs, per_rule=True,
-                              oracle_docs=exotic_idx)
-    del docs
+    info, ev, _files = drive_validate(device, tmp, "fnvar", FNVAR_RULES, docs, per_rule=True,
+                                      oracle_docs=exotic_idx)
+    del docs, _files
     fr = ev.files[0]
     check(fr.compiled.fn_vars and fr.compiled.needs_fn_origin and not fr.compiled.host_rules,
           "FNVAR_RULES did not lower to per-origin function variables")
@@ -839,6 +867,180 @@ def phase_fnvar(device, tmp: Path):
     for name in ("gather_rows", "segment_sum_rows", "rim_reduce"):
         check(info["launches"][name] > 0, f"kernel {name} never launched on the fnvar path")
     return info, ev
+
+
+N_REPORT_CHECK = 2048  # full reports held against the CPU evaluator's
+N_REPORT_SUBSET = 4096  # templates of the native-off, SARIF and JUnit runs
+SINGLE_LINE = {"show_summary": ["fail"]}
+SINGLE_LINE_ALL = {"show_summary": ["all"]}
+STRUCTURED_JSON = {"structured": True, "output_format": "json", "show_summary": ["none"]}
+
+
+@contextlib.contextmanager
+def native_oracle_off(tmp: Path):
+    """The native oracle as if it were not built: its library directory
+    pointed at an empty one and its caches cleared, until the block
+    ends."""
+    from guard_tpu_torch.ops import _native_lib, native_oracle
+
+    saved = (_native_lib.NATIVE_DIR, _native_lib._libs, native_oracle._configured)
+    empty = tmp / "native_off"
+    empty.mkdir(exist_ok=True)
+    _native_lib.NATIVE_DIR, _native_lib._libs, native_oracle._configured = empty, {}, None
+    try:
+        check(not native_oracle.native_available(), "the native oracle is still on")
+        yield
+    finally:
+        _native_lib.NATIVE_DIR, _native_lib._libs, native_oracle._configured = saved
+
+
+def run_report(device, rules: Path, data_files, **flags) -> dict:
+    """One full-report run of the user's entry point
+    (commands.validate.Validate) over data files already read, every
+    kernel counter set to 0 just before and read just after."""
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.commands.validate import Validate
+    from guard_tpu_torch.utils.io import Reader, Writer
+
+    cmd = Validate(rules=[str(rules)], prepared_data=data_files, device=str(device), **flags)
+    writer = Writer.buffered()
+    K.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    rc = cmd.execute(writer, Reader.from_string(""))
+    sync(device)
+    wall = time.perf_counter() - t0
+    return {"rc": rc, "out": writer.stripped(), "err": writer.err_to_stripped(),
+            "ev": cmd.last_evaluation, "launches": dict(K.LAUNCHES), "wall_s": wall}
+
+
+def report_summary(run: dict) -> dict:
+    """A run's seconds per stage, rerun counts, report bytes and
+    kernel launches."""
+    ev = run["ev"]
+    return {"rc": run["rc"], "wall_s": run["wall_s"], "seconds": dict(ev.seconds),
+            "reruns": dict(ev.reruns), "oracle_docs": ev.oracle_docs,
+            "report_bytes": len(run["out"].encode()), "launches": run["launches"]}
+
+
+def phase_report(device, tmp: Path, data_files, slice_ev) -> dict:
+    """Slice 8's main path: full reports of the slice's documents (the
+    trees its run built) through Validate on the card, without
+    --statuses-only: (a) the single-line report and (b) the structured
+    JSON, with the native oracle built. The FAIL set equals the
+    statuses-only run's, every report's statuses equal the rim's
+    (already held against the CPU), the first N_REPORT_CHECK reports
+    equal the CPU evaluator's, and the native oracle built reports.
+    Then on the first N_REPORT_SUBSET templates (c) the same two runs
+    with the native oracle off, whose reruns go through the spawn
+    pool, byte-identical to the native runs' first documents, and (d)
+    SARIF and JUnit, which parse and equal the same runs on the CPU;
+    then (e) the single-line run over every template with the native
+    oracle off, byte-identical to (a)."""
+    import re
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    import torch
+
+    from guard_tpu_torch.commands.report import simplified_report_from_root
+    from guard_tpu_torch.commands.reporters.structured import _strip_locations
+    from guard_tpu_torch.core.evaluator import eval_rules_file
+    from guard_tpu_torch.core.scopes import RootScope
+    from guard_tpu_torch.ops import native_oracle
+    from guard_tpu_torch.ops.backend import STATUS
+    from guard_tpu_torch.ops.ir import FAIL
+
+    rules = tmp / "security.guard"
+    check(native_oracle.native_available(), "the native oracle is not built")
+    fr = slice_ev.files[0]
+    n = len(data_files)
+    names = [df.name for df in data_files]
+    want_fail = {names[i] for i in np.nonzero(fr.rim[2][:, 0] == FAIL)[0]}
+    out = {"docs": n, "fail_docs": len(want_fail)}
+
+    single = run_report(device, rules, data_files, **SINGLE_LINE)
+    check(single["rc"] == 19, f"report (a): rc {single['rc']}: {single['err'][-500:]}")
+    failed = set(re.findall(r"^(\S+) Status = FAIL$", single["out"], re.M))
+    check(failed == want_fail, f"report (a): {len(failed)} FAIL documents, "
+          f"the statuses-only run had {len(want_fail)}")
+    structured = run_report(device, rules, data_files, **STRUCTURED_JSON)
+    check(structured["rc"] == 19, f"report (b): rc {structured['rc']}")
+    reports = json.loads(structured["out"])
+    check([r["name"] for r in reports] == names, "report (b): documents out of order")
+    for di, rep in enumerate(reports):
+        got = {r["Rule"]["name"]: "FAIL" for r in rep["not_compliant"]}
+        got.update({nm: "SKIP" for nm in rep["not_applicable"]})
+        got.update({nm: "PASS" for nm in rep["compliant"]})
+        want = {nm: STATUS[int(fr.rim[0][di, g])].value for g, nm in enumerate(fr.names)}
+        check(got == want, f"report (b) of {names[di]}: {got} against the rim's {want}")
+        check(rep["status"] == STATUS[int(fr.rim[2][di, 0])].value,
+              f"report (b) of {names[di]}: status {rep['status']}")
+    rf = structured["ev"].files[0].rule_file.rules
+    t0 = time.perf_counter()
+    for di in range(min(N_REPORT_CHECK, n)):
+        df = data_files[di]
+        scope = RootScope(rf, df.path_value)
+        eval_rules_file(rf, scope, df.name)
+        want = _strip_locations(simplified_report_from_root(scope.reset_recorder().extract(),
+                                                            df.name))
+        check(reports[di] == want, f"report (b) of {df.name} differs from the CPU evaluator's")
+    out["cpu_check"] = {"docs": min(N_REPORT_CHECK, n), "seconds": time.perf_counter() - t0}
+    for label, run in (("single_line", single), ("structured_json", structured)):
+        check(run["ev"].reruns["native_reports"] > 0, f"report {label}: no native report")
+        if device.type == "cuda":
+            for name in ("gather_rows", "segment_sum_rows", "rim_reduce"):
+                check(run["launches"][name] > 0, f"report {label}: {name} never launched")
+        out[label] = report_summary(run)
+
+    k = min(N_REPORT_SUBSET, n - 1)
+    subset = data_files[:k]
+    with native_oracle_off(tmp):
+        off_single = run_report(device, rules, subset, **SINGLE_LINE)
+        off_structured = run_report(device, rules, subset, **STRUCTURED_JSON)
+    for label, run in (("native_off_single_line", off_single),
+                       ("native_off_structured_json", off_structured)):
+        counts = run["ev"].reruns
+        check(run["rc"] == 19 and counts["native_reports"] == 0, f"report {label}")
+        check(counts["pooled"] > 0 and counts["pool_failures"] == 0,
+              f"report {label}: the pool did not run ({counts})")
+        out[label] = report_summary(run)
+    # the first k documents' reports, byte for byte
+    check(single["out"].startswith(off_single["out"]), "report (c): single-line bytes differ")
+    rest = single["out"][len(off_single["out"]):]
+    head = re.match(r"(\S+) Status = FAIL\n", rest)
+    check(rest == "" or (head is not None and names.index(head.group(1)) >= k),
+          "report (c): the native-off run stops inside a document")
+    check(json.dumps(reports[:k], indent=2) == off_structured["out"],
+          "report (c): structured JSON bytes differ")
+    del reports
+
+    for fmt in ("sarif", "junit"):
+        flags = {"structured": True, "output_format": fmt, "show_summary": ["none"]}
+        card = run_report(device, rules, subset, **flags)
+        cpu = run_report(torch.device("cpu"), rules, subset, **flags)
+        check((card["rc"], card["out"], card["err"]) == (cpu["rc"], cpu["out"], cpu["err"]),
+              f"report (d): {fmt} on the card differs from the CPU's")
+        check(card["rc"] == 19 and card["err"] == "", f"report (d): {fmt} rc {card['rc']}")
+        if fmt == "sarif":
+            check(json.loads(card["out"])["runs"][0]["results"], "report (d): no SARIF result")
+        else:
+            check(ET.fromstring(card["out"].encode()).tag == "testsuites", "report (d): JUnit")
+        out[fmt] = report_summary(card)
+    # (e) the pool at full size: every failing template rerun on the CPU
+    # evaluator, the same bytes as (a)
+    with native_oracle_off(tmp):
+        off_full = run_report(device, rules, data_files, **SINGLE_LINE)
+    counts = off_full["ev"].reruns
+    check(counts["pooled"] == len(want_fail) and counts["pool_failures"] == 0,
+          f"report (e): {counts['pooled']} pooled reruns, {len(want_fail)} FAIL documents")
+    check((off_full["rc"], off_full["out"], off_full["err"]) ==
+          (single["rc"], single["out"], single["err"]),
+          "report (e): the native-off single-line report differs from (a)")
+    out["native_off_single_line_all"] = report_summary(off_full)
+    del off_full
+    out["launches"] = single["launches"]
+    return out
 
 
 def phase_breakdown(device, evaluation) -> list:
@@ -966,19 +1168,25 @@ def phase_flagship(device) -> dict:
     return {"docs": 64, "launches": launches}
 
 
-def corpus_inputs():
+def corpus_cases():
+    """Each rules file of corpus/rules with the inputs of its tests."""
     import yaml
 
     corpus = ROOT / "corpus" / "rules"
-    paths = sorted(corpus.glob("*.guard"))
-    docs = []
-    for p in paths:
+    cases = []
+    for p in sorted(corpus.glob("*.guard")):
         spec = corpus / "tests" / f"{p.stem}_tests.yaml"
+        docs = []
         if spec.exists():
-            for case in yaml.safe_load(spec.read_text()) or []:
-                if isinstance(case, dict) and "input" in case:
-                    docs.append(case["input"])
-    return paths, docs
+            docs = [case["input"] for case in yaml.safe_load(spec.read_text()) or []
+                    if isinstance(case, dict) and "input" in case]
+        cases.append((p, docs))
+    return cases
+
+
+def corpus_inputs():
+    cases = corpus_cases()
+    return [p for p, _ in cases], [doc for _, docs in cases for doc in docs]
 
 
 def phase_corpus(device) -> dict:
@@ -1017,8 +1225,34 @@ def phase_corpus(device) -> dict:
     compare_on_cpu(Evaluation(groups, n_docs, interner, files, device))
     check(refused == 0 and len(files) == len(paths) == 249,
           f"{len(files)} of {len(paths)} corpus files ran, {refused} refused")
+    reports = corpus_reports(device)
     return {"files": len(files), "refused": refused, "docs": n_docs,
-            "device_s": device_s, "launches": launches}
+            "device_s": device_s, "launches": launches, "reports": reports}
+
+
+def corpus_reports(device) -> dict:
+    """Every corpus rules file over its own tests' inputs through
+    Validate, the single-line report with `-S all` and the structured
+    JSON, on the card and on the CPU: the same rc, stdout and stderr."""
+    import torch
+
+    from guard_tpu_torch.commands.validate import DataFile
+
+    t0 = time.perf_counter()
+    runs = native = 0
+    for path, docs in corpus_cases():
+        data_files = [DataFile(f"case{i:02d}.json", json.dumps(doc)) for i, doc in enumerate(docs)]
+        for flags in (SINGLE_LINE_ALL, STRUCTURED_JSON):
+            card = run_report(device, path, data_files, **flags)
+            cpu = run_report(torch.device("cpu"), path, data_files, **flags)
+            check((card["rc"], card["out"], card["err"]) == (cpu["rc"], cpu["out"], cpu["err"]),
+                  f"corpus {path.name} {flags}: the card's report differs from the CPU's")
+            check(card["rc"] in (0, 19, 5), f"corpus {path.name}: rc {card['rc']}")
+            runs += 1
+            if card["ev"] is not None:
+                native += card["ev"].reruns["native_reports"]
+    check(native > 0, "the native oracle built no corpus report")
+    return {"runs": runs, "native_reports": native, "seconds": time.perf_counter() - t0}
 
 
 def phase_cli(tmp: Path) -> dict:
@@ -1047,7 +1281,36 @@ def phase_cli(tmp: Path) -> dict:
     )
     check(proc.returncode == 19, f"cli rc {proc.returncode}: {proc.stderr}")
     check(proc.stdout == want, f"cli stdout {proc.stdout!r}")
-    return {"rc": proc.returncode, "stdout_lines": len(proc.stdout.splitlines())}
+    structured = subprocess.run(
+        [sys.executable, "-m", "guard_tpu_torch", "validate", "-z", "-o", "json", "-S", "none",
+         "-r", str(d / "flagship.guard"), "-d", str(d / "data")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    check(structured.returncode == 19, f"cli -z rc {structured.returncode}: {structured.stderr}")
+    check(json.loads(structured.stdout) == cli_expected_reports(d),
+          f"cli -z stdout {structured.stdout[:500]!r}")
+    return {"rc": proc.returncode, "stdout_lines": len(proc.stdout.splitlines()),
+            "structured_rc": structured.returncode,
+            "structured_bytes": len(structured.stdout.encode())}
+
+
+def cli_expected_reports(d: Path) -> list:
+    """The structured reports of the CLI phase's documents, from the
+    port's CPU evaluator."""
+    from guard_tpu_torch.commands.report import simplified_report_from_root
+    from guard_tpu_torch.commands.reporters.structured import _strip_locations
+    from guard_tpu_torch.core.evaluator import eval_rules_file
+    from guard_tpu_torch.core.loader import load_document
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.scopes import RootScope
+
+    rules = parse_rules_file((d / "flagship.guard").read_text(), "flagship.guard")
+    out = []
+    for p in sorted((d / "data").iterdir()):
+        scope = RootScope(rules, load_document(p.read_text(), p.name))
+        eval_rules_file(rules, scope, p.name)
+        out.append(simplified_report_from_root(scope.reset_recorder().extract(), p.name))
+    return _strip_locations(out)
 
 
 def phase_summary(device) -> dict:
@@ -1841,6 +2104,18 @@ def compare_main(other: Path) -> int:
     return 0
 
 
+def pool_worker_modules() -> list:
+    """What two workers of the oracle rerun pool hold of torch, JAX and
+    the JAX package (each must answer [])."""
+    import multiprocessing as mp
+
+    from guard_tpu_torch.ops.oracle_pool import _oracle_pool_init, worker_modules
+
+    with mp.get_context("spawn").Pool(2, initializer=_oracle_pool_init,
+                                      initargs=([],)) as pool:
+        return pool.map(worker_modules, range(2))
+
+
 def main() -> int:
     try:
         import torch
@@ -1860,12 +2135,26 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_line()
     log(f"card: {card}")
-    from guard_tpu_torch.kernels.build import load
+    from concurrent.futures import ThreadPoolExecutor
 
+    from guard_tpu_torch.kernels.build import load
+    from guard_tpu_torch.ops import native_oracle
+
+    def build_oracle():
+        t1 = time.perf_counter()
+        path = native_oracle.build_native()
+        return path, time.perf_counter() - t1
+
+    # the native oracle's g++ runs while nvcc builds the kernels; a
+    # failed build raises here
     t0 = time.perf_counter()
-    load()
-    build_s = time.perf_counter() - t0
-    log(f"kernels built in {build_s:.1f}s")
+    with ThreadPoolExecutor(1) as pool:
+        oracle_build = pool.submit(build_oracle)
+        load()
+        build_s = time.perf_counter() - t0
+        oracle_path, oracle_build_s = oracle_build.result()
+    check(native_oracle.native_available(), f"the native oracle at {oracle_path} does not load")
+    log(f"kernels built in {build_s:.1f}s, the native oracle in {oracle_build_s:.1f}s")
 
     clock = [time.perf_counter()]
 
@@ -1879,12 +2168,14 @@ def main() -> int:
     log(f"phase 2 (kernels vs plain) ok in {took()}")
     with tempfile.TemporaryDirectory(prefix="guard_smoke_") as td:
         tmp = Path(td)
-        slice_info, evaluation = phase_slice(device, tmp)
+        slice_info, evaluation, data_files = phase_slice(device, tmp)
         log(f"phase 3 (slice) ok in {took()}: "
             f"{json.dumps({k: v for k, v in slice_info.items() if k != 'shapes'})}")
         breakdown = phase_breakdown(device, evaluation)
-        del evaluation
         log(f"phase 3 (breakdown) in {took()}: {json.dumps(breakdown)}")
+        report_info = phase_report(device, tmp, data_files, evaluation)
+        del evaluation, data_files
+        log(f"phase 3 (report) ok in {took()}: {json.dumps(report_info)}")
         xref_info, evaluation = phase_xref(device, tmp)
         log(f"phase 3 (xref) ok in {took()}: "
             f"{json.dumps({k: v for k, v in xref_info.items() if k != 'shapes'})}")
@@ -1909,7 +2200,7 @@ def main() -> int:
         cli = phase_cli(tmp)
         log(f"phase 4 (cli) ok in {took()}: {cli}")
     infos = {"security": slice_info, "xref": xref_info, "fnvar": fnvar_info,
-             "summary": summary_info, "entry": entry_info}
+             "summary": summary_info, "entry": entry_info, "report": report_info}
     kernels = contract_kernels(device, infos, sweep, card)
     log(f"kernels line in {took()}")
     leaked = sorted(
@@ -1918,6 +2209,8 @@ def main() -> int:
         or m == "guard_tpu" or m.startswith("guard_tpu.")
     )
     check(not leaked, f"imported {leaked}")
+    workers = pool_worker_modules()
+    check(workers == [[], []], f"an oracle pool worker imported {workers}")
 
     print(json.dumps({
         "slice": {k: v for k, v in slice_info.items() if k != "shapes"},
@@ -1928,8 +2221,9 @@ def main() -> int:
         "fnvar_breakdown": fnvar_breakdown,
         "flagship": flagship, "corpus": corpus,
         "summary": {k: v for k, v in summary_info.items() if k != "shapes"},
+        "report": report_info,
         "entry": entry_info, "cli": cli,
-        "build_s": build_s, "card": card,
+        "build_s": build_s, "oracle_build_s": oracle_build_s, "card": card,
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

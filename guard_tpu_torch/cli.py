@@ -1,14 +1,17 @@
 """Command-line interface of the torch port.
 
-    python -m guard_tpu_torch validate --statuses-only -r RULES -d DATA \
-        [--show-summary fail,pass,...] [--device cpu]
+    python -m guard_tpu_torch validate -r RULES -d DATA \
+        [-o single-line-summary|json|yaml|junit|sarif] [-z] \
+        [-S fail,pass,...] [-i PARAMS] [-P] [-a|-m] [-t TYPE] [-v] [-p] \
+        [--statuses-only] [--device cpu]
 
 Same flags, stdout, stderr and exit codes (0 pass / 19 fail / 5 error)
-as `python -m guard_tpu.cli validate --backend tpu --statuses-only` with
-the JAX package's CPU evaluator as its oracle: the documents the device
-cannot decide rerun on the port's CPU evaluator. Runs on the CUDA
-device unless `--device` names another; with no card and no `--device`
-it stops with code 5.
+as `python -m guard_tpu.cli validate --backend tpu` with the same flags:
+the walk and the rim run on the device, and the reports of the
+documents that need one are built on the host by the native oracle
+when it is built (ops/native_oracle.build_native), else by the port's
+CPU evaluator. Runs on the CUDA device unless `--device` names another;
+with no card and no `--device` it stops with code 5.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import argparse
 import sys
 from typing import List, Optional
 
-from .commands.validate import ERROR_STATUS_CODE, Validate
+from .commands.validate import ERROR_STATUS_CODE, OUTPUT_FORMATS, Validate
 from .core.errors import GuardError
 from .utils.io import Reader, Writer
 
@@ -34,12 +37,23 @@ def build_parser() -> argparse.ArgumentParser:
     v = sub.add_parser("validate", help="Evaluates rules against data files")
     v.add_argument("--rules", "-r", nargs="*", default=[])
     v.add_argument("--data", "-d", nargs="*", default=[])
+    v.add_argument("--input-params", "-i", nargs="*", default=[])
+    # accepted and unused, as in the JAX package
+    v.add_argument("--type", "-t", dest="template_type", default=None)
+    v.add_argument(
+        "--output-format", "-o", default="single-line-summary", choices=OUTPUT_FORMATS,
+    )
     v.add_argument("--show-summary", "-S", default="fail")
+    v.add_argument("--alphabetical", "-a", action="store_true")
     v.add_argument("--last-modified", "-m", action="store_true")
+    v.add_argument("--verbose", "-v", action="store_true")
+    v.add_argument("--print-json", "-p", action="store_true")
+    v.add_argument("--payload", "-P", action="store_true")
+    v.add_argument("--structured", "-z", action="store_true")
     v.add_argument(
         "--statuses-only", action="store_true",
         help="report rule-level statuses without per-clause detail "
-        "(required: the only mode of this port so far)",
+        "(no oracle rerun of the documents that fail on the device)",
     )
     v.add_argument(
         "--device", default=None,
@@ -61,16 +75,24 @@ def run(argv: Optional[List[str]] = None, writer: Optional[Writer] = None,
     cmd = Validate(
         rules=args.rules,
         data=args.data,
+        input_params=args.input_params,
+        output_format=args.output_format,
         show_summary=args.show_summary.split(","),
+        alphabetical=args.alphabetical,
         last_modified=args.last_modified,
+        verbose=args.verbose,
+        print_json=args.print_json,
+        payload=args.payload,
+        structured=args.structured,
         statuses_only=args.statuses_only,
         device=args.device,
     )
     try:
         return cmd.execute(writer, reader)
-    except (GuardError, RuntimeError) as e:
-        # argument errors, and no CUDA device without --device
-        writer.writeln_err(str(e))
+    except (GuardError, OSError, RuntimeError) as e:
+        # argument conflicts, a payload that does not parse, and no
+        # CUDA device without --device
+        writer.writeln_err(f"Error: {e}")
         return ERROR_STATUS_CODE
 
 

@@ -1,16 +1,19 @@
-"""Console output of a validate run.
+"""Template-aware console reporters for CloudFormation and Terraform.
 
-Copies of the JAX package's console reporters: `summary_table_block`
-and `generic_single_line` (commands/reporters/console.py) and the
-template-aware chain (commands/reporters/aware.py), which the
-reference builds as `GenericSummary -> TfAware -> CfnAware`
-(`guard/src/commands/validate.rs:703-716`): the CloudFormation reporter
-applies when the document has a `Resources` root key and groups
-failures per resource with source excerpts, the Terraform-plan
-reporter when it has `resource_changes`, and the generic single-line
-summary otherwise. Documents the device settles carry statuses-only
-reports (failing rules, no checks); documents the CPU oracle reran
-carry the full report of their evaluation, as in the JAX package.
+Equivalent of the reference's chain-of-responsibility reporter stack
+`GenericSummary -> TfAware -> CfnAware` (built in
+`guard/src/commands/validate.rs:703-716`): validate's
+console path first offers the evaluation to the CloudFormation reporter
+(`reporters/validate/cfn.rs:44` — applies when the document has a
+`Resources` root key, aggregates failures per resource and excerpts the
+offending source lines), then the Terraform-plan reporter
+(`reporters/validate/tf.rs:16` — applies when the document has a
+`resource_changes` root key), and only falls back to the generic
+single-line summary when neither shape matches or resource attribution
+fails (`cfn.rs:196-207` falls back via InternalError).
+
+Here each specialization is a function returning True when it handled
+the report; `console_chain` tries cfn -> tf -> generic in that order.
 """
 
 from __future__ import annotations
@@ -18,214 +21,118 @@ from __future__ import annotations
 import re
 from typing import Dict, List, Optional, Tuple
 
-from ..core.exprs import CmpOperator
-from ..core.qresult import Status
-from ..core.values import MAP, PV
-from ..utils.io import Writer
-from .report import get_rule_name, iter_clause_failures
+from ...core.exprs import CmpOperator
+from ...core.values import MAP, PV
+from ...utils.io import Writer
+from ..report import iter_clause_failures
 
-SHOW_PASS = "pass"
-SHOW_FAIL = "fail"
-SHOW_SKIP = "skip"
+def _top_level_json_keys(content: str):
+    """Top-level object keys of a JSON document without building the
+    tree; None when the content isn't a JSON object parse (YAML,
+    scalars, garbage — the caller materializes the real tree then),
+    an empty set for arrays (neither cfn nor tf shape applies)."""
+    n = len(content)
 
+    def skip_ws(i):
+        while i < n and content[i] in " \t\r\n":
+            i += 1
+        return i
 
-def summary_table_block(
-    writer: Writer,
-    data_file: str,
-    rules_file: str,
-    status: Status,
-    rule_statuses: Dict[str, Status],
-    show: set,
-) -> None:
-    """SummaryTable reporter (summary_table.rs:151-237): the leading
-    `<file> Status = <s>` header plus SKIP/PASS/FAILED rule lists, each
-    section gated by its --show-summary flag; runs before the body
-    reporters in the chain (validate.rs:709-716)."""
-    if not show:
-        return
+    def skip_string(i):
+        """i at the opening quote; returns index past the close, or -1."""
+        i += 1
+        while i < n:
+            c = content[i]
+            if c == "\\":
+                i += 2
+                continue
+            if c == '"':
+                return i + 1
+            i += 1
+        return -1
 
-    def short(n: str) -> str:
-        return get_rule_name(rules_file, n)
-
-    # declaration order preserved (summary_table.rs IndexMap semantics)
-    passed = [short(n) for n, s in rule_statuses.items() if s == Status.PASS]
-    skipped = [short(n) for n, s in rule_statuses.items() if s == Status.SKIP]
-    failed = [short(n) for n, s in rule_statuses.items() if s == Status.FAIL]
-    longest = max((len(short(n)) for n in rule_statuses), default=0)
-    wrote_header = False
-
-    def header():
-        nonlocal wrote_header
-        if not wrote_header:
-            writer.writeln(f"{data_file} Status = {status.value}")
-            wrote_header = True
-
-    if SHOW_SKIP in show and skipped:
-        header()
-        writer.writeln("SKIP rules")
-        for n in skipped:
-            writer.writeln(f"{rules_file}/{n.ljust(longest + 4)}SKIP")
-    if SHOW_PASS in show and passed:
-        header()
-        writer.writeln("PASS rules")
-        for n in passed:
-            writer.writeln(f"{rules_file}/{n.ljust(longest + 4)}PASS")
-    if SHOW_FAIL in show and failed:
-        header()
-        writer.writeln("FAILED rules")
-        for n in failed:
-            writer.writeln(f"{rules_file}/{n.ljust(longest + 4)}FAIL")
-    if wrote_header:
-        writer.writeln("---")
-
-
-def generic_single_line(
-    writer: Writer,
-    data_file: str,
-    rules_file: str,
-    report: dict,
-    rule_statuses: Dict[str, Status],
-    show: set,
-) -> None:
-    """GenericSummary single-line body (generic_summary.rs:262-306):
-    per-clause failure messages, then compliant / not-applicable rule
-    lines gated by the same --show-summary flags."""
-    passed = sorted(n for n, s in rule_statuses.items() if s == Status.PASS)
-    skipped = sorted(n for n, s in rule_statuses.items() if s == Status.SKIP)
-    failures = list(iter_clause_failures(report))
-    # is_reportable priority cascade (generic_summary.rs:157-176): a
-    # present FAIL flag alone decides, then PASS, then SKIP.
-    if SHOW_FAIL in show:
-        reportable = bool(failures)
-    elif SHOW_PASS in show:
-        reportable = bool(passed)
-    else:
-        reportable = SHOW_SKIP in show and bool(skipped)
-    if not reportable:
-        return
-    writer.writeln(f"Evaluation of rules {rules_file} against data {data_file}")
-    if SHOW_FAIL in show and failures:
-        writer.writeln("--")
-        for rule_name, clause in failures:
-            writer.writeln(_name_info_line(rule_name, data_file, clause))
-    if SHOW_PASS in show and passed:
-        writer.writeln("--")
-        for n in passed:
-            writer.writeln(f"Rule [{n}] is compliant for template [{data_file}]")
-    if SHOW_SKIP in show and skipped:
-        writer.writeln("--")
-        for n in skipped:
-            writer.writeln(f"Rule [{n}] is not applicable for template [{data_file}]")
-    writer.writeln("--")
-
-
-_UNARY_OP_MSG = {
-    "Exists": ("did not exist", "existed"),
-    "Empty": ("was not empty", "was empty"),
-    "IsList": ("was not a list ", "was list"),
-    "IsMap": ("was not a struct", "was struct"),
-    "IsString": ("was not a string ", "was string"),
-    "IsBool": ("was not a bool", "was bool"),
-    "IsInt": ("was not an int", "was int"),
-    "IsNull": ("was not null", "was null"),
-    "IsFloat": ("was not a float", "was float"),
-}
-
-
-def _jd(v) -> str:
-    """serde_json::Value Display: compact separators."""
-    import json
-
-    return json.dumps(v, separators=(",", ":"))
-
-
-def _name_info_line(rule_name: str, data_file: str, clause: dict) -> str:
-    """One failure line, NameInfo-style (generic_summary.rs:179-241 +
-    common.rs print_name_info:513-646): binary comparisons render
-    provided/expected values; unresolved traversals render as retrieval
-    errors; unary checks render the operator-specific phrase."""
-    check = clause.get("check") or {}
-    msgs = clause.get("messages") or {}
-    custom = msgs.get("custom_message") or ""
-    err_msg = msgs.get("error_message") or ""
-
-    if "Resolved" in check and "from" in check["Resolved"]:
-        r = check["Resolved"]
-        op, negated = r["comparison"]
-        op_msg = "did" if negated else "did not"
-        cmp_msg = "match expected value in" if op == "In" else "match expected value"
-        return (
-            f"Property [{r['from']['path']}] in data [{data_file}] is not "
-            f"compliant with [{rule_name}] because provided value "
-            f"[{_jd(r['from']['value'])}] {op_msg} {cmp_msg} "
-            f"[{_jd(r['to']['value'])}]. Error Message "
-            f"[{custom.replace(chr(10), ';')}]"
-        )
-    if "InResolved" in check:
-        r = check["InResolved"]
-        op, negated = r["comparison"]
-        op_msg = "did" if negated else "did not"
-        return (
-            f"Property [{r['from']['path']}] in data [{data_file}] is not "
-            f"compliant with [{rule_name}] because provided value "
-            f"[{_jd(r['from']['value'])}] {op_msg} match expected value in "
-            f"[{_jd([t['value'] for t in r.get('to', [])])}]. Error Message "
-            f"[{custom.replace(chr(10), ';')}]"
-        )
-    if "Resolved" in check and "value" in check["Resolved"]:
-        # resolved unary check
-        r = check["Resolved"]
-        op, negated = r["comparison"]
-        pair = _UNARY_OP_MSG.get(op, ("did not exist", "existed"))
-        op_msg = pair[1] if negated else pair[0]
-        return (
-            f"Property [{r['value']['path']}] in data [{data_file}] is not "
-            f"compliant with [{rule_name}] because needed value at "
-            f"[{_jd(r['value']['value'])}] {op_msg}. Error Message "
-            f"[{custom.replace(chr(10), ';')}]"
-        )
-    # unresolved traversals, dependent rules, missing block values:
-    # NameInfo.error is set, so the reference prints the retrieval form
-    path = _property_path(clause)
-    return (
-        f"Property traversed until [{path}] in data [{data_file}] is not "
-        f"compliant with [{rule_name}] due to retrieval error. Error Message "
-        f"[{err_msg}]"
-    )
-
-
-def _property_path(clause: dict) -> str:
-    check = clause.get("check", {})
-    if "Resolved" in check:
-        r = check["Resolved"]
-        if "from" in r:
-            return r["from"]["path"]
-        if "value" in r:
-            return r["value"]["path"]
-    if "InResolved" in check:
-        return check["InResolved"]["from"]["path"]
-    if "UnResolved" in check:
-        return check["UnResolved"]["value"]["traversed_to"]["path"]
-    if "unresolved" in clause and clause["unresolved"]:
-        return clause["unresolved"]["traversed_to"]["path"]
-    return ""
+    i = skip_ws(0)
+    if i >= n:
+        return None
+    if content[i] == "[":
+        return set()
+    if content[i] != "{":
+        return None
+    i += 1
+    keys = set()
+    while True:
+        i = skip_ws(i)
+        if i >= n:
+            return None
+        if content[i] == "}":
+            return keys
+        if content[i] == ",":
+            i += 1
+            continue
+        if content[i] != '"':
+            return None
+        close = skip_string(i)
+        if close < 0:
+            return None
+        raw_key = content[i + 1 : close - 1]
+        if "\\" in raw_key:
+            # escaped spellings (\u0052esources...) need the real
+            # parser — decline the probe entirely
+            return None
+        keys.add(raw_key)
+        i = skip_ws(close)
+        if i >= n or content[i] != ":":
+            return None
+        i = skip_ws(i + 1)
+        if i >= n:
+            return None
+        c = content[i]
+        if c == '"':
+            i = skip_string(i)
+            if i < 0:
+                return None
+        elif c in "{[":
+            depth = 1
+            i += 1
+            while i < n and depth:
+                ch = content[i]
+                if ch == '"':
+                    i = skip_string(i)
+                    if i < 0:
+                        return None
+                    continue
+                if ch in "{[":
+                    depth += 1
+                elif ch in "}]":
+                    depth -= 1
+                i += 1
+            if depth:
+                return None
+        else:
+            while i < n and content[i] not in ",}":
+                i += 1
 
 
 def console_chain(
     writer: Writer,
     data_file_name: str,
     data_content: str,
-    pv: PV,
+    data_pv: PV,
     rules_file_name: str,
     status,
     rule_statuses,
     report: dict,
     show_summary,
+    output_format: str = "single-line-summary",
 ) -> None:
-    """The console chain for one (rules, data) pair: SummaryTable
+    """The full console chain for one (rules, data) pair: SummaryTable
     header, then CfnAware -> TfAware -> generic body for the
-    single-line format (validate.rs:703-716). `pv` is the document's
-    tree; `show_summary` is the raw --show-summary list."""
+    single-line format (validate.rs:703-716), or the serialized
+    FileReport for `-o json|yaml` without --structured
+    (generic_summary.rs:104-105 / cfn.rs:86-87). `show_summary` is the
+    raw --show-summary list."""
+    from .console import generic_single_line, summary_table_block
+
     show = set(show_summary)
     if "all" in show:
         show = {"pass", "fail", "skip"}
@@ -233,6 +140,44 @@ def console_chain(
     summary_table_block(
         writer, data_file_name, rules_file_name, status, rule_statuses, show
     )
+    if output_format in ("json", "yaml"):
+        import json as _json
+
+        import yaml as _yaml
+
+        from .structured import _strip_locations
+
+        rep = _strip_locations(report)
+        if output_format == "yaml":
+            writer.write(
+                _yaml.safe_dump(
+                    rep, sort_keys=False, default_flow_style=False, width=2**31
+                )
+            )
+        else:
+            writer.write(_json.dumps(rep, indent=2))
+        return
+    # `data_pv` may be a DataFile whose tree builds lazily. The aware
+    # reporters read the tree only for shape detection plus failure
+    # attribution; for failure-free reports the shape answer (has a
+    # top-level "Resources" / "resource_changes" key?) comes from a
+    # cheap raw-JSON key scan, so passing documents never build trees.
+    pv = data_pv
+    if not isinstance(data_pv, PV):  # a DataFile: tree builds lazily
+        if not report["not_compliant"]:
+            keys = getattr(data_pv, "_top_keys", False)
+            if keys is False:
+                keys = _top_level_json_keys(data_content)
+                data_pv._top_keys = keys
+            if keys is not None:
+                if "Resources" in keys or "resource_changes" in keys:
+                    return  # cfn/tf applies, nothing to print (no failures)
+                generic_single_line(
+                    writer, data_file_name, rules_file_name, report,
+                    rule_statuses, show,
+                )
+                return
+        pv = data_pv.path_value
     handled = cfn_single_line(
         writer, data_file_name, data_content, rules_file_name, pv, report
     ) or tf_single_line(writer, data_file_name, rules_file_name, pv, report)
@@ -500,7 +445,7 @@ def _emit_messages(writer: Writer, prefix: str, custom: str, error: str, width: 
 
 
 def _plain_value_display(v) -> str:
-    from ..core.values import plain_value_display
+    from ...core.values import plain_value_display
 
     return plain_value_display(v)
 

@@ -1,28 +1,40 @@
-"""The statuses-only `validate` path on the device.
+"""The `validate` path on the device: batch evaluation with oracle
+reruns for the reports.
 
-Shaped like the JAX package's `tpu_validate` (guard_tpu/ops/backend.py:
-1695) under `--statuses-only`: encode the documents, lower every rule
-file, evaluate each file bucket by bucket on the device with the rim
-reductions behind it, mask the rim blocks (`rim_masks`), and report
-each (rules file, document) pair from its merged rule statuses.
+The port of the JAX package's `tpu_validate` (guard_tpu/ops/backend.py:
+1695) and its report half (`_report_files`, `_finish_report`):
 
-Rule files with function variables are lowered per file, as the JAX
-package's `_lower_rules` does: the function results are precomputed on
-the host by the CPU evaluator (ops/fnvars.precompute_fn_values) and
-encoded with each document, so the walk's StepFnVar arm selects them
-on the device.
+  1. encode the documents and lower every rule file; files with
+     function variables get their function results precomputed on the
+     host by the CPU evaluator (ops/fnvars.precompute_fn_values) and
+     encoded with each document, so the walk's StepFnVar arm selects
+     them on the device;
+  2. evaluate each file bucket by bucket on the device, the rim
+     reductions (K3) behind each walk;
+  3. pass A: whole-corpus masks over the rim blocks (`rim_masks`) pick
+     the documents whose report needs the oracle (failures unless
+     --statuses-only, unsure bits, documents the device did not
+     evaluate, host rules, rich output) and those whose per-rule
+     statuses must be built at all;
+  4. the reruns: the native C++ oracle (ops/native_oracle.py) where it
+     is built and accepts the rules, else the CPU evaluator
+     (core/evaluator.py), over a spawn pool (ops/oracle_pool.py) when
+     there are enough of them;
+  5. pass B: every (rules file, document) pair's report in order, the
+     documents pass A settled from one shared template per distinct
+     status row; then the structured outputs and the exit code.
 
-The documents the device cannot decide are rerun on the CPU oracle
-(core/evaluator.eval_rules_file), as the JAX package does under
---statuses-only: those with an unsure bit, those over the last node
-bucket or with numbers that have no exact device encoding, those on
-which a function raised or whose per-origin result lost its origin,
-and every document of a file with host rules. A device status that
-differs from the oracle's where no unsure bit was set is an error.
+A device status that differs from the oracle's where no unsure bit was
+set is an error (the `TPU/native` and `TPU/CPU` nets, as the JAX
+package words them). The JAX package's result cache, document
+quarantine and scalar rim are not ported: pass B walks the documents in
+order and is where each would slot in.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -30,14 +42,32 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..commands.report import rule_statuses_from_root, simplified_report_from_root
 from ..core.errors import GuardError
+from ..core.evaluator import eval_rules_file
 from ..core.qresult import Status
+from ..core.scopes import RootScope
+from ..utils.io import Writer
 from .encoder import Interner, encode_bucketed
 from .fnvars import precompute_fn_values, precomputable_fn_vars
 from .ir import FAIL, PASS, SKIP, CompiledRules, build_rim_spec, compile_rules_file
 from ..parallel.device import DeviceBatchEvaluator, evaluate_groups, resolve_device
 
+log = logging.getLogger("guard_tpu_torch.backend")
+
 STATUS = {PASS: Status.PASS, FAIL: Status.FAIL, SKIP: Status.SKIP}
+
+# the counters of a report run (Evaluation.reruns)
+RERUN_KEYS = (
+    "materialized",  # (file, doc) pairs whose per-rule statuses were built
+    "settled",  # pairs reported from a shared status-row template
+    "native_statuses",  # pairs the native statuses prefilter settled
+    "native_declines",  # prefilter calls the native oracle declined
+    "native_reports",  # reports the native oracle built
+    "pooled",  # CPU-evaluator reruns in the spawn pool
+    "inline",  # CPU-evaluator reruns in this process
+    "pool_failures",  # pools that could not start (reruns went inline)
+)
 
 
 @dataclass
@@ -60,25 +90,36 @@ class FileResult:
 
 @dataclass
 class Evaluation:
-    groups: list  # [(bucket DocBatch, doc indices)], encode_bucketed
+    # [(bucket DocBatch, doc indices)] of the shared encode; None when
+    # no file used it (every file with guard rules has function
+    # variables and its own groups)
+    groups: Optional[list]
     n_docs: int
     interner: Interner
     files: List[FileResult]
     device: torch.device
     # host clock seconds per phase: load (parse the documents; set by
-    # validate_statuses), encode (with the per-file encodes of files
-    # with function variables), fn_precompute (their function values),
-    # lower, device (ends when the last bucket is collected), oracle and
-    # report (set by report)
+    # tpu_validate), encode (with the per-file encodes of files with
+    # function variables), fn_precompute (their function values),
+    # lower, device (ends when the last bucket is collected); and of the
+    # report run: native (native oracle calls), pool (the spawn pool's
+    # wall), inline (reruns in this process) and report (the rest:
+    # passes A and B and the structured output)
     seconds: Dict[str, float] = field(default_factory=dict)
-    # (rules file, document) pairs rerun on the CPU oracle by report
+    # (rules file, document) pairs rerun on the CPU evaluator
     oracle_docs: int = 0
+    # the report run's counters, RERUN_KEYS
+    reruns: Dict[str, int] = field(default_factory=lambda: dict.fromkeys(RERUN_KEYS, 0))
 
 
 def rim_masks(any_fail, any_unsure, host_mask, has_host_rules: bool,
               rich_mode: bool, statuses_only: bool, show_rich: bool = False):
-    """Whole-corpus pass A over the rim blocks (need_oracle,
-    needs_statuses, materialize), as in the JAX package's backend."""
+    """Whole-corpus pass A over the rim blocks, as in the JAX package's
+    backend: need_oracle (docs whose answer needs an oracle visit),
+    needs_statuses (the subset whose statuses themselves are missing,
+    where the native statuses prefilter applies) and materialize (docs
+    whose per-rule dict is built at all; the rest settle from a shared
+    template)."""
     base = bool(has_host_rules) or bool(rich_mode)
     need_oracle = any_unsure | host_mask
     if base:
@@ -107,18 +148,18 @@ def _empty_rim(n_docs: int) -> tuple:
 def evaluate(rule_files, docs, device=None) -> Evaluation:
     """Encode `docs` (PV trees), lower every rules file and evaluate it
     on `device` (CUDA unless given). Files with function variables get
-    their function values precomputed and are encoded on their own."""
+    their function values precomputed and are encoded on their own; the
+    shared encode runs only when a file without them has guard rules.
+    One interner serves every encode."""
     dev = resolve_device(device)
-    seconds = {"fn_precompute": 0.0}
-    t0 = time.perf_counter()
-    groups, oversize, interner = encode_bucketed(docs)
-    seconds["encode"] = time.perf_counter() - t0
+    seconds = {"fn_precompute": 0.0, "encode": 0.0}
+    interner = Interner()
+    shared = None  # (groups, oversize) of the shared encode
 
     t0 = time.perf_counter()
-    fn_encode_s = 0.0
     lowered = []
     for rf in rule_files:
-        f_groups, f_host = groups, {int(i) for i in oversize}
+        f_groups, f_host = None, set()
         if precomputable_fn_vars(rf.rules):
             t1 = time.perf_counter()
             fn_vars, fn_vals, fn_err = precompute_fn_values(rf.rules, docs)
@@ -127,10 +168,17 @@ def evaluate(rule_files, docs, device=None) -> Evaluation:
             f_groups, f_oversize, _ = encode_bucketed(
                 docs, interner, fn_values=fn_vals, fn_var_order=fn_vars
             )
-            fn_encode_s += time.perf_counter() - t1
+            seconds["encode"] += time.perf_counter() - t1
             # a function raised on these documents: the oracle reruns
             # them and reproduces the error
             f_host = {int(i) for i in f_oversize} | set(fn_err)
+        elif rf.rules.guard_rules:
+            if shared is None:
+                t1 = time.perf_counter()
+                groups, oversize, _ = encode_bucketed(docs, interner)
+                shared = (groups, {int(i) for i in oversize})
+                seconds["encode"] += time.perf_counter() - t1
+            f_groups, f_host = shared[0], set(shared[1])
         compiled = compile_rules_file(rf.rules, interner)
         ev = spec = None
         if compiled.rules:
@@ -138,9 +186,8 @@ def evaluate(rule_files, docs, device=None) -> Evaluation:
             ev = DeviceBatchEvaluator(compiled, dev, rim_spec=spec)
         lowered.append((rf, compiled, ev, spec, f_groups, f_host))
     seconds["lower"] = (
-        time.perf_counter() - t0 - seconds["fn_precompute"] - fn_encode_s
+        time.perf_counter() - t0 - seconds["fn_precompute"] - seconds["encode"]
     )
-    seconds["encode"] += fn_encode_s
 
     t0 = time.perf_counter()
     d = len(docs)
@@ -159,13 +206,25 @@ def evaluate(rule_files, docs, device=None) -> Evaluation:
         files.append(FileResult(rf, compiled, statuses, unsure, rim,
                                 spec.file_group_names[0], f_host, f_groups))
     seconds["device"] = time.perf_counter() - t0
-    return Evaluation(groups, d, interner, files, dev, seconds)
+    return Evaluation(None if shared is None else shared[0], d, interner, files,
+                      dev, seconds)
 
 
-def _statuses_fields(rule_statuses: Dict[str, Status]) -> dict:
-    """The rule lists of a statuses-only FileReport, for a document the
-    device settled: failing rules without checks, as the JAX package
-    builds them."""
+def _materialize_row(name_row, unsure_row, names):
+    """One doc's (rule_statuses dict, unsure_rules set) from its rim
+    row, in declaration order (the summary table prints that order)."""
+    rule_statuses = {}
+    unsure_rules = set()
+    for g, name in enumerate(names):
+        rule_statuses[name] = STATUS[int(name_row[g])]
+        if unsure_row is not None and bool(unsure_row[g]):
+            unsure_rules.add(name)
+    return rule_statuses, unsure_rules
+
+
+def _status_fields(rule_statuses: Dict[str, Status]) -> dict:
+    """The rule lists of a report without clause detail: failing rules
+    without checks, as the JAX package builds them."""
     return {
         "not_compliant": [
             {
@@ -188,100 +247,354 @@ def _statuses_fields(rule_statuses: Dict[str, Status]) -> dict:
     }
 
 
-def _oracle(rule_file, data_file):
-    """One oracle rerun on the CPU evaluator: (doc status, full report,
-    merged rule statuses). A GuardError propagates."""
-    from ..commands.report import rule_statuses_from_root, simplified_report_from_root
-    from ..core.evaluator import eval_rules_file
-    from ..core.scopes import RootScope
+def _settled_template(name_row, names):
+    """What every doc with this status row shares: the report's status
+    and rule lists, the rule_statuses dict and the doc status. Built
+    once per distinct row; a settled doc's report is a thin dict
+    around the shared lists."""
+    rule_statuses, _ = _materialize_row(name_row, None, names)
+    vals = list(rule_statuses.values())
+    if Status.FAIL in vals:
+        status = Status.FAIL
+    elif Status.PASS in vals:
+        status = Status.PASS
+    else:
+        status = Status.SKIP
+    fields = {"status": status.value, **_status_fields(rule_statuses)}
+    return fields, rule_statuses, status
 
-    scope = RootScope(rule_file.rules, data_file.path_value)
-    status = eval_rules_file(rule_file.rules, scope, data_file.name)
-    root = scope.reset_recorder().extract()
-    return (
-        status,
-        simplified_report_from_root(root, data_file.name),
-        rule_statuses_from_root(root),
+
+def _check_parity(rule_statuses, other, unsure_rules, data_file, label: str) -> None:
+    """A device status must equal the oracle's, except on rules the
+    device flagged unsure (the oracle's answer stands there)."""
+    for rn, st in rule_statuses.items():
+        ost = other.get(rn)
+        if ost is not None and ost != st and rn not in unsure_rules:
+            raise GuardError(
+                f"TPU/{label} status divergence for rule {rn} on "
+                f"{data_file.name}: tpu={st.value} {label.lower()}={ost.value}"
+            )
+
+
+class _ReportAcc:
+    """One run's report accumulators: the error count, whether any doc
+    failed, every materialized report (structured output) and the JUnit
+    cases per document."""
+
+    __slots__ = ("errors", "had_fail", "all_reports", "junit_suites")
+
+    def __init__(self, data_files):
+        self.errors = 0
+        self.had_fail = False
+        self.all_reports: List[dict] = []
+        self.junit_suites = {df.name: [] for df in data_files}
+
+
+def _report_files(validate, evaluation: Evaluation, data_files, writer: Writer,
+                  acc: _ReportAcc) -> None:
+    """Report half of the device path, one iteration per rules file:
+    pass A (which docs need the oracle), the native, pooled and inline
+    reruns, and pass B (report emission in document order)."""
+    from ..commands.reporters.aware import console_chain
+    from ..commands.reporters.junit import JunitTestCase, failure_info_from_report
+    from ..commands.validate import _looks_json
+    from .native_oracle import (
+        NativeEvalError,
+        NativeOracle,
+        NativeUnsupported,
+        overall_status,
     )
+    from .oracle_pool import POOL_MAX_WORKERS, POOL_MIN_JOBS, run_oracle_jobs
+
+    counts = evaluation.reruns
+    secs = evaluation.seconds
+    for key in ("native", "pool", "inline"):
+        secs.setdefault(key, 0.0)
+    statuses_only = bool(validate.statuses_only)
+    # the verbose tree and print-json need the CPU evaluator's record
+    # tree: the native oracle stays off for them, as in the JAX package
+    rich_tree = validate.verbose or validate.print_json
+    rich_mode = validate.structured or rich_tree
+    show_rich = bool({"pass", "skip", "all"} & set(validate.show_summary))
+    raw_allowed = not validate.input_params
+    D = len(data_files)
+
+    for fr in evaluation.files:
+        rule_file = fr.rule_file
+        native = None
+        if not rich_tree:
+            try:
+                native = NativeOracle(rule_file.rules)
+            except NativeUnsupported:
+                native = None
+        guard_rule_names = [r.rule_name for r in rule_file.rules.guard_rules]
+
+        def _merge_native(raw_statuses):
+            """Same-name merge as the report layer (non-SKIP beats
+            SKIP, FAIL dominates)."""
+            merged = {}
+            for name, s in zip(guard_rule_names, raw_statuses):
+                st = STATUS[s]
+                prev = merged.get(name)
+                if prev is None or (prev == Status.SKIP and st != Status.SKIP):
+                    merged[name] = st
+                elif st == Status.FAIL:
+                    merged[name] = Status.FAIL
+            return merged
+
+        def _native_prefilter(data_file):
+            """The native statuses of one doc: (merged statuses,
+            overall) or None on a decline."""
+            t0 = time.perf_counter()
+            raw = None
+            try:
+                if raw_allowed and _looks_json(data_file.content):
+                    try:
+                        raw = native.eval_raw_json(data_file.content)
+                    except (NativeUnsupported, NativeEvalError):
+                        # e.g. flow-style YAML that sniffs as JSON, or a
+                        # decline: the loaded tree is authoritative
+                        raw = None
+                if raw is None:
+                    try:
+                        raw = native.eval_doc(data_file.path_value)
+                    except (NativeUnsupported, NativeEvalError):
+                        raw = None
+            finally:
+                secs["native"] += time.perf_counter() - t0
+            if raw is None:
+                return None
+            return (_merge_native(raw), STATUS[overall_status(raw)])
+
+        def _native_report(data_file):
+            """(report, statuses, status) from the native oracle, or
+            None when it declines or errs (the CPU evaluator then
+            reproduces a genuine error)."""
+            t0 = time.perf_counter()
+            try:
+                if raw_allowed and _looks_json(data_file.content):
+                    try:
+                        return native.eval_report_raw(data_file.content, data_file.name)
+                    except (NativeUnsupported, NativeEvalError):
+                        # possibly flow-style YAML sniffing as JSON:
+                        # retry from the loaded tree before giving up
+                        pass
+                try:
+                    return native.eval_report(data_file.path_value, data_file.name)
+                except (NativeUnsupported, NativeEvalError):
+                    return None
+            finally:
+                secs["native"] += time.perf_counter() - t0
+
+        # -- pass A: whole-corpus masks over the rim blocks ------------
+        name_st, name_un, doc_st, any_fail, any_un, _last = fr.rim
+        names = fr.names
+        host_mask = np.zeros(D, bool)
+        host_mask[sorted(hd for hd in fr.host_docs if hd < D)] = True
+        need_oracle_v, needs_statuses_v, materialize_v = rim_masks(
+            any_fail[:, 0], any_un[:, 0], host_mask, bool(fr.compiled.host_rules),
+            rich_mode, statuses_only, show_rich,
+        )
+        prefilter_v = need_oracle_v & (needs_statuses_v | statuses_only)
+        doc_infos: dict = {}
+        oracle_dis = []
+        native_declines = 0
+        for di in np.nonzero(materialize_v)[0]:
+            di = int(di)
+            data_file = data_files[di]
+            if not host_mask[di]:
+                rule_statuses, unsure_rules = _materialize_row(
+                    name_st[di], name_un[di], names
+                )
+                doc_status = STATUS[int(doc_st[di, 0])]
+            else:
+                rule_statuses, unsure_rules = {}, set()
+                doc_status = Status.SKIP
+            counts["materialized"] += 1
+            need_oracle = bool(need_oracle_v[di])
+            native_statuses = None
+            if need_oracle and native is not None and prefilter_v[di]:
+                native_statuses = _native_prefilter(data_file)
+                if native_statuses is not None:
+                    if statuses_only or native_statuses[1] != Status.FAIL:
+                        # statuses suffice: no rich rerun
+                        need_oracle = False
+                        counts["native_statuses"] += 1
+                else:
+                    native_declines += 1
+            doc_infos[di] = (rule_statuses, unsure_rules, doc_status, native_statuses)
+            if need_oracle:
+                oracle_dis.append(di)
+        counts["settled"] += int(D - materialize_v.sum())
+        counts["native_declines"] += native_declines
+
+        # -- the reruns: a spawn pool when there are enough ------------
+        # workers rebuild documents from raw content, so merged
+        # --input-params documents keep the inline path
+        pooled_results = {}
+        if (
+            (native is None or native_declines >= POOL_MIN_JOBS)
+            and len(oracle_dis) >= POOL_MIN_JOBS
+            and not validate.input_params
+        ):
+            workers = min(len(oracle_dis), os.cpu_count() or 1, POOL_MAX_WORKERS)
+            if workers > 1:
+                jobs = [
+                    (0, di, data_files[di].name, data_files[di].content)
+                    for di in oracle_dis
+                ]
+                t0 = time.perf_counter()
+                try:
+                    pooled_results = run_oracle_jobs(0, rule_file, jobs, workers)
+                except Exception as e:
+                    # a pool can fail to start (an embedder's unguarded
+                    # __main__ re-executed under spawn): the inline
+                    # path is always safe, and the failure is counted
+                    log.warning(
+                        "oracle rerun pool unavailable (%s); falling back "
+                        "to inline reruns", e,
+                    )
+                    counts["pool_failures"] += 1
+                    pooled_results = {}
+                secs["pool"] += time.perf_counter() - t0
+
+        # -- pass B: every pair's report, in document order ------------
+        # settled docs take their report from the shared per-row
+        # template and never enter the JUnit or structured accumulators
+        # (a run that emits those materializes every doc)
+        oracle_set = set(oracle_dis)
+        row_cache: dict = {}
+        for di, data_file in enumerate(data_files):
+            if di not in doc_infos:
+                key = name_st[di].tobytes()
+                cached = row_cache.get(key)
+                if cached is None:
+                    cached = row_cache[key] = _settled_template(name_st[di], names)
+                fields, rule_statuses, doc_status = cached
+                if doc_status == Status.FAIL:
+                    acc.had_fail = True
+                if not validate.structured:
+                    report = {"name": data_file.name, "metadata": {}, **fields}
+                    console_chain(
+                        writer, data_file.name, data_file.content, data_file,
+                        rule_file.name, doc_status, rule_statuses, report,
+                        validate.show_summary, validate.output_format,
+                    )
+                continue
+            rule_statuses, unsure_rules, doc_status, native_statuses = doc_infos[di]
+            need_oracle = di in oracle_set
+            if native_statuses is not None and not need_oracle:
+                merged, n_doc_status = native_statuses
+                _check_parity(rule_statuses, merged, unsure_rules, data_file, "native")
+                rule_statuses = merged
+                doc_status = n_doc_status
+            report = {
+                "name": data_file.name,
+                "metadata": {},
+                "status": doc_status.value,
+                **_status_fields(rule_statuses),
+            }
+            if need_oracle and native is not None and di not in pooled_results:
+                # the native report equals simplified_report_from_root
+                # over the CPU evaluator's tree
+                native_result = _native_report(data_file)
+                if native_result is not None:
+                    report, oracle_rule_statuses, oracle_status = native_result
+                    counts["native_reports"] += 1
+                    _check_parity(rule_statuses, oracle_rule_statuses, unsure_rules,
+                                  data_file, "native")
+                    rule_statuses = oracle_rule_statuses
+                    doc_status = oracle_status
+                    need_oracle = False
+            if need_oracle:
+                if di in pooled_results:
+                    _key, st_val, p_report, p_statuses, err = pooled_results[di]
+                    counts["pooled"] += 1
+                    evaluation.oracle_docs += 1
+                    if err is not None:
+                        writer.writeln_err(err)
+                        acc.errors += 1
+                        continue
+                    oracle_status = Status(st_val)
+                    report = p_report
+                    oracle_rule_statuses = {n: Status(v) for n, v in p_statuses.items()}
+                else:
+                    counts["inline"] += 1
+                    evaluation.oracle_docs += 1
+                    t0 = time.perf_counter()
+                    try:
+                        scope = RootScope(rule_file.rules, data_file.path_value)
+                        oracle_status = eval_rules_file(
+                            rule_file.rules, scope, data_file.name
+                        )
+                    except GuardError as e:
+                        writer.writeln_err(str(e))
+                        acc.errors += 1
+                        continue
+                    finally:
+                        secs["inline"] += time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    root_record = scope.reset_recorder().extract()
+                    report = simplified_report_from_root(root_record, data_file.name)
+                    oracle_rule_statuses = rule_statuses_from_root(root_record)
+                    secs["inline"] += time.perf_counter() - t0
+                _check_parity(rule_statuses, oracle_rule_statuses, unsure_rules,
+                              data_file, "CPU")
+                rule_statuses = oracle_rule_statuses
+                doc_status = oracle_status
+
+            if doc_status == Status.FAIL:
+                acc.had_fail = True
+            acc.all_reports.append(report)
+            fname, fmsgs = failure_info_from_report(report)
+            acc.junit_suites[data_file.name].append(
+                JunitTestCase(
+                    name=rule_file.name,
+                    status=doc_status,
+                    failure_name=fname if doc_status == Status.FAIL else None,
+                    failure_messages=fmsgs if doc_status == Status.FAIL else None,
+                )
+            )
+            if not validate.structured:
+                console_chain(
+                    writer, data_file.name, data_file.content, data_file,
+                    rule_file.name, doc_status, rule_statuses, report,
+                    validate.show_summary, validate.output_format,
+                )
+
+        if native is not None:
+            native.close()
 
 
-def report(validate, evaluation: Evaluation, data_files, writer) -> int:
-    """Statuses-only report of an evaluation, rerunning on the CPU
-    oracle the documents `rim_masks` selects; the exit code (0 / 19, or
-    5 when an oracle rerun raised)."""
-    from ..commands.reporters import console_chain
+def _finish_report(validate, acc: _ReportAcc, writer: Writer) -> int:
+    """Structured-output emission and the exit code."""
+    from ..commands.reporters.junit import write_junit
+    from ..commands.reporters.sarif import write_sarif
+    from ..commands.reporters.structured import write_structured
     from ..commands.validate import (
         ERROR_STATUS_CODE,
         FAILURE_STATUS_CODE,
         SUCCESS_STATUS_CODE,
     )
 
-    had_fail = False
-    errors = 0
-    oracle_s = 0.0
-    n = len(data_files)
-    for fr in evaluation.files:
-        name_st, name_un, doc_st, any_fail, any_un, _last = fr.rim
-        host_mask = np.zeros(n, bool)
-        host_mask[sorted(fr.host_docs)] = True
-        need_oracle, _needs_statuses, _materialize = rim_masks(
-            any_fail[:, 0], any_un[:, 0], host_mask,
-            bool(fr.compiled.host_rules), False, True,
-        )
-        # one statuses dict and rule lists per unique status row
-        rows: Dict[bytes, tuple] = {}
-        for di, df in enumerate(data_files):
-            key = name_st[di].tobytes()
-            row = rows.get(key)
-            if row is None:
-                rule_statuses = {
-                    nm: STATUS[int(name_st[di, g])] for g, nm in enumerate(fr.names)
-                }
-                row = rows[key] = (rule_statuses, _statuses_fields(rule_statuses))
-            rule_statuses, fields = row
-            if need_oracle[di]:
-                evaluation.oracle_docs += 1
-                t0 = time.perf_counter()
-                try:
-                    status, rep, oracle_statuses = _oracle(fr.rule_file, df)
-                except GuardError as e:
-                    writer.writeln_err(str(e))
-                    errors += 1
-                    continue
-                finally:
-                    oracle_s += time.perf_counter() - t0
-                if not host_mask[di]:
-                    # parity assertion: kernel statuses must agree with the
-                    # oracle (except results the kernel flagged unsure —
-                    # those use the oracle's answer by design)
-                    unsure_rules = {
-                        nm for g, nm in enumerate(fr.names) if name_un[di, g]
-                    }
-                    for rn, st in rule_statuses.items():
-                        ost = oracle_statuses.get(rn)
-                        if ost is not None and ost != st and rn not in unsure_rules:
-                            raise GuardError(
-                                f"TPU/CPU status divergence for rule {rn} on "
-                                f"{df.name}: tpu={st.value} cpu={ost.value}"
-                            )
-                rule_statuses = oracle_statuses
-            else:
-                status = STATUS[int(doc_st[di, 0])]
-                rep = {"name": df.name, "metadata": {}, "status": status.value, **fields}
-            had_fail = had_fail or status == Status.FAIL
-            console_chain(
-                writer, df.name, df.content, df.path_value, fr.rule_file.name,
-                status, rule_statuses, rep, validate.show_summary,
-            )
-    evaluation.seconds["oracle"] = oracle_s
-    if errors:
+    if validate.structured:
+        if validate.output_format in ("json", "yaml"):
+            write_structured(writer, acc.all_reports, validate.output_format)
+        elif validate.output_format == "sarif":
+            write_sarif(writer, acc.all_reports)
+        elif validate.output_format == "junit":
+            write_junit(writer, acc.junit_suites)
+    if acc.errors > 0:
         return ERROR_STATUS_CODE
-    return FAILURE_STATUS_CODE if had_fail else SUCCESS_STATUS_CODE
+    if acc.had_fail:
+        return FAILURE_STATUS_CODE
+    return SUCCESS_STATUS_CODE
 
 
-def validate_statuses(validate, rule_files, data_files, writer) -> int:
-    """Drop-in body of Validate.execute for the device: evaluate, then
-    report."""
+def tpu_validate(validate, rule_files, data_files, writer: Writer) -> int:
+    """Drop-in body of Validate.execute on the device: load the
+    documents' trees, evaluate, then report (full reports, or rule
+    statuses alone under --statuses-only)."""
     from ..commands.validate import SUCCESS_STATUS_CODE
 
     if not data_files or not rule_files:
@@ -290,9 +603,16 @@ def validate_statuses(validate, rule_files, data_files, writer) -> int:
     docs = [df.path_value for df in data_files]
     load_s = time.perf_counter() - t0
     evaluation = evaluate(rule_files, docs, validate.device)
+    del docs
     evaluation.seconds["load"] = load_s
     validate.last_evaluation = evaluation
     t0 = time.perf_counter()
-    rc = report(validate, evaluation, data_files, writer)
-    evaluation.seconds["report"] = time.perf_counter() - t0 - evaluation.seconds["oracle"]
-    return rc
+    acc = _ReportAcc(data_files)
+    try:
+        _report_files(validate, evaluation, data_files, writer, acc)
+        return _finish_report(validate, acc, writer)
+    finally:
+        secs = evaluation.seconds
+        secs["report"] = (
+            time.perf_counter() - t0 - secs["native"] - secs["pool"] - secs["inline"]
+        )

@@ -289,11 +289,19 @@ def test_module_cli_matches_jax_cli_on_oracle_inputs(tmp_path, case):
 
 
 def test_missing_statuses_only_is_refused(tmp_path):
+    """--statuses-only is a mode of its own: with a non-default output
+    format it is refused (rc 5, the JAX package's message); without it
+    the run reports each failing clause."""
     (tmp_path / "r.guard").write_text("rule a { a exists }\n")
+    (tmp_path / "d.json").write_text('{"b": 1}')
+    args = ["validate", "--device", "cpu", "-r", str(tmp_path / "r.guard"),
+            "-d", str(tmp_path / "d.json")]
     w = Writer.buffered()
-    rc = port_cli.run(["validate", "--device", "cpu", "-r", str(tmp_path / "r.guard"),
-                       "-d", str(tmp_path / "r.guard")], writer=w)
-    assert rc == 5 and "statuses-only" in w.err_to_stripped()
+    rc = port_cli.run([*args, "--statuses-only", "-o", "json"], writer=w)
+    assert rc == 5 and "Error: statuses-only conflicts" in w.err_to_stripped()
+    w = Writer.buffered()
+    rc = port_cli.run(args, writer=w)
+    assert rc == 19 and "property [a] is missing" in w.stripped()
 
 
 def test_no_cuda_no_device_raises(monkeypatch, tmp_path):

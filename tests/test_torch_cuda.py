@@ -218,6 +218,81 @@ def test_cuda_fnvar_walk_matches_cpu(cuda_device):
         assert np.array_equal(a, b)
 
 
+REPORT_FORMATS = {
+    "show_fail": [],
+    "show_all": ["-S", "all"],
+    "json": ["-o", "json"],
+    "yaml": ["-o", "yaml"],
+    "structured_json": ["-z", "-o", "json", "-S", "none"],
+    "structured_yaml": ["-z", "-o", "yaml", "-S", "none"],
+    "structured_sarif": ["-z", "-o", "sarif", "-S", "none"],
+    "structured_junit": ["-z", "-o", "junit", "-S", "none"],
+}
+
+
+@pytest.fixture(scope="module")
+def report_inputs(tmp_path_factory):
+    """1,024 seeded security templates and the native oracle, built
+    into a temporary directory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import json
+
+    from guard_tpu_torch.ops import _native_lib, native_oracle
+    from guard_tpu_torch.workloads import RULES, make_template
+
+    root = tmp_path_factory.mktemp("reports")
+    data = root / "data"
+    data.mkdir()
+    rng = np.random.default_rng(SEED)
+    for i in range(1024):
+        (data / f"t{i:04d}.json").write_text(json.dumps(make_template(rng, i)))
+    (root / "security.guard").write_text(RULES)
+    saved = _native_lib.NATIVE_DIR
+    _native_lib.NATIVE_DIR = root / "native"
+    try:
+        native_oracle.build_native()
+    finally:
+        _native_lib.NATIVE_DIR = saved
+    return root
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", sorted(REPORT_FORMATS))
+def test_cuda_full_reports_match_cpu(cuda_device, report_inputs, monkeypatch, fmt):
+    """A full-report validate run over 1,024 templates on the card, the
+    native oracle built, prints what the same run on the CPU prints, in
+    every output format; the native oracle built the failing reports."""
+    from guard_tpu_torch.commands.validate import Validate
+    from guard_tpu_torch.ops import _native_lib, native_oracle
+    from guard_tpu_torch.utils.io import Reader, Writer
+
+    monkeypatch.setattr(_native_lib, "NATIVE_DIR", report_inputs / "native")
+    monkeypatch.setattr(_native_lib, "_libs", {})
+    monkeypatch.setattr(native_oracle, "_configured", None)
+    flags = REPORT_FORMATS[fmt]
+    kw = {
+        "output_format": flags[flags.index("-o") + 1] if "-o" in flags else
+        "single-line-summary",
+        "structured": "-z" in flags,
+        "show_summary": (flags[flags.index("-S") + 1] if "-S" in flags else "fail").split(","),
+    }
+    outs = []
+    for device in ("cuda", "cpu"):
+        cmd = Validate(rules=[str(report_inputs / "security.guard")],
+                       data=[str(report_inputs / "data")], device=device, **kw)
+        w = Writer.buffered()
+        rc = cmd.execute(w, Reader.from_string(""))
+        outs.append((rc, w.stripped(), w.err_to_stripped()))
+        ev = cmd.last_evaluation
+        fails = int(ev.files[0].rim[3][:, 0].sum())
+        # a structured run reports every document in full
+        assert 0 < fails == ev.reruns["native_reports"] or (
+            kw["structured"] and ev.reruns["native_reports"] == ev.n_docs
+        )
+    assert outs[0] == outs[1] and outs[0][0] == 19 and outs[0][1]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [0, 1, 4096, 65536])
 @pytest.mark.parametrize("r", [1, 4, 37, 258, 512, 1024, 1028])
