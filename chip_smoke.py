@@ -11,7 +11,9 @@ no result line):
    guard_tpu_torch/csrc/guard_kernels.cu (K1-K3, K7) and
    guard_tpu_torch/csrc/guard_joins.cu (K4-K6), one nvcc per source,
    started together, and beside them the native oracle
-   (native/oracle.cpp, ops/native_oracle.build_native) with g++.
+   (native/oracle.cpp, ops/native_oracle.build_native) and the native
+   encoder (guard_tpu_torch/csrc/host/encoder.cpp,
+   ops/native_encoder.build_native) with g++.
 2. Kernels against their plain PyTorch versions on the card, on seeded
    inputs: K1-K3 at N in {64, 1024, 8192, 65536} with D chosen so each
    (D, N) int32 tensor holds at least 64 MB, K2 also at D 1 x N 65,536
@@ -32,13 +34,30 @@ no result line):
    (commands.validate.Validate, statuses-only): the 4-rule security
    policy over 65,536 seeded templates plus one 12,000-volume template
    (the 65,536-node bucket), with every kernel launch counter set to 0
-   just before and read just after. Statuses, unsure bits and rim
-   blocks must equal a CPU evaluation of the same batch. Then full
+   just before and read just after, encoded from document trees in
+   this process (the tree encoder: the native encoder off,
+   --ingest-workers 0). Statuses, unsure bits and rim blocks must equal
+   a CPU evaluation of the same batch. Then the same files through the
+   host ingest (phase `ingest`): the native encoder (i) in this
+   process, the files read inside the run, (ii) over the auto count of
+   ingest workers and (iii) over 4 workers (left out where the auto
+   count is 4: a repeat of (ii)), both on the texts (i) read, counters
+   set to 0 just before and read just after: statuses, unsure bits, rim
+   blocks and stdout equal
+   to the tree-encoder run's, launches equal to it (K1 84, K2 98, K3 2),
+   each run's seconds per stage and peak host RSS printed; then path
+   (ii) with one template made invalid JSON under --max-doc-failures 1
+   (rc 19, one `skipping ...: invalid JSON` line, the template absent
+   from stdout, every other template's statuses as before) and, over
+   the first 4,096 templates, 0 (rc 5). Then full
    reports of the same documents (phase `report`, their trees reused)
    through Validate on the card without --statuses-only: (a) the
-   single-line report and (b) the structured JSON, with the native
-   oracle built, each with every counter set to 0 just before and read
-   just after: rc 19, the FAIL set of the statuses-only run, every
+   single-line report (on the tree encoder) and (b) the structured
+   JSON, with the native oracle built, each with every counter set to 0
+   just before and read just after, and (a) again on ingest path (ii)
+   over the same texts with no tree built, byte-identical to (a): rc
+   19, the FAIL set
+   of the statuses-only run, every
    report's rule statuses equal to the rim's, the first 2,048 reports
    equal to the CPU evaluator's (simplified_report_from_root), and at
    least one report built by the native oracle; then on the first 4,096
@@ -51,8 +70,17 @@ no result line):
    cross-reference policy (workloads.XREF_RULES: query-RHS compares and
    `.%var` interpolation, kernels K4-K6) the same way over 65,536 seeded
    make_xref_template templates plus the volume template, with its own
-   counters set to 0 just before and read just after. Neither may send
-   a document to the CPU oracle. Then the function-variable policy
+   counters set to 0 just before and read just after, on the tree
+   encoder, then on ingest path (ii) (DocBatch.struct_ids on the native
+   batch), which must give the same statuses, unsure bits, rim blocks,
+   stdout and launches (K1 174, K2 183, K3 3, K4 24, K5 3, K6 9).
+   Neither may send a document to the CPU oracle. Then the backends off
+   the device (phase `backends`): the first 4,096 security templates
+   through Validate with --backend cpu, native and auto, `-S all` and
+   `-z -o json -S none`: rc 19 and stdout byte-identical to the tpu
+   run's (the JAX package's cpu and tpu runs agree on these flags);
+   and -v and -p over 64 templates, cpu and native byte-identical.
+   Then the function-variable policy
    (workloads.FNVAR_RULES: the rules of canonical_names.guard, a
    function let and an inline call, run through the walk's StepFnVar
    arm) the same way over 65,536 seeded make_fnvar_template templates,
@@ -80,7 +108,8 @@ no result line):
    expected stdout bytes; then `validate -z -o json -S none` over the
    same two: rc 19 and the CPU evaluator's reports.
 5. No JAX and no guard_tpu module was imported, and a worker of the
-   oracle rerun pool holds no torch, JAX or guard_tpu module.
+   oracle rerun pool and one of the ingest pool hold no torch, JAX or
+   guard_tpu module.
 
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches (every kernel twice: at the main shape and at the
@@ -114,11 +143,15 @@ process each.
 from __future__ import annotations
 
 import contextlib
+import gc
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -138,6 +171,18 @@ SUMMARY_SWEEP_D = (1, 4096, 65536, 1 << 20)
 # every R % 4 (R 36-39), full packs (512) and a last tile of one word (1,028)
 SUMMARY_SWEEP_R = (1, 4, 5, 36, 37, 38, 39, 512, 1024, 1028)
 N_SUMMARY_CHECK = 2048  # summary templates held against the CPU
+N_BACKEND = 4096  # templates of the backends phase
+N_VERBOSE = 64  # templates printed with -v and -p
+QUARANTINE_DOC = 1234  # the template the quarantine runs make invalid JSON
+# launches of the statuses-only runs on the tree encoder (the native
+# buckets must give the same)
+EXPECTED_LAUNCHES = {
+    "security": {"gather_rows": 84, "segment_sum_rows": 98, "rim_reduce": 2},
+    "xref": {"gather_rows": 174, "segment_sum_rows": 183, "rim_reduce": 3,
+             "set_count_rows": 24, "distinct_first_rows": 3, "seg_min_max_rows": 9},
+}
+# the ingest paths: (label, --ingest-workers)
+INGEST_PATHS = (("i_inline", 0), ("ii_auto", None), ("iii_four", 4))
 REPS = 20
 SOURCES = {
     "gather_rows": "guard_tpu_torch/csrc/guard_kernels.cu",
@@ -633,6 +678,78 @@ def write_corpus(dirpath: Path, docs) -> None:
         (dirpath / f"t{i:06d}.json").write_text(json.dumps(doc))
 
 
+def read_templates(data: Path) -> list:
+    """The data files of a directory, read as `-d` reads them."""
+    from guard_tpu_torch.commands.files import DATA_FILE_EXTENSIONS, gather
+    from guard_tpu_torch.commands.validate import DataFile
+
+    return [DataFile(name=f.name, content=f.read_text())
+            for f in gather([str(data)], DATA_FILE_EXTENSIONS)]
+
+
+def fresh_files(data_files) -> list:
+    """New data files over the same texts, with no tree built: a run on
+    them pays what a run that read the files pays, but the read."""
+    from guard_tpu_torch.commands.validate import DataFile
+
+    return [DataFile(name=df.name, content=df.content) for df in data_files]
+
+
+def rss_mib() -> float:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+class PeakRss:
+    """This process's resident set in MiB: at the start of the block and
+    its peak inside it, sampled every 5 ms from /proc/self/statm. The
+    objects alive at the start (the trees and batches of earlier phases)
+    are frozen out of the garbage collector's passes until the block
+    ends, so that a timed run inside it pays what a fresh process would,
+    not for traversing what the smoke keeps for later checks."""
+
+    def __enter__(self):
+        gc.freeze()
+        self.start = self.peak = rss_mib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, rss_mib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_mib())
+        gc.unfreeze()
+
+
+@contextlib.contextmanager
+def native_encoder_off(tmp: Path):
+    """The native encoder as if it were not built (the tree encoder
+    runs), until the block ends."""
+    from guard_tpu_torch.ops import _native_lib, native_encoder
+
+    saved = (_native_lib.NATIVE_DIR, _native_lib._libs, native_encoder._configured)
+    empty = tmp / "native_encoder_off"
+    empty.mkdir(exist_ok=True)
+    oracle = saved[0] / "libguard_oracle.so"
+    if oracle.exists() and not (empty / oracle.name).exists():
+        (empty / oracle.name).symlink_to(oracle)  # the oracle stays on
+    _native_lib.NATIVE_DIR, _native_lib._libs, native_encoder._configured = empty, {}, None
+    try:
+        check(not native_encoder.native_available(), "the native encoder is still on")
+        yield
+    finally:
+        _native_lib.NATIVE_DIR, _native_lib._libs, native_encoder._configured = saved
+
+
+TREE_PATH = {"ingest_workers": 0}  # with native_encoder_off: the tree encoder
+
+
 def compare_on_cpu(evaluation) -> None:
     """Re-evaluate every file of a device evaluation on the CPU (plain
     kernel versions) and require identical statuses, unsure bits and
@@ -666,7 +783,7 @@ def sync(device) -> None:
 
 
 def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
-                   per_rule: bool = False, oracle_docs=()):
+                   per_rule: bool = False, oracle_docs=(), **flags):
     """Write `docs` as a directory of templates and run the user's entry
     point (commands.validate.Validate, statuses-only) over them on the
     card, every kernel counter set to 0 just before and read just after.
@@ -674,13 +791,13 @@ def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
     FAILs somewhere; that the CPU oracle reran exactly the documents
     `oracle_docs` names), then compares it with a CPU evaluation.
     Returns (info, evaluation, data files); the data files hold the
-    trees the run built, for a later run over the same documents."""
+    trees the run built, for a later run over the same documents.
+    `flags` go to Validate."""
     import numpy as np
     import torch
 
     from guard_tpu_torch import kernels as K
-    from guard_tpu_torch.commands.files import DATA_FILE_EXTENSIONS, gather
-    from guard_tpu_torch.commands.validate import DataFile, Validate
+    from guard_tpu_torch.commands.validate import Validate
     from guard_tpu_torch.ops import kernels as walk
     from guard_tpu_torch.ops.ir import FAIL, PASS, SKIP
     from guard_tpu_torch.utils.io import Reader, Writer
@@ -697,17 +814,16 @@ def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
     K.reset_launches()
     fnvar_before = dict(walk.FNVAR_STEPS)
     sync(device)
-    t0 = time.perf_counter()
-    # the files are read here, as `-d` would read them, inside the run
-    data_files = [
-        DataFile(name=f.name, content=f.read_text())
-        for f in gather([str(data)], DATA_FILE_EXTENSIONS)
-    ]
-    cmd = Validate(rules=[str(rules)], prepared_data=data_files, statuses_only=True,
-                   device=str(device))
-    rc = cmd.execute(writer, Reader())
-    sync(device)
-    wall = time.perf_counter() - t0
+    with PeakRss() as rss:
+        t0 = time.perf_counter()
+        # the files are read here, as `-d` would read them, inside the run
+        data_files = read_templates(data)
+        read_s = time.perf_counter() - t0
+        cmd = Validate(rules=[str(rules)], prepared_data=data_files, statuses_only=True,
+                       device=str(device), **flags)
+        rc = cmd.execute(writer, Reader())
+        sync(device)
+        wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     fnvar_steps = {k: walk.FNVAR_STEPS[k] - fnvar_before[k] for k in fnvar_before}
     shapes = {k: dict(v) for k, v in K.SHAPES.items()}
@@ -747,13 +863,16 @@ def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
     cpu_s = time.perf_counter() - t0
     secs = ev.seconds
     return {
-        "docs": n_docs, "rc": rc, "wall_s": wall,
+        "docs": n_docs, "rc": rc, "wall_s": wall, "read_s": read_s,
+        "rss_start_mib": rss.start, "rss_peak_mib": rss.peak,
         "largest_doc_nodes": n_big,
         "fail_docs": int((fr.rim[2][:, 0] == FAIL).sum()),
         "encode_docs_per_s": n_docs / secs["encode"],
         "lower_docs_per_s": n_docs / secs["lower"],
         "device_docs_per_s": n_docs / secs["device"],
         "seconds": secs, "cpu_compare_s": cpu_s, "oracle_docs": ev.oracle_docs,
+        "ingest": ev.ingest.get("path"),
+        "stdout_sha256": hashlib.sha256(out.encode()).hexdigest(),
         "launches": launches, "fnvar_steps": fnvar_steps, "shapes": shapes,
     }, ev, data_files
 
@@ -768,7 +887,9 @@ def phase_slice(device, tmp: Path):
     rng = np.random.default_rng(SEED)
     docs = [make_template(rng, i) for i in range(N_TEMPLATES)]
     docs.append(volume_template(N_VOLUMES))
-    info, ev, data_files = drive_validate(device, tmp, "security", RULES, docs)
+    with native_encoder_off(tmp):
+        info, ev, data_files = drive_validate(device, tmp, "security", RULES, docs, **TREE_PATH)
+    check(info["ingest"] == "tree", f"the slice ran the {info['ingest']} path")
     if device.type != "cuda":
         return info, ev, data_files  # a CPU rehearsal launches no kernel
     lib = K._lib()
@@ -780,7 +901,195 @@ def phase_slice(device, tmp: Path):
     info["k2_split_branch_launches"] = split_launches
     for name in ("gather_rows", "segment_sum_rows", "rim_reduce"):
         check(info["launches"][name] > 0, f"kernel {name} never launched on the main path")
+    check(launch_counts(info["launches"], "security") == EXPECTED_LAUNCHES["security"],
+          f"slice launches {info['launches']}")
     return info, ev, data_files
+
+
+def launch_counts(launches: dict, path: str) -> dict:
+    return {k: launches[k] for k in EXPECTED_LAUNCHES[path]}
+
+
+def same_evaluation(ev, base, label: str, skip=()) -> None:
+    """Statuses, unsure bits, rim blocks and the documents left to the
+    oracle equal `base`'s (which equal the CPU's), outside `skip`."""
+    import numpy as np
+
+    keep = np.ones(base.n_docs, bool)
+    keep[list(skip)] = False
+    check(ev.n_docs == base.n_docs and len(ev.files) == len(base.files), f"{label}: shape")
+    for fr, br in zip(ev.files, base.files):
+        check((fr.statuses[keep] == br.statuses[keep]).all(), f"{label}: statuses differ")
+        check((fr.unsure[keep] == br.unsure[keep]).all(), f"{label}: unsure differs")
+        for k, (a, b) in enumerate(zip(fr.rim, br.rim)):
+            check(a.dtype == b.dtype and (a[keep] == b[keep]).all(),
+                  f"{label}: rim block {k} differs")
+        check(set(fr.host_docs) - set(skip) == set(br.host_docs) - set(skip),
+              f"{label}: oracle documents differ")
+
+
+def run_ingest(device, rules: Path, data: Path, data_files=None, **flags) -> dict:
+    """One statuses-only run of Validate over the templates of `data`,
+    read inside the timed run (unless `data_files` are given: read_s is
+    then 0), every kernel counter set to 0 just before and read just
+    after, and the peak host RSS sampled throughout."""
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.commands.validate import Validate
+    from guard_tpu_torch.utils.io import Reader, Writer
+
+    writer = Writer.buffered()
+    K.reset_launches()
+    sync(device)
+    with PeakRss() as rss:
+        t0 = time.perf_counter()
+        files = read_templates(data) if data_files is None else data_files
+        read_s = time.perf_counter() - t0
+        cmd = Validate(rules=[str(rules)], prepared_data=files, statuses_only=True,
+                       device=str(device), **flags)
+        rc = cmd.execute(writer, Reader())
+        sync(device)
+        wall = time.perf_counter() - t0
+    ev = cmd.last_evaluation
+    out = writer.stripped()
+    stats = ev.ingest.get("stats", {})
+    return {
+        "rc": rc, "out": out, "err": writer.err_to_stripped(), "ev": ev, "files": files,
+        "summary": {
+            "rc": rc, "wall_s": wall, "read_s": read_s, "seconds": dict(ev.seconds),
+            "ingest": ev.ingest.get("path"), "workers": ev.ingest.get("workers"),
+            "shard_encode_s": [sh["encode_s"] for sh in stats.get("shards", [])],
+            "shards_native": [sh["native"] for sh in stats.get("shards", [])],
+            "rss_start_mib": rss.start, "rss_peak_mib": rss.peak,
+            "worker_rss_mib": stats.get("worker_max_rss_kb", 0) / 1024,
+            "trees_built": sum(df._pv is not None for df in files),
+            "stdout_sha256": hashlib.sha256(out.encode()).hexdigest(),
+            "launches": dict(K.LAUNCHES),
+        },
+    }
+
+
+def phase_ingest(device, tmp: Path, slice_info: dict, slice_ev) -> dict:
+    """The slice's files through the host ingest: the native encoder in
+    this process (i), over the auto count of ingest workers (ii) and
+    over 4 (iii), each equal to the tree-encoder run (and so to the
+    CPU) with its launches; then the quarantine on path (ii)."""
+    from guard_tpu_torch.ops import native_encoder
+    from guard_tpu_torch.parallel.ingest import resolve_ingest_workers
+
+    check(native_encoder.native_available(), "the native encoder is not built")
+    rules, data = tmp / "security.guard", tmp / "security_templates"
+    auto = resolve_ingest_workers(None)
+    out = {"auto_workers": auto}
+    texts = None
+    for label, workers in INGEST_PATHS:
+        if workers is not None and workers > 0 and workers == auto:
+            out[label] = {"same_as": "ii_auto"}  # a repeat of (ii) on this host
+            continue
+        # (i) reads the files inside its run; the others take the same
+        # texts, so that the file system's read is paid once
+        run = run_ingest(device, rules, data, ingest_workers=workers,
+                         data_files=None if texts is None else fresh_files(texts))
+        texts = texts or run["files"]
+        info = run["summary"]
+        pooled = resolve_ingest_workers(workers) >= 2
+        check(info["ingest"] == ("pool" if pooled else "native"),
+              f"ingest {label}: the {info['ingest']} path ran")
+        check(all(info["shards_native"]), f"ingest {label}: a shard fell back to trees")
+        check(run["rc"] == slice_info["rc"] and run["err"] == "", f"ingest {label}: rc {run['rc']}")
+        check(info["stdout_sha256"] == slice_info["stdout_sha256"], f"ingest {label}: stdout differs")
+        same_evaluation(run["ev"], slice_ev, f"ingest {label}")
+        if device.type == "cuda":
+            check(info["launches"] == slice_info["launches"],
+                  f"ingest {label}: launches {info['launches']} against {slice_info['launches']}")
+        out[label] = info
+        log(f"ingest {label}: {json.dumps(info)}")
+        del run
+
+    # the quarantine: one template made invalid JSON
+    files = fresh_files(texts)
+    bad = files[QUARANTINE_DOC]
+    bad.content = bad.content[: len(bad.content) // 2]
+    run = run_ingest(device, rules, data, data_files=files, max_doc_failures=1)
+    check(run["rc"] == 19, f"quarantine: rc {run['rc']}: {run['err'][-500:]}")
+    check(run["err"] == f"skipping {bad.name}: invalid JSON\n", f"quarantine: stderr {run['err']!r}")
+    check(bad.name not in run["out"], "quarantine: the invalid template is reported")
+    check(run["ev"].ingest["path"] == "quarantine", "quarantine: path")
+    same_evaluation(run["ev"], slice_ev, "quarantine", skip=(QUARANTINE_DOC,))
+    out["quarantine_1"] = run["summary"]
+    # the exit rule on the first N_BACKEND templates, the invalid one
+    # among them
+    files = fresh_files(texts[:N_BACKEND])
+    files[QUARANTINE_DOC].content = bad.content
+    run = run_ingest(device, rules, data, data_files=files, max_doc_failures=0)
+    check(run["rc"] == 5, f"quarantine 0: rc {run['rc']}")
+    check(run["err"] == f"skipping {bad.name}: invalid JSON\n", f"quarantine 0: {run['err']!r}")
+    out["quarantine_0"] = run["summary"]
+    return out
+
+
+def phase_xref_ingest(device, tmp: Path, xref_info: dict, xref_ev, xref_files) -> dict:
+    """The xref files (the texts the tree run read) on ingest path
+    (ii): struct ids on the native batch, K4-K6 as on the tree
+    encoder."""
+    run = run_ingest(device, tmp / "xref.guard", tmp / "xref_templates",
+                     data_files=fresh_files(xref_files))
+    info = run["summary"]
+    check(run["rc"] == xref_info["rc"] and run["err"] == "", f"xref ingest: rc {run['rc']}")
+    check(info["stdout_sha256"] == xref_info["stdout_sha256"], "xref ingest: stdout differs")
+    same_evaluation(run["ev"], xref_ev, "xref ingest")
+    if device.type == "cuda":
+        check(info["launches"] == xref_info["launches"],
+              f"xref ingest: launches {info['launches']} against {xref_info['launches']}")
+        check(launch_counts(info["launches"], "xref") == EXPECTED_LAUNCHES["xref"],
+              f"xref ingest: launches {info['launches']}")
+    return info
+
+
+def phase_backends(device, tmp: Path) -> dict:
+    """The backends off the device over the first N_BACKEND security
+    templates: cpu, native and auto print what the tpu run prints
+    (`-S all` and `-z -o json -S none`), and -v and -p over N_VERBOSE
+    templates print the same on cpu and native."""
+    import shutil
+
+    from guard_tpu_torch.commands.validate import Validate
+    from guard_tpu_torch.utils.io import Reader, Writer
+
+    rules = tmp / "security.guard"
+    names = sorted(p.name for p in (tmp / "security_templates").glob("*.json"))
+    dirs = {}
+    for label, n in (("backends", N_BACKEND), ("verbose", N_VERBOSE)):
+        d = dirs[label] = tmp / f"{label}_templates"
+        d.mkdir()
+        for name in names[:n]:
+            shutil.copyfile(tmp / "security_templates" / name, d / name)
+
+    def run(backend, data, **flags):
+        writer = Writer.buffered()
+        cmd = Validate(rules=[str(rules)], data=[str(data)], backend=backend,
+                       device=str(device), **flags)
+        t0 = time.perf_counter()
+        rc = cmd.execute(writer, Reader())
+        sync(device)
+        return rc, writer.stripped(), writer.err_to_stripped(), time.perf_counter() - t0
+
+    out = {}
+    for label, flags in (("single_line_all", SINGLE_LINE_ALL), ("structured_json", STRUCTURED_JSON)):
+        rc, want, err, secs = run("tpu", dirs["backends"], **flags)
+        check(rc == 19 and err == "", f"backends {label}: tpu rc {rc}")
+        out[label] = {"tpu_s": secs, "bytes": len(want.encode())}
+        for backend in ("cpu", "native", "auto"):
+            got = run(backend, dirs["backends"], **flags)
+            check(got[:3] == (19, want, ""), f"backends {label}: {backend} differs from tpu")
+            out[label][f"{backend}_s"] = got[3]
+    for label, flags in (("verbose", {"verbose": True}), ("print_json", {"print_json": True})):
+        cpu = run("cpu", dirs["verbose"], **flags)
+        native = run("native", dirs["verbose"], **flags)
+        check(cpu[0] == 19 and cpu[:3] == native[:3], f"backends {label}: cpu and native differ")
+        head = "\n".join(cpu[1].splitlines()[:8])
+        log(f"backends {label} over {N_VERBOSE} templates ({len(cpu[1].encode())} bytes):\n{head}")
+        out[label] = {"bytes": len(cpu[1].encode()), "cpu_s": cpu[3], "native_s": native[3]}
+    return out
 
 
 def phase_xref(device, tmp: Path):
@@ -795,9 +1104,12 @@ def phase_xref(device, tmp: Path):
     rng = np.random.default_rng(SEED + 2)
     docs = [make_xref_template(rng, i) for i in range(N_TEMPLATES)]
     docs.append(volume_template(N_VOLUMES))
-    info, ev, _files = drive_validate(device, tmp, "xref", XREF_RULES, docs, per_rule=True)
+    with native_encoder_off(tmp):
+        info, ev, files = drive_validate(device, tmp, "xref", XREF_RULES, docs, per_rule=True,
+                                         **TREE_PATH)
+    check(info["ingest"] == "tree", f"xref ran the {info['ingest']} path")
     if device.type != "cuda":
-        return info, ev  # a CPU rehearsal launches no kernel
+        return info, ev, files  # a CPU rehearsal launches no kernel
     for name in WALK_KERNELS:
         check(info["launches"][name] > 0, f"kernel {name} never launched on the xref path")
     lib = K._lib()
@@ -808,7 +1120,7 @@ def phase_xref(device, tmp: Path):
         )
         check(n_global > 0, f"{name}'s global-memory branch never ran")
         info["global_branch_launches"][name] = n_global
-    return info, ev
+    return info, ev, files
 
 
 def phase_fnvar(device, tmp: Path):
@@ -906,12 +1218,14 @@ def run_report(device, rules: Path, data_files, **flags) -> dict:
     writer = Writer.buffered()
     K.reset_launches()
     sync(device)
-    t0 = time.perf_counter()
-    rc = cmd.execute(writer, Reader.from_string(""))
-    sync(device)
-    wall = time.perf_counter() - t0
+    with PeakRss() as rss:
+        t0 = time.perf_counter()
+        rc = cmd.execute(writer, Reader.from_string(""))
+        sync(device)
+        wall = time.perf_counter() - t0
     return {"rc": rc, "out": writer.stripped(), "err": writer.err_to_stripped(),
-            "ev": cmd.last_evaluation, "launches": dict(K.LAUNCHES), "wall_s": wall}
+            "ev": cmd.last_evaluation, "launches": dict(K.LAUNCHES), "wall_s": wall,
+            "rss_peak_mib": rss.peak, "rss_start_mib": rss.start}
 
 
 def report_summary(run: dict) -> dict:
@@ -919,6 +1233,8 @@ def report_summary(run: dict) -> dict:
     kernel launches."""
     ev = run["ev"]
     return {"rc": run["rc"], "wall_s": run["wall_s"], "seconds": dict(ev.seconds),
+            "ingest": ev.ingest.get("path"), "rss_start_mib": run["rss_start_mib"],
+            "rss_peak_mib": run["rss_peak_mib"],
             "reruns": dict(ev.reruns), "oracle_docs": ev.oracle_docs,
             "report_bytes": len(run["out"].encode()), "launches": run["launches"]}
 
@@ -959,8 +1275,16 @@ def phase_report(device, tmp: Path, data_files, slice_ev) -> dict:
     want_fail = {names[i] for i in np.nonzero(fr.rim[2][:, 0] == FAIL)[0]}
     out = {"docs": n, "fail_docs": len(want_fail)}
 
-    single = run_report(device, rules, data_files, **SINGLE_LINE)
+    with native_encoder_off(tmp):
+        single = run_report(device, rules, data_files, **SINGLE_LINE, **TREE_PATH)
     check(single["rc"] == 19, f"report (a): rc {single['rc']}: {single['err'][-500:]}")
+    # (a) again on ingest path (ii), over the same texts with no tree
+    again = run_report(device, rules, fresh_files(data_files), **SINGLE_LINE)
+    check(again["ev"].ingest["path"] in ("pool", "native"), "report (a'): ingest path")
+    check((again["rc"], again["out"], again["err"]) == (single["rc"], single["out"], single["err"]),
+          "report (a'): the ingest path's single-line report differs from (a)")
+    out["single_line_ingest"] = report_summary(again)
+    del again
     failed = set(re.findall(r"^(\S+) Status = FAIL$", single["out"], re.M))
     check(failed == want_fail, f"report (a): {len(failed)} FAIL documents, "
           f"the statuses-only run had {len(want_fail)}")
@@ -988,6 +1312,7 @@ def phase_report(device, tmp: Path, data_files, slice_ev) -> dict:
     out["cpu_check"] = {"docs": min(N_REPORT_CHECK, n), "seconds": time.perf_counter() - t0}
     for label, run in (("single_line", single), ("structured_json", structured)):
         check(run["ev"].reruns["native_reports"] > 0, f"report {label}: no native report")
+        out.setdefault("ingest_paths", {})[label] = run["ev"].ingest.get("path")
         if device.type == "cuda":
             for name in ("gather_rows", "segment_sum_rows", "rim_reduce"):
                 check(run["launches"][name] > 0, f"report {label}: {name} never launched")
@@ -2116,6 +2441,17 @@ def pool_worker_modules() -> list:
         return pool.map(worker_modules, range(2))
 
 
+def ingest_worker_modules() -> list:
+    """What the workers of the ingest pool hold of torch, JAX and the
+    JAX package (each answer must be [])."""
+    from guard_tpu_torch.ops.oracle_pool import worker_modules
+    from guard_tpu_torch.parallel.ingest import shared_pool
+
+    pool = shared_pool(2)
+    check(pool is not None, "the ingest pool did not start")
+    return [pool.submit(worker_modules, None).get(timeout=120) for _ in range(4)]
+
+
 def main() -> int:
     try:
         import torch
@@ -2138,23 +2474,28 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from guard_tpu_torch.kernels.build import load
-    from guard_tpu_torch.ops import native_oracle
+    from guard_tpu_torch.ops import native_encoder, native_oracle
+    from guard_tpu_torch.parallel import ingest
 
-    def build_oracle():
+    def build_host(module):
         t1 = time.perf_counter()
-        path = native_oracle.build_native()
+        path = module.build_native()
         return path, time.perf_counter() - t1
 
-    # the native oracle's g++ runs while nvcc builds the kernels; a
-    # failed build raises here
+    # the native oracle's and the native encoder's g++ run while nvcc
+    # builds the kernels; a failed build raises here
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        oracle_build = pool.submit(build_oracle)
+    with ThreadPoolExecutor(2) as pool:
+        oracle_build = pool.submit(build_host, native_oracle)
+        encoder_build = pool.submit(build_host, native_encoder)
         load()
         build_s = time.perf_counter() - t0
         oracle_path, oracle_build_s = oracle_build.result()
+        encoder_path, encoder_build_s = encoder_build.result()
     check(native_oracle.native_available(), f"the native oracle at {oracle_path} does not load")
-    log(f"kernels built in {build_s:.1f}s, the native oracle in {oracle_build_s:.1f}s")
+    check(native_encoder.native_available(), f"the native encoder at {encoder_path} does not load")
+    log(f"kernels built in {build_s:.1f}s, the native oracle in {oracle_build_s:.1f}s, "
+        f"the native encoder in {encoder_build_s:.1f}s")
 
     clock = [time.perf_counter()]
 
@@ -2173,12 +2514,19 @@ def main() -> int:
             f"{json.dumps({k: v for k, v in slice_info.items() if k != 'shapes'})}")
         breakdown = phase_breakdown(device, evaluation)
         log(f"phase 3 (breakdown) in {took()}: {json.dumps(breakdown)}")
+        ingest_info = phase_ingest(device, tmp, slice_info, evaluation)
+        log(f"phase 3 (ingest) ok in {took()}")
         report_info = phase_report(device, tmp, data_files, evaluation)
         del evaluation, data_files
         log(f"phase 3 (report) ok in {took()}: {json.dumps(report_info)}")
-        xref_info, evaluation = phase_xref(device, tmp)
+        backends_info = phase_backends(device, tmp)
+        log(f"phase 3 (backends) ok in {took()}: {json.dumps(backends_info)}")
+        xref_info, evaluation, xref_files = phase_xref(device, tmp)
         log(f"phase 3 (xref) ok in {took()}: "
             f"{json.dumps({k: v for k, v in xref_info.items() if k != 'shapes'})}")
+        xref_ingest = phase_xref_ingest(device, tmp, xref_info, evaluation, xref_files)
+        del xref_files
+        log(f"phase 3 (xref ingest) ok in {took()}: {json.dumps(xref_ingest)}")
         xref_breakdown = phase_breakdown(device, evaluation)
         del evaluation
         log(f"phase 3 (xref breakdown) in {took()}: {json.dumps(xref_breakdown)}")
@@ -2200,7 +2548,8 @@ def main() -> int:
         cli = phase_cli(tmp)
         log(f"phase 4 (cli) ok in {took()}: {cli}")
     infos = {"security": slice_info, "xref": xref_info, "fnvar": fnvar_info,
-             "summary": summary_info, "entry": entry_info, "report": report_info}
+             "summary": summary_info, "entry": entry_info, "report": report_info,
+             "ingest_ii": ingest_info["ii_auto"], "xref_ingest": xref_ingest}
     kernels = contract_kernels(device, infos, sweep, card)
     log(f"kernels line in {took()}")
     leaked = sorted(
@@ -2211,6 +2560,9 @@ def main() -> int:
     check(not leaked, f"imported {leaked}")
     workers = pool_worker_modules()
     check(workers == [[], []], f"an oracle pool worker imported {workers}")
+    held = ingest_worker_modules()
+    check(held == [[]] * 4, f"an ingest pool worker imported {held}")
+    ingest.close_shared_pools()
 
     print(json.dumps({
         "slice": {k: v for k, v in slice_info.items() if k != "shapes"},
@@ -2221,9 +2573,11 @@ def main() -> int:
         "fnvar_breakdown": fnvar_breakdown,
         "flagship": flagship, "corpus": corpus,
         "summary": {k: v for k, v in summary_info.items() if k != "shapes"},
-        "report": report_info,
+        "report": report_info, "ingest": ingest_info, "xref_ingest": xref_ingest,
+        "backends": backends_info,
         "entry": entry_info, "cli": cli,
-        "build_s": build_s, "oracle_build_s": oracle_build_s, "card": card,
+        "build_s": build_s, "oracle_build_s": oracle_build_s,
+        "encoder_build_s": encoder_build_s, "card": card,
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

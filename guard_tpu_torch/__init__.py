@@ -12,5 +12,10 @@ by the CPU evaluator (`core/evaluator.py`), in every output format of
 the JAX package's `validate --backend tpu` (`commands/reporters/`). A
 seventh kernel counts each rule's PASS, FAIL and SKIP documents for
 `parallel.device.DeviceBatchEvaluator.with_summary`; `entry.py` holds
-the entry points (`python -m guard_tpu_torch.entry`).
+the entry points (`python -m guard_tpu_torch.entry`). The documents
+reach the card from the port's native encoder (`ops/native_encoder.py`),
+in process or over a spawn pool of ingest workers
+(`parallel/ingest.py`), with the JAX package's document quarantine
+(`--max-doc-failures`); `validate --backend cpu|native|auto` evaluates
+on the host instead, with no card.
 """

@@ -3,15 +3,19 @@
     python -m guard_tpu_torch validate -r RULES -d DATA \
         [-o single-line-summary|json|yaml|junit|sarif] [-z] \
         [-S fail,pass,...] [-i PARAMS] [-P] [-a|-m] [-t TYPE] [-v] [-p] \
-        [--statuses-only] [--device cpu]
+        [--backend tpu|cpu|native|auto] [--statuses-only] \
+        [--ingest-workers N] [--max-doc-failures N] [--device cpu]
 
 Same flags, stdout, stderr and exit codes (0 pass / 19 fail / 5 error)
-as `python -m guard_tpu.cli validate --backend tpu` with the same flags:
-the walk and the rim run on the device, and the reports of the
+as `python -m guard_tpu.cli validate` with the same flags and the same
+`--backend`. The one difference is the default backend: `tpu` here (the
+port's entry points run on the card), `auto` in the JAX package. On
+`tpu` the walk and the rim run on the device, and the reports of the
 documents that need one are built on the host by the native oracle
 when it is built (ops/native_oracle.build_native), else by the port's
-CPU evaluator. Runs on the CUDA device unless `--device` names another;
-with no card and no `--device` it stops with code 5.
+CPU evaluator; it runs on the CUDA device unless `--device` names
+another, and with no card and no `--device` it stops with code 5.
+`cpu`, `native` and `auto` evaluate on the host and need no card.
 """
 
 from __future__ import annotations
@@ -51,9 +55,35 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--payload", "-P", action="store_true")
     v.add_argument("--structured", "-z", action="store_true")
     v.add_argument(
+        "--backend",
+        default="tpu",
+        choices=["auto", "cpu", "native", "tpu"],
+        help="tpu (default) = the device path on the CUDA card; auto = "
+        "compiled C++ engine when built, else pure-Python; native/cpu "
+        "force one",
+    )
+    v.add_argument(
         "--statuses-only", action="store_true",
         help="report rule-level statuses without per-clause detail "
         "(no oracle rerun of the documents that fail on the device)",
+    )
+    v.add_argument(
+        "--ingest-workers",
+        type=int,
+        default=None,
+        help="tpu backend: worker processes for the parallel host "
+        "read/parse/encode plane (default auto; 0 = serial bit-parity "
+        "escape hatch; overrides GUARD_TPU_INGEST_WORKERS)",
+    )
+    v.add_argument(
+        "--max-doc-failures",
+        type=int,
+        default=None,
+        help="tpu backend: quarantine documents that fail to "
+        "read/parse/encode instead of aborting; exit ERROR only when "
+        "more than this many docs were quarantined (0 = quarantine "
+        "records but any failing doc still fails the run; omit the "
+        "flag for the historical abort-on-first-failure behavior)",
     )
     v.add_argument(
         "--device", default=None,
@@ -84,7 +114,10 @@ def run(argv: Optional[List[str]] = None, writer: Optional[Writer] = None,
         print_json=args.print_json,
         payload=args.payload,
         structured=args.structured,
+        backend=args.backend,
         statuses_only=args.statuses_only,
+        ingest_workers=args.ingest_workers,
+        max_doc_failures=args.max_doc_failures,
         device=args.device,
     )
     try:

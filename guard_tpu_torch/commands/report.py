@@ -453,3 +453,137 @@ def rule_statuses_from_root(root: EventRecord) -> Dict[str, Status]:
             elif c.payload.status == Status.FAIL:
                 out[name] = Status.FAIL
     return out
+
+
+# ---------------------------------------------------------------------------
+# serde EventRecord encoding (`validate --print-json`, run_checks verbose)
+# ---------------------------------------------------------------------------
+def _serde_block(b: BlockCheck) -> dict:
+    return {
+        "at_least_one_matches": b.at_least_one_matches,
+        "status": b.status.value,
+        "message": b.message,
+    }
+
+
+def _serde_qr(qr: QueryResult):
+    if qr.tag == UNRESOLVED:
+        return {"UnResolved": _ur_json(qr.unresolved)}
+    tag = "Resolved" if qr.tag == RESOLVED else "Literal"
+    return {tag: _pv_json(qr.value)}
+
+
+def _serde_value_check(v) -> dict:
+    return {
+        "from": _serde_qr(v.from_),
+        "message": v.message,
+        "custom_message": v.custom_message,
+        "status": v.status.value,
+    }
+
+
+def _serde_clause_check(cc: ClauseCheck):
+    k = cc.kind
+    if k == ClauseCheck.SUCCESS:
+        return "Success"
+    if k == ClauseCheck.COMPARISON:
+        p = cc.payload
+        return {
+            "Comparison": {
+                "comparison": _cmp_json(p.comparison),
+                "from": _serde_qr(p.from_),
+                "to": _serde_qr(p.to) if p.to is not None else None,
+                "message": p.message,
+                "custom_message": p.custom_message,
+                "status": p.status.value,
+            }
+        }
+    if k == ClauseCheck.IN_COMPARISON:
+        p = cc.payload
+        return {
+            "InComparison": {
+                "comparison": _cmp_json(p.comparison),
+                "from": _serde_qr(p.from_),
+                "to": [_serde_qr(t) for t in p.to],
+                "message": p.message,
+                "custom_message": p.custom_message,
+                "status": p.status.value,
+            }
+        }
+    if k == ClauseCheck.UNARY:
+        p = cc.payload
+        return {
+            "Unary": {
+                "value": _serde_value_check(p.value),
+                "comparison": _cmp_json(p.comparison),
+            }
+        }
+    if k == ClauseCheck.NO_VALUE_FOR_EMPTY:
+        return {"NoValueForEmptyCheck": cc.payload}
+    if k == ClauseCheck.DEPENDENT_RULE:
+        p = cc.payload
+        return {
+            "DependentRule": {
+                "rule": p.rule,
+                "message": p.message,
+                "custom_message": p.custom_message,
+                "status": p.status.value,
+            }
+        }
+    # MISSING_BLOCK_VALUE
+    return {"MissingBlockValue": _serde_value_check(cc.payload)}
+
+
+_STATUS_PAYLOAD_KINDS = frozenset(
+    (
+        RecordType.RULE_CONDITION,
+        RecordType.TYPE_CONDITION,
+        RecordType.TYPE_BLOCK,
+        RecordType.FILTER,
+        RecordType.WHEN_CONDITION,
+    )
+)
+
+_BLOCK_PAYLOAD_KINDS = frozenset(
+    (
+        RecordType.WHEN_CHECK,
+        RecordType.DISJUNCTION,
+        RecordType.BLOCK_GUARD_CHECK,
+        RecordType.GUARD_CLAUSE_BLOCK_CHECK,
+    )
+)
+
+
+def _serde_container(rt: Optional[RecordType]):
+    if rt is None:
+        return None
+    k = rt.kind
+    if k in (RecordType.FILE_CHECK, RecordType.RULE_CHECK):
+        p: NamedStatus = rt.payload
+        payload = {"name": p.name, "status": p.status.value, "message": p.message}
+    elif k in _STATUS_PAYLOAD_KINDS:
+        payload = rt.payload.value  # bare Status string
+    elif k == RecordType.TYPE_CHECK:
+        payload = {
+            "type_name": rt.payload.type_name,
+            "block": _serde_block(rt.payload.block),
+        }
+    elif k in _BLOCK_PAYLOAD_KINDS:
+        payload = _serde_block(rt.payload)
+    else:  # CLAUSE_VALUE_CHECK
+        payload = _serde_clause_check(rt.payload)
+    return {k: payload}
+
+
+def serde_record_json(record: EventRecord) -> dict:
+    """The reference's serde encoding of the EventRecord tree
+    (`eval_context.rs:41-45` + the Serialize derives over
+    `rules/mod.rs:165-355`, externally-tagged enums, struct fields in
+    declaration order) — the machine-readable trace `--print-json`
+    emits (`validate.rs:744-751`) and `run_checks` returns when
+    verbose (`helper.rs:63`), pinned by `guard/tests/functional.rs:7-80`."""
+    return {
+        "context": record.context,
+        "container": _serde_container(record.container),
+        "children": [serde_record_json(c) for c in record.children],
+    }

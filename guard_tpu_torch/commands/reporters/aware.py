@@ -159,19 +159,29 @@ def console_chain(
         return
     # `data_pv` may be a DataFile whose tree builds lazily. The aware
     # reporters read the tree only for shape detection plus failure
-    # attribution; for failure-free reports the shape answer (has a
-    # top-level "Resources" / "resource_changes" key?) comes from a
-    # cheap raw-JSON key scan, so passing documents never build trees.
+    # attribution; for reports with no failing clause (passing
+    # documents, and the clause-free reports of --statuses-only) the
+    # shape answer (has a top-level "Resources" / "resource_changes"
+    # key?) comes from a raw-JSON key scan when the tree is not built,
+    # so those documents never build one.
     pv = data_pv
     if not isinstance(data_pv, PV):  # a DataFile: tree builds lazily
-        if not report["not_compliant"]:
+        if data_pv._pv is None and not any(
+            next(_leaves(r), None) is not None for r in report["not_compliant"]
+        ):
             keys = getattr(data_pv, "_top_keys", False)
             if keys is False:
                 keys = _top_level_json_keys(data_content)
                 data_pv._top_keys = keys
             if keys is not None:
                 if "Resources" in keys or "resource_changes" in keys:
-                    return  # cfn/tf applies, nothing to print (no failures)
+                    # cfn/tf applies; no clause to attribute to a resource
+                    if report["not_compliant"]:
+                        writer.writeln(
+                            f"Evaluating data {data_file_name} against rules {rules_file_name}"
+                        )
+                        writer.writeln("Number of non-compliant resources 0")
+                    return
                 generic_single_line(
                     writer, data_file_name, rules_file_name, report,
                     rule_statuses, show,

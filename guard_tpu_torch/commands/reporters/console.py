@@ -1,11 +1,10 @@
-"""Console reporters of a validate run: the SummaryTable header and the
-generic single-line body.
+"""Console reporters of a validate run: the SummaryTable header, the
+generic single-line body and the verbose record tree.
 
-Copies of the JAX package's `summary_table_block` and
-`generic_single_line` (guard_tpu/commands/reporters/console.py). The
-verbose record tree of that module (`print_verbose_tree`) belongs to
-the validate paths off the device and is not ported yet: on the device
-path `-v` prints nothing extra, as in the JAX package.
+Copies of the JAX package's guard_tpu/commands/reporters/console.py.
+The verbose tree (`print_verbose_tree`, `-v`) is printed by the
+backends off the device only; on the device path `-v` prints nothing
+extra, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from __future__ import annotations
 from typing import Dict
 
 from ...core.qresult import Status
+from ...core.records import EventRecord, RecordType
 from ...utils.io import Writer
 from ..report import get_rule_name, iter_clause_failures
 
@@ -201,3 +201,122 @@ def _property_path(clause: dict) -> str:
     if "unresolved" in clause and clause["unresolved"]:
         return clause["unresolved"]["traversed_to"]["path"]
     return ""
+
+
+def _pv_disp(pv) -> str:
+    """PathAwareValue Display (display.rs:102-108)."""
+    from ...core.values import value_only_display
+
+    return f"Path={pv.self_path().disp()} Value={value_only_display(pv)}"
+
+
+def _qr_disp(qr) -> str:
+    """QueryResult Display (display.rs:109-126)."""
+    from ...core.qresult import LITERAL, UNRESOLVED
+
+    if qr is None:
+        return ""
+    if qr.tag == LITERAL:
+        return f"literal, {_pv_disp(qr.value)}"
+    if qr.tag == UNRESOLVED:
+        return f"(unresolved, {_pv_disp(qr.unresolved.traversed_to)})"
+    return f"(resolved, {_pv_disp(qr.value)})"
+
+
+def _disp_comparison(cmp) -> str:
+    """display_comparison (display.rs:9-11): leading space when the
+    operator is not negated."""
+    op, negated = cmp
+    return f"{'not' if negated else ''} {op.display()}"
+
+
+def _clause_check_disp(cc) -> str:
+    """ClauseCheck Display (display.rs:128-199)."""
+    from ...core.records import ClauseCheck
+
+    k = cc.kind
+    if k == ClauseCheck.SUCCESS:
+        return "GuardClauseValueCheck(Status=PASS)"
+    if k == ClauseCheck.NO_VALUE_FOR_EMPTY:
+        return f"GuardClause(Status=FAIL, Empty, {cc.payload or ''})"
+    if k == ClauseCheck.MISSING_BLOCK_VALUE:
+        m = cc.payload
+        traversed = ""
+        if m.from_.unresolved is not None:
+            traversed = m.from_.unresolved.traversed_to.self_path().s
+        return (
+            f"GuardBlockValueMissing(Status={m.status.value}, "
+            f"Reason={m.message or ''}, {traversed})"
+        )
+    if k == ClauseCheck.DEPENDENT_RULE:
+        m = cc.payload
+        return f"GuardClauseDependentRule(Rule={m.rule}, Status={m.status.value})"
+    if k == ClauseCheck.UNARY:
+        u = cc.payload
+        return (
+            f"GuardClauseUnaryCheck(Status={u.value.status.value}, "
+            f"Comparison={_disp_comparison(u.comparison)}, "
+            f"Value-At={_qr_disp(u.value.from_)})"
+        )
+    if k == ClauseCheck.COMPARISON:
+        c = cc.payload
+        return (
+            f"GuardClauseBinaryCheck(Status={c.status.value}, "
+            f"Comparison={_disp_comparison(c.comparison)}, "
+            f"from={_qr_disp(c.from_)}, to={_qr_disp(c.to)})"
+        )
+    # InComparison: SliceDisplay over the to-results (exprs.rs:287-303)
+    c = cc.payload
+    joined = ".".join(_qr_disp(t) for t in c.to).replace(".[", "[")
+    return (
+        f"GuardClauseInBinaryCheck(Status={c.status.value}, "
+        f"Comparison={_disp_comparison(c.comparison)}, "
+        f"from={_qr_disp(c.from_)}, to={joined})"
+    )
+
+
+def _record_disp(rt: RecordType) -> str:
+    """RecordType Display (display.rs:201-318) — including the
+    reference's unbalanced parens on TypeBlock variants."""
+    k, p = rt.kind, rt.payload
+    if k == RecordType.FILE_CHECK:
+        return f"File({p.name}, Status={p.status.value})"
+    if k == RecordType.RULE_CHECK:
+        return f"Rule({p.name}, Status={p.status.value})"
+    if k == RecordType.RULE_CONDITION:
+        return f"Rule/When(Status={p.value})"
+    if k == RecordType.TYPE_CHECK:
+        return f"Type({p.type_name}, Status={p.block.status.value})"
+    if k == RecordType.TYPE_CONDITION:
+        return f"TypeBlock/When Status={p.value})"
+    if k == RecordType.TYPE_BLOCK:
+        return f"TypeBlock/Block Status={p.value})"
+    if k == RecordType.FILTER:
+        return f"Filter/ConjunctionsBlock(Status={p.value})"
+    if k == RecordType.WHEN_CHECK:
+        return f"WhenConditionalBlock(Status = {p.status.value})"
+    if k == RecordType.WHEN_CONDITION:
+        return f"WhenCondition(Status = {p.value})"
+    if k == RecordType.DISJUNCTION:
+        return f"Disjunction(Status = {p.status.value})"
+    if k == RecordType.BLOCK_GUARD_CHECK:
+        return f"GuardValueBlockCheck(Status = {p.status.value})"
+    if k == RecordType.GUARD_CLAUSE_BLOCK_CHECK:
+        return f"GuardClauseBlock(Status = {p.status.value})"
+    return _clause_check_disp(p)
+
+
+def print_verbose_tree(writer: Writer, record: EventRecord, indent: int = 0) -> None:
+    """validate.rs:668-687 pprint_tree: `|- `/`` `- `` prefixes with
+    `{RecordType}[Context={context}]` lines."""
+
+    def walk(rec: EventRecord, prefix: str, last: bool) -> None:
+        head = "`- " if last else "|- "
+        writer.writeln(f"{prefix}{head}{_record_disp(rec.container)}[Context={rec.context}]")
+        child_prefix = prefix + ("   " if last else "|  ")
+        for i, child in enumerate(rec.children):
+            walk(child, child_prefix, i == len(rec.children) - 1)
+
+    walk(record, "", True)
+
+

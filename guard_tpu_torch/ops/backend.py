@@ -4,11 +4,14 @@ reruns for the reports.
 The port of the JAX package's `tpu_validate` (guard_tpu/ops/backend.py:
 1695) and its report half (`_report_files`, `_finish_report`):
 
-  1. encode the documents and lower every rule file; files with
-     function variables get their function results precomputed on the
-     host by the CPU evaluator (ops/fnvars.precompute_fn_values) and
-     encoded with each document, so the walk's StepFnVar arm selects
-     them on the device;
+  1. encode the documents (`_encode_docs`: the quarantine encode under
+     --max-doc-failures, else the ingest pool, else the native encoder
+     in process, else the tree encoder) and lower every rule file;
+     files with function variables get their function results
+     precomputed on the host by the CPU evaluator
+     (ops/fnvars.precompute_fn_values) and encoded with each document,
+     so the walk's StepFnVar arm selects them on the device. Document
+     trees are built only where something walks them (`_docs_for`);
   2. evaluate each file bucket by bucket on the device, the rim
      reductions (K3) behind each walk;
   3. pass A: whole-corpus masks over the rim blocks (`rim_masks`) pick
@@ -26,9 +29,10 @@ The port of the JAX package's `tpu_validate` (guard_tpu/ops/backend.py:
 
 A device status that differs from the oracle's where no unsure bit was
 set is an error (the `TPU/native` and `TPU/CPU` nets, as the JAX
-package words them). The JAX package's result cache, document
-quarantine and scalar rim are not ported: pass B walks the documents in
-order and is where each would slot in.
+package words them). A quarantined document stands in as `null` and
+is left out of every report. The JAX package's result cache and scalar
+rim are not ported: pass B walks the documents in order and is where
+each would slot in.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from __future__ import annotations
 import logging
 import os
 import time
+from collections.abc import Sequence
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -47,6 +52,8 @@ from ..core.errors import GuardError
 from ..core.evaluator import eval_rules_file
 from ..core.qresult import Status
 from ..core.scopes import RootScope
+from ..core.values import PV
+from ..core.values import Path as VPath
 from ..utils.io import Writer
 from .encoder import Interner, encode_bucketed
 from .fnvars import precompute_fn_values, precomputable_fn_vars
@@ -98,9 +105,11 @@ class Evaluation:
     interner: Interner
     files: List[FileResult]
     device: torch.device
-    # host clock seconds per phase: load (parse the documents; set by
-    # tpu_validate), encode (with the per-file encodes of files with
-    # function variables), fn_precompute (their function values),
+    # host clock seconds per phase: load (document trees built for the
+    # tree encoder of the shared encode), encode (the shared encode's
+    # wall, the ingest pool's included, and the per-file encodes of
+    # files with function variables), merge (the ingest pool's shard
+    # merge, inside encode), fn_precompute (the function values),
     # lower, device (ends when the last bucket is collected); and of the
     # report run: native (native oracle calls), pool (the spawn pool's
     # wall), inline (reruns in this process) and report (the rest:
@@ -110,6 +119,10 @@ class Evaluation:
     oracle_docs: int = 0
     # the report run's counters, RERUN_KEYS
     reruns: Dict[str, int] = field(default_factory=lambda: dict.fromkeys(RERUN_KEYS, 0))
+    # how the shared encode ran (_encode_docs): path "quarantine",
+    # "pool", "native" or "tree" (None when no file used it), the
+    # ingest workers, and the pool's stats
+    ingest: dict = field(default_factory=dict)
 
 
 def rim_masks(any_fail, any_unsure, host_mask, has_host_rules: bool,
@@ -145,16 +158,29 @@ def _empty_rim(n_docs: int) -> tuple:
     )
 
 
-def evaluate(rule_files, docs, device=None) -> Evaluation:
-    """Encode `docs` (PV trees), lower every rules file and evaluate it
-    on `device` (CUDA unless given). Files with function variables get
-    their function values precomputed and are encoded on their own; the
-    shared encode runs only when a file without them has guard rules.
-    One interner serves every encode."""
+def uses_shared_encode(rule_file) -> bool:
+    """Whether a rules file is evaluated on the shared encode: it has
+    guard rules and no function variable (those files encode on their
+    own, with their function results)."""
+    return bool(rule_file.rules.guard_rules) and not precomputable_fn_vars(rule_file.rules)
+
+
+def evaluate(rule_files, docs, device=None, shared=None) -> Evaluation:
+    """Lower every rules file and evaluate it on `device` (CUDA unless
+    given). `docs` are the documents' PV trees (a sequence that may
+    build them on access). `shared` is the shared encode, (groups,
+    oversize, interner) as encoder.encode_bucketed returns them, when
+    the caller has it; else it is encoded from `docs` when a file uses
+    it (uses_shared_encode). Files with function variables get their
+    function values precomputed and are encoded on their own, into the
+    shared encode's interner."""
     dev = resolve_device(device)
     seconds = {"fn_precompute": 0.0, "encode": 0.0}
-    interner = Interner()
-    shared = None  # (groups, oversize) of the shared encode
+    if shared is not None:
+        interner = shared[2]
+        shared = (shared[0], {int(i) for i in shared[1]})
+    else:
+        interner = Interner()
 
     t0 = time.perf_counter()
     lowered = []
@@ -172,7 +198,7 @@ def evaluate(rule_files, docs, device=None) -> Evaluation:
             # a function raised on these documents: the oracle reruns
             # them and reproduces the error
             f_host = {int(i) for i in f_oversize} | set(fn_err)
-        elif rf.rules.guard_rules:
+        elif uses_shared_encode(rf):
             if shared is None:
                 t1 = time.perf_counter()
                 groups, oversize, _ = encode_bucketed(docs, interner)
@@ -279,22 +305,25 @@ def _check_parity(rule_statuses, other, unsure_rules, data_file, label: str) -> 
 class _ReportAcc:
     """One run's report accumulators: the error count, whether any doc
     failed, every materialized report (structured output) and the JUnit
-    cases per document."""
+    cases per document (no suite for a quarantined one)."""
 
     __slots__ = ("errors", "had_fail", "all_reports", "junit_suites")
 
-    def __init__(self, data_files):
+    def __init__(self, data_files, quarantined):
         self.errors = 0
         self.had_fail = False
         self.all_reports: List[dict] = []
-        self.junit_suites = {df.name: [] for df in data_files}
+        self.junit_suites = {
+            df.name: [] for di, df in enumerate(data_files) if di not in quarantined
+        }
 
 
-def _report_files(validate, evaluation: Evaluation, data_files, writer: Writer,
-                  acc: _ReportAcc) -> None:
+def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
+                  writer: Writer, acc: _ReportAcc) -> None:
     """Report half of the device path, one iteration per rules file:
     pass A (which docs need the oracle), the native, pooled and inline
-    reruns, and pass B (report emission in document order)."""
+    reruns, and pass B (report emission in document order). Quarantined
+    documents are neither rerun nor reported."""
     from ..commands.reporters.aware import console_chain
     from ..commands.reporters.junit import JunitTestCase, failure_info_from_report
     from ..commands.validate import _looks_json
@@ -395,6 +424,11 @@ def _report_files(validate, evaluation: Evaluation, data_files, writer: Writer,
             any_fail[:, 0], any_un[:, 0], host_mask, bool(fr.compiled.host_rules),
             rich_mode, statuses_only, show_rich,
         )
+        if quarantined:
+            qmask = np.zeros(D, bool)
+            qmask[list(quarantined)] = True
+            need_oracle_v &= ~qmask
+            materialize_v &= ~qmask
         prefilter_v = need_oracle_v & (needs_statuses_v | statuses_only)
         doc_infos: dict = {}
         oracle_dis = []
@@ -465,6 +499,8 @@ def _report_files(validate, evaluation: Evaluation, data_files, writer: Writer,
         oracle_set = set(oracle_dis)
         row_cache: dict = {}
         for di, data_file in enumerate(data_files):
+            if di in quarantined:
+                continue
             if di not in doc_infos:
                 key = name_st[di].tobytes()
                 cached = row_cache.get(key)
@@ -566,8 +602,12 @@ def _report_files(validate, evaluation: Evaluation, data_files, writer: Writer,
             native.close()
 
 
-def _finish_report(validate, acc: _ReportAcc, writer: Writer) -> int:
-    """Structured-output emission and the exit code."""
+def _finish_report(validate, acc: _ReportAcc, writer: Writer, quarantined,
+                   max_df) -> int:
+    """Structured-output emission and the exit code: an error wins, then
+    more quarantined documents than --max-doc-failures allows (a
+    negative limit allows any number), then a failing document."""
+    from ..utils.faults import FAULT_COUNTERS
     from ..commands.reporters.junit import write_junit
     from ..commands.reporters.sarif import write_sarif
     from ..commands.reporters.structured import write_structured
@@ -586,31 +626,144 @@ def _finish_report(validate, acc: _ReportAcc, writer: Writer) -> int:
             write_junit(writer, acc.junit_suites)
     if acc.errors > 0:
         return ERROR_STATUS_CODE
+    if quarantined:
+        FAULT_COUNTERS["quarantined_docs"] += len(quarantined)
+        if max_df is not None and 0 <= max_df < len(quarantined):
+            return ERROR_STATUS_CODE
     if acc.had_fail:
         return FAILURE_STATUS_CODE
     return SUCCESS_STATUS_CODE
 
 
+class _DocTrees(Sequence):
+    """The documents' PV trees, each built on first access
+    (DataFile.path_value) and kept by its DataFile; a quarantined
+    document stands in as `null`, so the geometry stays aligned."""
+
+    def __init__(self, data_files, quarantined):
+        self._files = data_files
+        self._quarantined = quarantined
+
+    def __len__(self) -> int:
+        return len(self._files)
+
+    def __getitem__(self, i):
+        if i in self._quarantined:
+            return PV.null(VPath.root())
+        return self._files[i].path_value
+
+
+def _docs_for(data_files, quarantined):
+    """Python document trees, built lazily: on all-JSON corpora the
+    native encoder, the device kernels and the native oracle run from
+    raw content, and a tree is paid for only by the documents something
+    walks (function-variable precompute, the tree encoder, CPU-oracle
+    reruns in this process, the console's attribution of failures).
+    Quarantined documents stand in as `null`."""
+    return _DocTrees(data_files, quarantined)
+
+
+def _encode_docs(validate, data_files, writer: Writer, seconds: dict):
+    """The shared encode, as the JAX package's `_encode_docs`: the
+    quarantine encode under --max-doc-failures, else the ingest pool
+    (two or more workers, not for payloads or --input-params), else the
+    native encoder in this process when every document sniffs as JSON,
+    there are no --input-params (their merged trees are the documents)
+    and the library is built, else the tree encoder. Returns (shared,
+    quarantined, ingest): shared = (groups, oversize, interner) as
+    encoder.encode_bucketed returns them, `quarantined` maps a document
+    index to its failure record (empty outside --max-doc-failures), and
+    `ingest` says which path ran. Sets seconds["encode"], and
+    seconds["load"] and seconds["merge"] where they apply."""
+    from ..commands.validate import _looks_json
+    from ..parallel.ingest import parallel_encode_documents, resolve_ingest_workers
+    from .encoder import encode_chunk_texts
+    from .native_encoder import encode_json_bucketed, native_available
+
+    t0 = time.perf_counter()
+    names = [df.name for df in data_files]
+    contents = [df.content for df in data_files]
+    quarantined: dict = {}
+    workers = resolve_ingest_workers(validate.ingest_workers)
+    ingest = {"path": None, "workers": workers}
+    shared = None
+    if validate.max_doc_failures is not None and not validate.input_params:
+        (groups, oversize, interner, q_order, q_msgs, _q_err, q_records,
+         q_pvs) = encode_chunk_texts(names, contents)
+        shared = (groups, oversize, interner)
+        quarantined = dict(zip(q_order, q_records))
+        for m in q_msgs:
+            writer.writeln_err(m)
+        if q_pvs is not None:
+            for df, pv in zip(data_files, q_pvs):
+                if pv is not None and df._pv is None:
+                    df._pv = pv
+        ingest["path"] = "quarantine"
+    if (
+        shared is None
+        and workers >= 2
+        and len(data_files) >= 2
+        and not validate.payload
+        and not validate.input_params
+    ):
+        got = parallel_encode_documents(names, contents, workers)
+        if got is not None:
+            shared = got[:3]
+            ingest.update(path="pool", stats=got[3])
+            seconds["merge"] = got[3]["merge_s"]
+    if (
+        shared is None
+        and not validate.input_params
+        and all(_looks_json(c) for c in contents)
+        and native_available()
+    ):
+        groups, oversize, interner, err = encode_json_bucketed(contents)
+        if err is None:
+            shared = (groups, oversize, interner)
+            ingest["path"] = "native"
+    if shared is None:
+        t1 = time.perf_counter()
+        docs = list(_docs_for(data_files, quarantined))
+        seconds["load"] = time.perf_counter() - t1
+        shared = encode_bucketed(docs)
+        ingest["path"] = "tree"
+    seconds["encode"] = time.perf_counter() - t0 - seconds.get("load", 0.0)
+    return shared, quarantined, ingest
+
+
 def tpu_validate(validate, rule_files, data_files, writer: Writer) -> int:
-    """Drop-in body of Validate.execute on the device: load the
-    documents' trees, evaluate, then report (full reports, or rule
+    """Drop-in body of Validate.execute on the device: encode the
+    documents (the shared encode only when a file uses it, or under
+    --max-doc-failures), evaluate, then report (full reports, or rule
     statuses alone under --statuses-only)."""
     from ..commands.validate import SUCCESS_STATUS_CODE
 
     if not data_files or not rule_files:
         return SUCCESS_STATUS_CODE
-    t0 = time.perf_counter()
-    docs = [df.path_value for df in data_files]
-    load_s = time.perf_counter() - t0
-    evaluation = evaluate(rule_files, docs, validate.device)
-    del docs
-    evaluation.seconds["load"] = load_s
+    seconds = {"load": 0.0}
+    shared, quarantined, ingest = None, {}, {"path": None}
+    if validate.max_doc_failures is not None or any(
+        uses_shared_encode(rf) for rf in rule_files
+    ):
+        shared, quarantined, ingest = _encode_docs(validate, data_files, writer, seconds)
+    else:
+        # every tree, in document order, as the JAX package's encode
+        # builds them: a document that does not load stops the run here
+        t0 = time.perf_counter()
+        for df in data_files:
+            df.path_value
+        seconds["load"] = time.perf_counter() - t0
+    evaluation = evaluate(rule_files, _docs_for(data_files, quarantined), validate.device,
+                          shared=shared)
+    evaluation.seconds["encode"] += seconds.pop("encode", 0.0)
+    evaluation.seconds.update(seconds)
+    evaluation.ingest = ingest
     validate.last_evaluation = evaluation
     t0 = time.perf_counter()
-    acc = _ReportAcc(data_files)
+    acc = _ReportAcc(data_files, quarantined)
     try:
-        _report_files(validate, evaluation, data_files, writer, acc)
-        return _finish_report(validate, acc, writer)
+        _report_files(validate, evaluation, data_files, quarantined, writer, acc)
+        return _finish_report(validate, acc, writer, quarantined, validate.max_doc_failures)
     finally:
         secs = evaluation.seconds
         secs["report"] = (

@@ -1,7 +1,12 @@
 """Columnar document encoder: PV trees -> padded int32 arrays.
 
-A copy of the JAX package's Python encoder (ops/encoder.py) without
-its native C++ and chunk-text paths; the port encodes in Python.
+A copy of the JAX package's Python encoder (ops/encoder.py). Where
+that package pads a batch to its largest document, the port encodes
+per size bucket (`encode_bucketed`), from document trees or from the
+ragged columns of its native encoder (`groups_from_ragged`,
+ops/native_encoder.py); `encode_chunk_texts` picks between the two for
+raw texts, and the bucket groups of several shards merge in document
+order (`merge_bucket_groups`, parallel/ingest.py).
 
 The device evaluation path never touches Python objects: a batch of parsed
 documents is flattened into fixed-shape arrays (SURVEY.md §7, north-star
@@ -914,3 +919,253 @@ def encode_bucketed(docs: List[PV], interner: Optional[Interner] = None,
         _tag_fn_roots(batch, part, any_per_origin)
         groups.append((batch, idx))
     return groups, np.where(host)[0], interner
+
+
+def _row_positions(offsets: np.ndarray, idx: np.ndarray):
+    """For the documents `idx` of ragged columns cut at `offsets`: each
+    element's (row in the bucket, position in its document, position in
+    the ragged column)."""
+    counts = offsets[idx + 1] - offsets[idx]
+    rows = np.repeat(np.arange(len(idx)), counts)
+    within = np.arange(int(counts.sum())) - np.repeat(np.cumsum(counts) - counts, counts)
+    return rows, within, np.repeat(offsets[idx], counts) + within
+
+
+def groups_from_ragged(cols: dict, node_offset: np.ndarray, edge_offset: np.ndarray,
+                       exotic: np.ndarray,
+                       buckets: Tuple[int, ...] = NODE_BUCKETS_EXTENDED):
+    """The groups `encode_bucketed` builds, cut out of ragged columns:
+    `cols` holds every document's node columns (node_kind, node_parent,
+    scalar_id, num_hi, num_lo, child_count) and edge columns
+    (edge_parent, edge_child, edge_key_id, edge_index) concatenated, the
+    documents' nodes at node_offset[i]:node_offset[i + 1] and edges at
+    edge_offset[i]:edge_offset[i + 1]. Each bucket's batch is padded to
+    its node count and its edges to the rounded largest edge count, as
+    encode_bucketed pads them; no wider block is ever built.
+
+    Returns (groups, oversize): groups as in encode_bucketed; oversize
+    the documents beyond the last bucket or with numbers that have no
+    exact device encoding (`exotic`)."""
+    sizes = np.diff(node_offset)
+    e_sizes = np.diff(edge_offset)
+    host = (sizes > buckets[-1]) | exotic
+    groups: List[Tuple[DocBatch, np.ndarray]] = []
+    lo = 0
+    for b in buckets:
+        idx = np.where((sizes > lo) & (sizes <= b) & ~host)[0]
+        lo = b
+        if len(idx) == 0:
+            continue
+        e_max = _round_up(int(e_sizes[idx].max()))
+        n_rows, n_within, n_src = _row_positions(node_offset, idx)
+        e_rows, e_within, e_src = _row_positions(edge_offset, idx)
+
+        def cut(attr, width, fill, rows, within, src):
+            out = np.full((len(idx), width), fill, dtype=np.int32)
+            out[rows, within] = cols[attr][src]
+            return out
+
+        edge_valid = np.zeros((len(idx), e_max), dtype=bool)
+        edge_valid[e_rows, e_within] = True
+        node = {a: cut(a, b, fill, n_rows, n_within, n_src) for a, fill in (
+            ("node_kind", -1), ("node_parent", -1), ("scalar_id", -1),
+            ("num_hi", 0), ("num_lo", 0), ("child_count", 0))}
+        edge = {a: cut(a, e_max, fill, e_rows, e_within, e_src) for a, fill in (
+            ("edge_parent", 0), ("edge_child", 0), ("edge_key_id", -2),
+            ("edge_index", -2))}
+        groups.append((DocBatch(**node, **edge, edge_valid=edge_valid,
+                                n_docs=len(idx), n_nodes=b, n_edges=e_max,
+                                num_exotic=np.zeros(len(idx), dtype=bool)), idx))
+    return groups, np.where(host)[0]
+
+
+# -- the wire form of a batch (ingest workers -> parent) ---------------
+# plain dicts of numpy arrays: cheap to pickle, and the derived columns
+# travel along so the receiving process never re-runs the __post_init__
+# derivation.
+
+_PAYLOAD_ARRAYS = (
+    "node_kind", "node_parent", "scalar_id", "num_hi", "num_lo",
+    "child_count", "edge_parent", "edge_child", "edge_key_id",
+    "edge_index", "edge_valid", "node_key_id", "node_index",
+    "node_parent_kind", "num_exotic", "fn_origin",
+)
+
+
+def batch_payload(batch: DocBatch) -> dict:
+    """Picklable wire form of a DocBatch (derived columns included)."""
+    out = {k: getattr(batch, k) for k in _PAYLOAD_ARRAYS}
+    out["n_docs"] = batch.n_docs
+    out["n_nodes"] = batch.n_nodes
+    out["n_edges"] = batch.n_edges
+    return out
+
+
+def batch_from_payload(payload: dict) -> DocBatch:
+    return DocBatch(**payload)
+
+
+def remap_interned_ids(batch: DocBatch, remap: np.ndarray) -> None:
+    """Relabel a shard batch's intern ids in place through `remap`
+    (shard-local id -> merged id). Only non-negative entries are ids;
+    the sentinel namespaces (-1/-2, and the reserved fn ids — never
+    present at encode time) pass through untouched."""
+    if len(remap) == 0:
+        return
+    for attr in ("scalar_id", "edge_key_id", "node_key_id"):
+        col = getattr(batch, attr)
+        if col.size:
+            safe = np.clip(col, 0, len(remap) - 1)
+            col[...] = np.where(col >= 0, remap[safe], col)
+
+
+_CONCAT_FILL = {
+    "node_kind": -1, "node_parent": -1, "scalar_id": -1, "num_hi": 0,
+    "num_lo": 0, "child_count": 0, "edge_parent": 0, "edge_child": 0,
+    "edge_key_id": -2, "edge_index": -2, "edge_valid": False,
+    "node_key_id": -2, "node_index": -2, "node_parent_kind": -1,
+}
+
+
+def concat_batches(parts: List[DocBatch]) -> DocBatch:
+    """Concatenate shard batches along the doc axis, padding node/edge
+    axes to the widest shard with the same suffix fills the encoder
+    uses — so the result is shape- and content-equivalent to encoding
+    the union serially (modulo intern-id labels, which the caller has
+    already remapped into one namespace)."""
+    if not parts:
+        raise ValueError("concat_batches needs at least one shard")
+    if any(p.fn_origin is not None for p in parts):
+        raise ValueError("fn results are encoded after the shard merge, never inside it")
+    n_nodes = max(p.n_nodes for p in parts)
+    n_edges = max(p.n_edges for p in parts)
+
+    def padcat(attr: str, width: int) -> np.ndarray:
+        fill = _CONCAT_FILL[attr]
+        cols = []
+        for p in parts:
+            col = getattr(p, attr)
+            if col.shape[1] < width:
+                pad = np.full(
+                    (col.shape[0], width - col.shape[1]), fill,
+                    dtype=col.dtype,
+                )
+                col = np.concatenate([col, pad], axis=1)
+            cols.append(col)
+        return np.concatenate(cols, axis=0)
+
+    node_attrs = (
+        "node_kind", "node_parent", "scalar_id", "num_hi", "num_lo",
+        "child_count", "node_key_id", "node_index", "node_parent_kind",
+    )
+    edge_attrs = (
+        "edge_parent", "edge_child", "edge_key_id", "edge_index",
+        "edge_valid",
+    )
+    fields = {a: padcat(a, n_nodes) for a in node_attrs}
+    fields.update({a: padcat(a, n_edges) for a in edge_attrs})
+    return DocBatch(
+        n_docs=sum(p.n_docs for p in parts),
+        n_nodes=n_nodes,
+        n_edges=n_edges,
+        num_exotic=np.concatenate([p.num_exotic for p in parts]),
+        **fields,
+    )
+
+
+def merge_bucket_groups(shards):
+    """The bucketed counterpart of concat_batches: merge the bucket
+    groups of contiguous document shards, given in document order as
+    (groups, oversize, first document index) with their intern ids
+    already remapped into one namespace, into the groups and oversize
+    set one encode of all the documents gives: one group per bucket,
+    its documents in document order, its edges padded to the widest
+    shard's."""
+    by_width: Dict[int, list] = {}
+    for groups, _oversize, start in shards:
+        for batch, idx in groups:
+            by_width.setdefault(batch.n_nodes, []).append((batch, idx + start))
+    merged = []
+    for width in sorted(by_width):
+        parts = by_width[width]
+        batch = parts[0][0] if len(parts) == 1 else concat_batches([b for b, _ in parts])
+        merged.append((batch, np.concatenate([i for _, i in parts])))
+    oversize = np.concatenate(
+        [np.asarray(o, dtype=np.int64) + start for _g, o, start in shards]
+        or [np.zeros(0, np.int64)]
+    )
+    return merged, oversize
+
+
+def encode_chunk_texts(names: List[str], contents: List[str]):
+    """The quarantine-aware encode of raw texts (--max-doc-failures):
+    the native JSON encoder when every text sniffs as JSON and the
+    library is built (an invalid document is marked, replaced by a
+    `null` stand-in and the rest retried), the tree loader otherwise (a
+    parse failure marks the document and encodes a null stand-in).
+    With GUARD_TPU_FAULT naming the `parse` or `encode` point, each
+    document passes those points first (utils/faults.py).
+
+    Returns (groups, oversize, interner, failed_indices, messages,
+    errors, quarantined, pvs): the bucket groups and oversize set as in
+    encode_bucketed, the failed documents in order, one `skipping ...`
+    message and one quarantine record (utils/faults.quarantine_record)
+    per failure, and the per-document trees when the tree loader ran
+    (None on the native path)."""
+    from ..utils.faults import fault_active, maybe_fail, quarantine_record
+    from .native_encoder import encode_json_bucketed_resilient
+
+    pv_failed: set = set()
+    messages: List[str] = []
+    recs: dict = {}
+    errors = 0
+    enc = pvs = None
+    if fault_active("parse") or fault_active("encode"):
+        contents = list(contents)
+        for i, name in enumerate(names):
+            for stage in ("parse", "encode"):
+                if i in pv_failed:
+                    continue
+                try:
+                    maybe_fail(stage, key=name)
+                except Exception as e:
+                    pv_failed.add(i)
+                    messages.append(f"skipping {name}: {e}")
+                    recs[i] = quarantine_record(name, stage, e)
+                    errors += 1
+                    contents[i] = "null"  # neutral stand-in downstream
+    if all(c.lstrip()[:1] in ("{", "[") for c in contents):
+        enc, failed, msgs = encode_json_bucketed_resilient(contents, names)
+        pv_failed |= failed
+        messages += msgs
+        errors += len(failed)
+        for i in failed:
+            recs[i] = {
+                "file": names[i], "stage": "parse",
+                "error": "ParseError", "message": "invalid JSON",
+            }
+    if enc is None:
+        from ..core.errors import GuardError
+        from ..core.loader import load_document
+        from ..core.values import PV, Path as VPath
+
+        pvs = []
+        for i, content in enumerate(contents):
+            if i in pv_failed:
+                pvs.append(None)  # already marked by the native retry
+                continue
+            try:
+                pvs.append(load_document(content, names[i]))
+            except GuardError as e:
+                pv_failed.add(i)
+                messages.append(f"skipping {names[i]}: {e}")
+                recs[i] = quarantine_record(names[i], "parse", e)
+                errors += 1
+                pvs.append(None)
+        enc = encode_bucketed(
+            [pv if pv is not None else PV.null(VPath.root()) for pv in pvs]
+        )
+    groups, oversize, interner = enc
+    order = sorted(pv_failed)
+    return (groups, oversize, interner, order, messages, errors,
+            [recs[i] for i in order], pvs)

@@ -21,7 +21,10 @@ every form their launchers choose from (a thread, a warp or a block per
 row for K3; one block, one cluster or a grid of 8- or 16-byte words for
 K7) at the main path's and the sweep's widths, off a 16-byte boundary,
 at every R % 16 and at n_valid 0, 1, D - 3 and D. Results are integers:
-exact equality, no tolerance.
+exact equality, no tolerance. Beyond the kernels: full reports of 1,024
+templates on the card against the CPU, and statuses-only validate of
+8,192 templates on the card from the native encoder (in process and
+over 2 ingest workers) against the tree encoder, launches included.
 """
 
 import numpy as np
@@ -982,3 +985,73 @@ def test_cuda_rule_summary_direct_form_refuses_a_period_of_several_tiles(cuda_de
         rc = lib.guard_rule_summary_as(form, statuses.data_ptr(), out.data_ptr(), 4, 1028,
                                        4, torch.cuda.current_stream().cuda_stream)
         assert rc != 0
+
+
+@pytest.fixture(scope="module")
+def ingest_inputs(tmp_path_factory):
+    """8,192 seeded security templates and a 30,002-node volume template
+    (the 32,768-node bucket), and the native encoder built into a
+    temporary directory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import json
+
+    from guard_tpu_torch.ops import _native_lib, native_encoder
+    from guard_tpu_torch.workloads import RULES, make_template, volume_template
+
+    root = tmp_path_factory.mktemp("ingest")
+    data = root / "data"
+    data.mkdir()
+    rng = np.random.default_rng(SEED)
+    for i in range(8192):
+        (data / f"t{i:04d}.json").write_text(json.dumps(make_template(rng, i)))
+    (data / "volumes.json").write_text(json.dumps(volume_template(6000)))
+    (root / "security.guard").write_text(RULES)
+    saved = _native_lib.NATIVE_DIR
+    _native_lib.NATIVE_DIR = root / "native"
+    try:
+        native_encoder.build_native()
+    finally:
+        _native_lib.NATIVE_DIR = saved
+    return root
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers", [0, 2])
+def test_cuda_native_ingest_matches_tree_encoder(cuda_device, ingest_inputs, monkeypatch,
+                                                 workers):
+    """Statuses-only validate on the card from the native encoder (in
+    this process, or over 2 ingest workers) gives the tree encoder's
+    statuses, unsure bits, rim blocks, stdout and kernel launches."""
+    from guard_tpu_torch.commands.validate import Validate
+    from guard_tpu_torch.ops import _native_lib, native_encoder
+    from guard_tpu_torch.parallel import ingest
+    from guard_tpu_torch.utils.io import Reader, Writer
+
+    monkeypatch.setattr(_native_lib, "_libs", {})
+    monkeypatch.setattr(native_encoder, "_configured", None)
+    monkeypatch.setenv("GUARD_TPU_TORCH_NATIVE_DIR", str(ingest_inputs / "native"))
+    runs = []
+    for native_dir, w in ((ingest_inputs / "no_native", 0), (ingest_inputs / "native", workers)):
+        monkeypatch.setattr(_native_lib, "NATIVE_DIR", native_dir)
+        monkeypatch.setattr(_native_lib, "_libs", {})
+        monkeypatch.setattr(native_encoder, "_configured", None)
+        cmd = Validate(rules=[str(ingest_inputs / "security.guard")],
+                       data=[str(ingest_inputs / "data")], device="cuda",
+                       statuses_only=True, ingest_workers=w)
+        w_ = Writer.buffered()
+        K.reset_launches()
+        rc = cmd.execute(w_, Reader.from_string(""))
+        torch.cuda.synchronize()
+        runs.append((rc, w_.stripped(), w_.err_to_stripped(), dict(K.LAUNCHES),
+                     cmd.last_evaluation))
+    ingest.close_shared_pools()
+    (tree, native) = runs
+    assert tree[4].ingest["path"] == "tree"
+    assert native[4].ingest["path"] == ("pool" if workers >= 2 else "native")
+    assert tree[:4] == native[:4] and tree[0] == 19 and tree[3]["rim_reduce"] > 0
+    for a, b in zip(tree[4].files, native[4].files):
+        assert np.array_equal(a.statuses, b.statuses)
+        assert np.array_equal(a.unsure, b.unsure)
+        for x, y in zip(a.rim, b.rim):
+            assert np.array_equal(x, y)
