@@ -49,8 +49,9 @@ no result line):
    (ii) with one template made invalid JSON under --max-doc-failures 1
    (rc 19, one `skipping ...: invalid JSON` line, the template absent
    from stdout, every other template's statuses as before) and, over
-   the first 4,096 templates, 0 (rc 5). Then full
-   reports of the same documents (phase `report`, their trees reused)
+   the first 2,048 templates, 0 (rc 5). Then full
+   reports of the first 16,384 of the same documents and the volume
+   template (phase `report`, their trees reused)
    through Validate on the card without --statuses-only: (a) the
    single-line report (on the tree encoder) and (b) the structured
    JSON, with the native oracle built, each with every counter set to 0
@@ -65,17 +66,17 @@ no result line):
    reruns must go through the spawn pool, byte-identical to the first
    4,096 documents of (a) and (b), and (d) SARIF and JUnit, which must
    parse and equal the same runs on the CPU; then (e) the single-line
-   run over all 65,537 with the native oracle off, every FAIL rerun in
+   run over all of them with the native oracle off, every FAIL rerun in
    the pool, byte-identical to (a). Then the
    cross-reference policy (workloads.XREF_RULES: query-RHS compares and
-   `.%var` interpolation, kernels K4-K6) the same way over 65,536 seeded
+   `.%var` interpolation, kernels K4-K6) the same way over 16,384 seeded
    make_xref_template templates plus the volume template, with its own
    counters set to 0 just before and read just after, on the tree
    encoder, then on ingest path (ii) (DocBatch.struct_ids on the native
    batch), which must give the same statuses, unsure bits, rim blocks,
    stdout and launches (K1 174, K2 183, K3 3, K4 24, K5 3, K6 9).
    Neither may send a document to the CPU oracle. Then the backends off
-   the device (phase `backends`): the first 4,096 security templates
+   the device (phase `backends`): the first 2,048 security templates
    through Validate with --backend cpu, native and auto, `-S all` and
    `-z -o json -S none`: rc 19 and stdout byte-identical to the tpu
    run's (the JAX package's cpu and tpu runs agree on these flags);
@@ -83,7 +84,7 @@ no result line):
    Then the function-variable policy
    (workloads.FNVAR_RULES: the rules of canonical_names.guard, a
    function let and an inline call, run through the walk's StepFnVar
-   arm) the same way over 65,536 seeded make_fnvar_template templates,
+   arm) the same way over 16,384 seeded make_fnvar_template templates,
    about 0.5 % of them holding a number with no exact device encoding,
    plus the volume template: the CPU oracle must rerun exactly those
    templates, and the per-rule statuses of 2,048 templates must equal
@@ -93,6 +94,22 @@ no result line):
    on the CPU, exactly equal; then each of them through Validate over
    its own tests' inputs, the single-line report with `-S all` and the
    structured JSON, on the card and on the CPU, byte-equal.
+   Then the registry (phase `packing`): all 249 corpus files over the
+   corpus's 725 test inputs replicated in order to N_PACKING documents,
+   through backend.evaluate packed and with packing off on the card and
+   packed on the CPU, the counters set to 0 just before the packed run
+   and read just after: 245 files in one pack of 253 rules, one walk and
+   one K3 launch per (pack, bucket) against one per (file, bucket), and
+   per file equal statuses, unsure bits, rim blocks and oracle
+   documents; the pack's columnarization and walk; the CLI over the 725
+   inputs (`-S all`, `-z -o json -S none`) packed, --no-pack,
+   --no-plan-cache and in a process that loads the plan artifact, each
+   in a process of its own, all with the same stdout, stderr and rc;
+   --statuses-only over N_PACKING_STATUSES documents, packed; and the
+   fault legs over 16 inputs (dispatch:nth=1 and collect:nth=1 print the
+   unarmed run's bytes and count a fallback, the unarmed run none;
+   oracle:nth=1 with the native oracle off exits 5 with the injected
+   line).
    Then the per-rule summary (phase `summary`): the security policy over
    65,536 seeded templates plus the volume template, built in memory,
    encoded per bucket and counted by DeviceBatchEvaluator.with_summary
@@ -113,10 +130,12 @@ no result line):
 
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches (every kernel twice: at the main shape and at the
-one-document 65,536-node bucket's heaviest shape) on its main path
+one-document 65,536-node bucket's heaviest shape; K3 also at the
+registry pack's shape) on its main path
 (K1-K3 the security policy's, K4-K6
 the cross-reference policy's, K7 the summary's; every path's in
-`launches_by_path`, the report phase's run (a) among them, and
+`launches_by_path`, the report phase's run (a) and the packed
+registry's among them, and
 for K1 the launches made by the StepFnVar arm), its error against the plain version, its
 time (`ms`, host cost included, and `device_ms`, the card's alone), the
 plain version's, the bound (bytes over the card's memory rate) and a
@@ -171,9 +190,22 @@ SUMMARY_SWEEP_D = (1, 4096, 65536, 1 << 20)
 # every R % 4 (R 36-39), full packs (512) and a last tile of one word (1,028)
 SUMMARY_SWEEP_R = (1, 4, 5, 36, 37, 38, 39, 512, 1024, 1028)
 N_SUMMARY_CHECK = 2048  # summary templates held against the CPU
-N_BACKEND = 4096  # templates of the backends phase
+N_BACKEND = 2048  # templates of the backends phase
+# depths cut from 65,536 to keep the smoke in its time limit beside
+# phase `packing`: the fnvar and xref templates, and the slice
+# templates the report phase reports (each phase keeps the volume
+# template as well)
+N_FNVAR_TEMPLATES = 16384
+N_XREF_TEMPLATES = 16384
+N_REPORT_DOCS = 16384
 N_VERBOSE = 64  # templates printed with -v and -p
 QUARANTINE_DOC = 1234  # the template the quarantine runs make invalid JSON
+N_PACKING = 65536  # registry documents: the corpus's test inputs replicated in order
+# documents of the registry's packed --statuses-only run: the largest
+# power of two whose pass B (249 files a document) fits in about 120 s
+# on the card's host (16,384 took 140 s there)
+N_PACKING_STATUSES = 8192
+N_PACKING_FAULT = 16  # registry documents of the fault legs (inline oracle reruns)
 # launches of the statuses-only runs on the tree encoder (the native
 # buckets must give the same)
 EXPECTED_LAUNCHES = {
@@ -1102,7 +1134,7 @@ def phase_xref(device, tmp: Path):
     from guard_tpu_torch.workloads import XREF_RULES, make_xref_template, volume_template
 
     rng = np.random.default_rng(SEED + 2)
-    docs = [make_xref_template(rng, i) for i in range(N_TEMPLATES)]
+    docs = [make_xref_template(rng, i) for i in range(N_XREF_TEMPLATES)]
     docs.append(volume_template(N_VOLUMES))
     with native_encoder_off(tmp):
         info, ev, files = drive_validate(device, tmp, "xref", XREF_RULES, docs, per_rule=True,
@@ -1140,7 +1172,7 @@ def phase_fnvar(device, tmp: Path):
     from guard_tpu_torch.ops.backend import STATUS
     from guard_tpu_torch.workloads import FNVAR_RULES, make_fnvar_template, volume_template
 
-    n = N_TEMPLATES
+    n = N_FNVAR_TEMPLATES
     rng = np.random.default_rng(SEED + 3)
     exotic = rng.random(n) < EXOTIC_SHARE
     docs = [make_fnvar_template(rng, i, exotic=bool(exotic[i])) for i in range(n)]
@@ -1239,9 +1271,10 @@ def report_summary(run: dict) -> dict:
             "report_bytes": len(run["out"].encode()), "launches": run["launches"]}
 
 
-def phase_report(device, tmp: Path, data_files, slice_ev) -> dict:
+def phase_report(device, tmp: Path, data_files, slice_ev, rows) -> dict:
     """Slice 8's main path: full reports of the slice's documents (the
-    trees its run built) through Validate on the card, without
+    trees its run built; `rows` are their positions in the slice's
+    evaluation) through Validate on the card, without
     --statuses-only: (a) the single-line report and (b) the structured
     JSON, with the native oracle built. The FAIL set equals the
     statuses-only run's, every report's statuses equal the rim's
@@ -1272,7 +1305,7 @@ def phase_report(device, tmp: Path, data_files, slice_ev) -> dict:
     fr = slice_ev.files[0]
     n = len(data_files)
     names = [df.name for df in data_files]
-    want_fail = {names[i] for i in np.nonzero(fr.rim[2][:, 0] == FAIL)[0]}
+    want_fail = {names[i] for i in np.nonzero(fr.rim[2][rows, 0] == FAIL)[0]}
     out = {"docs": n, "fail_docs": len(want_fail)}
 
     with native_encoder_off(tmp):
@@ -1296,9 +1329,10 @@ def phase_report(device, tmp: Path, data_files, slice_ev) -> dict:
         got = {r["Rule"]["name"]: "FAIL" for r in rep["not_compliant"]}
         got.update({nm: "SKIP" for nm in rep["not_applicable"]})
         got.update({nm: "PASS" for nm in rep["compliant"]})
-        want = {nm: STATUS[int(fr.rim[0][di, g])].value for g, nm in enumerate(fr.names)}
+        want = {nm: STATUS[int(fr.rim[0][rows[di], g])].value
+                for g, nm in enumerate(fr.names)}
         check(got == want, f"report (b) of {names[di]}: {got} against the rim's {want}")
-        check(rep["status"] == STATUS[int(fr.rim[2][di, 0])].value,
+        check(rep["status"] == STATUS[int(fr.rim[2][rows[di], 0])].value,
               f"report (b) of {names[di]}: status {rep['status']}")
     rf = structured["ev"].files[0].rule_file.rules
     t0 = time.perf_counter()
@@ -1766,6 +1800,321 @@ def phase_entry(device) -> dict:
             "counts": counts.tolist(), "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the packed registry (phase `packing`)
+# ---------------------------------------------------------------------------
+
+
+def registry_files(tmp: Path):
+    """The 249 corpus rule files (as RuleFile objects and copied into a
+    rules directory) and the corpus's test inputs written once each into
+    a data directory: the registry configuration's files."""
+    from guard_tpu_torch.commands.validate import RuleFile
+    from guard_tpu_torch.core.parser import parse_rules_file
+
+    paths, plain = corpus_inputs()
+    rules_dir, data_dir = tmp / "registry_rules", tmp / "registry_data"
+    rules_dir.mkdir()
+    data_dir.mkdir()
+    rule_files = []
+    for p in paths:
+        text = p.read_text()
+        (rules_dir / p.name).write_text(text)
+        rule_files.append(RuleFile(p.name, str(p), text, parse_rules_file(text, p.name)))
+    for i, doc in enumerate(plain):
+        (data_dir / f"d{i:04d}.json").write_text(json.dumps(doc))
+    return rule_files, plain, rules_dir, data_dir
+
+
+def packing_columns(device, evaluation, rule_files) -> dict:
+    """The 253-rule pack's host columnarization (device_arrays) of the
+    largest bucket, its copy to the card and its walk with K3 behind it
+    (CUDA events), as the packed run issued them."""
+    import torch
+
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.ops import plan as plan_mod
+    from guard_tpu_torch.ops.kernels import arrays_from_numpy, build_doc_evaluator
+
+    (_pos, packed, spec), = plan_mod.get_plan(rule_files, device=device).packs
+    compiled = packed.compiled
+    batch = max(evaluation.groups, key=lambda g: g[0].n_docs * g[0].n_nodes)[0]
+    t0 = time.perf_counter()
+    arrays, lits = compiled.device_arrays(batch), compiled.lit_values()
+    cols_s = time.perf_counter() - t0
+    sync(device)
+    t0 = time.perf_counter()
+    t_arrays, t_lits = arrays_from_numpy(arrays, lits, device)
+    sync(device)
+    h2d_s = time.perf_counter() - t0
+    fn = build_doc_evaluator(compiled)
+    ids = [torch.from_numpy(a).to(device) for a in (spec.group_ids, spec.file_ids, spec.last_ids)]
+
+    def walk():
+        st, un = fn(t_arrays, t_lits)
+        return K.rim_reduce(st, un if compiled.needs_unsure else None, *ids,
+                            spec.n_groups, spec.n_files)
+
+    info = {"D": batch.n_docs, "N": batch.n_nodes, "rules": len(compiled.rules),
+            "columns": len(arrays), "columnarize_s": cols_s, "h2d_s": h2d_s,
+            "h2d_bytes": sum(v.numel() * v.element_size() for v in t_arrays.values())}
+    if device.type == "cuda":
+        info["walk_ms"] = cuda_ms(walk, reps=3)
+    return info
+
+
+# `python -m guard_tpu_torch validate ARGS`, then the plan layer's
+# counters as the last line of stderr
+_CLI_WITH_PLAN_STATS = (
+    "import json, sys\n"
+    "from guard_tpu_torch import cli\n"
+    "from guard_tpu_torch.ops import plan\n"
+    "rc = cli.run(sys.argv[1:])\n"
+    "sys.stdout.flush()\n"
+    "print(json.dumps(plan.plan_stats()), file=sys.stderr)\n"
+    "sys.exit(rc)\n"
+)
+
+
+def run_cli_states(argvs: dict, plan_dir: Path, module: bool = False) -> dict:
+    """Each argv of `argvs` through the CLI in a process of its own, all
+    started together, with the plan artifacts in `plan_dir`: per key its
+    rc, stdout, stderr, wall and plan counters (with `module`, as
+    `python -m guard_tpu_torch`, which prints no counters)."""
+    # serial encode: 725 documents do not pay for spawning an ingest pool
+    env = dict(os.environ, GUARD_TPU_PLAN_CACHE_DIR=str(plan_dir), GUARD_TPU_INGEST_WORKERS="0")
+    entry = ["-m", "guard_tpu_torch"] if module else ["-c", _CLI_WITH_PLAN_STATS]
+    procs = {}
+    for key, argv in argvs.items():
+        procs[key] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, *entry, *argv], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    out = {}
+    for key, (t0, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            for _t, other in procs.values():
+                other.kill()
+            raise
+        err, stats = stderr, None
+        if not module:
+            err, _, stats = stderr.rstrip("\n").rpartition("\n")
+            err, stats = (err + "\n" if err else ""), json.loads(stats)
+        out[key] = {"rc": proc.returncode, "out": stdout, "err": err,
+                    "wall_s": time.perf_counter() - t0, "plan": stats}
+    return out
+
+
+def phase_packing(device, tmp: Path) -> dict:
+    """The registry configuration (BASELINE.json config 5 cut to one
+    card): all 249 corpus files over the corpus's 725 test inputs
+    replicated in order to N_PACKING documents. (1) backend.evaluate
+    packed and with packing off on the card and packed on the CPU: equal
+    statuses, unsure bits, rim blocks and oracle documents per file, one
+    walk and one K3 launch per (pack, bucket) against one per (file,
+    bucket); (2) the pack's columnarization and walk; (3) `validate`
+    over the 725 inputs, `-S all` and `-z -o json`, packed, --no-pack,
+    --no-plan-cache and on a warm plan cache (a disk hit): the same
+    stdout and rc, and the module entry point's equal to them; (4)
+    --statuses-only over N_PACKING_STATUSES documents, packed; (5) the
+    fault legs: dispatch:nth=1 and collect:nth=1 print the unarmed run's
+    stdout and rc and count a dispatch fallback, the unarmed run none,
+    and oracle:nth=1 (native oracle off) exits 5 with the injected line.
+    Every kernel counter is set to 0 just before the packed run (1) and
+    read just after it."""
+    import numpy as np
+    import torch
+
+    from guard_tpu_torch import cli
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.commands.validate import DataFile, Validate
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops import plan as plan_mod
+    from guard_tpu_torch.ops.backend import evaluate
+    from guard_tpu_torch.ops.native_encoder import encode_json_bucketed
+    from guard_tpu_torch.parallel.device import DISPATCH_COUNTERS, EFFICIENCY_COUNTERS
+    from guard_tpu_torch.utils import faults
+    from guard_tpu_torch.utils.io import Reader, Writer
+
+    rule_files, plain, rules_dir, data_dir = registry_files(tmp)
+    texts = [json.dumps(d) for d in plain]
+    pvs = [from_plain(d) for d in plain]
+    docs = [pvs[i % len(pvs)] for i in range(N_PACKING)]
+    doc_texts = [texts[i % len(texts)] for i in range(N_PACKING)]
+    out = {"files": len(rule_files), "inputs": len(plain), "docs": N_PACKING}
+
+    # (1) the evaluation, packed and per file on the card, and packed on
+    # the CPU over the distinct inputs (document i is input i % 725)
+    runs = {}
+    for label, dev, pack in (("packed", device, True), ("per_file", device, False),
+                             ("cpu", torch.device("cpu"), True)):
+        run_docs, run_texts = (pvs, texts) if label == "cpu" else (docs, doc_texts)
+        t0 = time.perf_counter()
+        groups, oversize, interner, err = encode_json_bucketed(run_texts)
+        check(err is None, f"packing: the native encoder failed: {err}")
+        encode_s = time.perf_counter() - t0
+        faults.reset_faults()
+        DISPATCH_COUNTERS["dispatches"] = 0
+        for key in EFFICIENCY_COUNTERS:
+            EFFICIENCY_COUNTERS[key] = 0
+        K.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        ev = evaluate(rule_files, run_docs, dev, shared=(groups, oversize, interner),
+                      pack_rules=pack)
+        sync(device)
+        wall = time.perf_counter() - t0
+        check(faults.FAULT_COUNTERS["dispatch_fallbacks"] == 0
+              and faults.FAULT_COUNTERS["oracle_fallbacks"] == 0,
+              f"packing {label}: an unarmed run fell back")
+        runs[label] = {
+            "ev": ev, "wall_s": wall, "encode_s": encode_s, "seconds": dict(ev.seconds),
+            "dispatches": DISPATCH_COUNTERS["dispatches"], "launches": dict(K.LAUNCHES),
+            "shapes": {k: dict(v) for k, v in K.SHAPES.items()},
+            "pack_rule_slots": dict(EFFICIENCY_COUNTERS),
+        }
+        log(f"packing {label}: wall {wall:.2f}s {json.dumps(ev.seconds)}")
+    packed, per_file, cpu = (runs[k]["ev"] for k in ("packed", "per_file", "cpu"))
+    check([len(p) for p in packed.packs] == [245] and per_file.packs == [],
+          f"packing: packs {[len(p) for p in packed.packs]}")
+    n_rules = sum(len(fr.compiled.rules) for fr in packed.files if fr.pack == 0)
+    check(n_rules == 253, f"packing: the pack holds {n_rules} rules")
+    n_buckets = len(packed.groups)
+    own = sum(len(fr.groups) for fr in packed.files if fr.pack is None and fr.compiled.rules)
+    check(runs["packed"]["dispatches"] == n_buckets + own,
+          f"packing: {runs['packed']['dispatches']} packed walks")
+    check(runs["per_file"]["dispatches"] == 245 * n_buckets + own,
+          f"packing: {runs['per_file']['dispatches']} per-file walks")
+    if device.type == "cuda":
+        check(runs["packed"]["launches"]["rim_reduce"] == n_buckets + own,
+              f"packing: K3 launched {runs['packed']['launches']['rim_reduce']} times packed")
+        check(runs["per_file"]["launches"]["rim_reduce"] == 245 * n_buckets + own,
+              "packing: per-file K3 launches")
+    tile = np.arange(N_PACKING) % len(plain)
+    for label, other, rows in (("per_file", per_file, slice(None)), ("cpu", cpu, tile)):
+        for a, b in zip(packed.files, other.files):
+            name = a.rule_file.name
+            check((a.statuses == b.statuses[rows]).all() and (a.unsure == b.unsure[rows]).all(),
+                  f"packing {label}: {name} statuses or unsure differ")
+            want = b.host_docs if label == "per_file" else set(
+                np.nonzero(np.isin(tile, sorted(b.host_docs)))[0].tolist())
+            check(a.host_docs == want, f"packing {label}: {name} oracle docs differ")
+            for k, (x, y) in enumerate(zip(a.rim, b.rim)):
+                check(x.dtype == y.dtype and x.shape[1] == y.shape[1] and (x == y[rows]).all(),
+                      f"packing {label}: {name} rim block {k} differs")
+    pack_files = [fr for fr in packed.files if fr.pack == 0]
+    spec_ids = plan_mod.get_plan(rule_files, device=device).packs[0][2]
+    out.update({
+        "buckets": [(b.n_docs, b.n_nodes) for b, _ in packed.groups],
+        "packs": [len(p) for p in packed.packs], "pack_rules": n_rules,
+        "fail_cells": int(sum((fr.statuses == 1).sum() for fr in pack_files)),
+        "host_docs": len(set().union(*(fr.host_docs for fr in packed.files))),
+        "runs": {k: {kk: vv for kk, vv in v.items() if kk not in ("ev", "shapes")}
+                 for k, v in runs.items()},
+    })
+    info = {"launches": runs["packed"]["launches"], "shapes": runs["packed"]["shapes"],
+            "rim_spec": spec_ids}
+    del runs, per_file, cpu
+
+    # (2) the pack's columnarization and walk
+    out["pack_bucket"] = packing_columns(device, packed, rule_files)
+    del packed
+    log(f"packing columns: {json.dumps(out['pack_bucket'])}")
+
+    # (3) the CLI over the 725 inputs, in four states of the plan layer:
+    # the packed runs first, `python -m guard_tpu_torch validate` with a
+    # cold plan cache (each saves the artifact), then the other states of
+    # both flag sets side by side, the warm one a new process that loads
+    # the artifact
+    cli_dir = tmp / "registry_plans"
+    base = ["validate", "--device", str(device), "-r", str(rules_dir), "-d", str(data_dir)]
+    flag_sets = {"show_all": ["-S", "all"],
+                 "structured_json": ["-z", "-o", "json", "-S", "none"]}
+    states = {"no_pack": ["--no-pack"], "no_plan_cache": ["--no-plan-cache"], "warm": []}
+    cold = run_cli_states({f: base + flags for f, flags in flag_sets.items()}, cli_dir,
+                          module=True)
+    rest = run_cli_states({(f, st): base + flags + extra for f, flags in flag_sets.items()
+                           for st, extra in states.items()}, cli_dir)
+    out["cli"] = {}
+    for fname in flag_sets:
+        first = cold[fname]
+        # a few corpus inputs raise in other files' rules (rc 5, their
+        # messages on stderr), as on the JAX package
+        check(first["rc"] in (19, 5) and first["out"], f"packing cli {fname}: rc {first['rc']}")
+        for st in states:
+            run = rest[(fname, st)]
+            check((run["rc"], run["out"], run["err"]) == (first["rc"], first["out"], first["err"]),
+                  f"packing cli {fname}: {st} differs from packed")
+        warm = rest[(fname, "warm")]["plan"]
+        check(warm["hits"] == 1 and warm["misses"] == 0 and warm["bytes_loaded"] > 0,
+              f"packing cli {fname}: the warm run missed: {warm}")
+        out["cli"][fname] = {
+            "rc": first["rc"], "bytes": len(first["out"].encode()),
+            "stderr_lines": len(first["err"].splitlines()), "packed_s": first["wall_s"],
+            **{f"{st}_s": rest[(fname, st)]["wall_s"] for st in states},
+        }
+
+    # (4) --statuses-only over N_PACKING_STATUSES documents, packed
+    files = [DataFile(name=f"d{i:06d}.json", content=doc_texts[i % len(doc_texts)])
+             for i in range(N_PACKING_STATUSES)]
+    writer = Writer.buffered()
+    cmd = Validate(rules=[str(rules_dir)], prepared_data=files, statuses_only=True,
+                   device=str(device))
+    K.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    rc = cmd.execute(writer, Reader())
+    sync(device)
+    wall = time.perf_counter() - t0
+    ev = cmd.last_evaluation
+    check(rc in (19, 5) and [len(p) for p in ev.packs] == [245],
+          f"packing statuses-only: rc {rc}, packs {[len(p) for p in ev.packs]}")
+    out["statuses_only"] = {"docs": N_PACKING_STATUSES, "rc": rc, "wall_s": wall,
+                            "stderr_lines": len(writer.err_to_stripped().splitlines()),
+                            "seconds": dict(ev.seconds), "ingest": ev.ingest.get("path"),
+                            "bytes": len(writer.stripped().encode()),
+                            "launches": dict(K.LAUNCHES)}
+    del files, ev, cmd
+
+    # (5) the fault legs, over the first N_PACKING_FAULT inputs
+    fault_data = tmp / "registry_fault_data"
+    fault_data.mkdir()
+    for i, text in enumerate(texts[:N_PACKING_FAULT]):
+        (fault_data / f"d{i:04d}.json").write_text(text)
+    fault_args = ["validate", "--device", str(device), "-S", "all",
+                  "-r", str(rules_dir), "-d", str(fault_data)]
+
+    def armed(spec):
+        if spec:
+            os.environ["GUARD_TPU_FAULT"] = spec
+        faults.reset_faults()
+        writer = Writer.buffered()
+        try:
+            rc = cli.run(fault_args, writer=writer)
+        finally:
+            os.environ.pop("GUARD_TPU_FAULT", None)
+        return rc, writer.stripped(), writer.err_to_stripped(), faults.fault_stats()
+
+    unarmed = armed(None)
+    check(unarmed[0] in (19, 5) and unarmed[3]["dispatch_fallbacks"] == 0
+          and unarmed[3]["oracle_fallbacks"] == 0, f"packing faults: unarmed {unarmed[3]}")
+    out["faults"] = {}
+    for spec in ("dispatch:nth=1", "collect:nth=1"):
+        got = armed(spec)
+        check(got[:3] == unarmed[:3], f"packing faults: {spec} changed the output")
+        check(got[3]["dispatch_fallbacks"] >= 1, f"packing faults: {spec} did not fall back")
+        out["faults"][spec] = {k: got[3][k] for k in ("dispatch_fallbacks", "oracle_fallbacks")}
+    with native_oracle_off(tmp):
+        got = armed("oracle:nth=1")
+    check(got[0] == 5 and "injected oracle fault" in got[2]
+          and "injected oracle fault" not in unarmed[2],
+          f"packing faults: oracle rc {got[0]}: {got[2][-300:]}")
+    out["faults"]["oracle:nth=1"] = {"rc": got[0], "injected": got[3]["injected_oracle"]}
+    return out, info
+
+
 def main_shape(shapes: dict, name: str):
     """The launch shape of a kernel that moved the most elements on the
     main path."""
@@ -1808,6 +2157,35 @@ def seg_min_max_library(seg, mask, hi, lo, s: int):
         return mn, mx
 
     return library
+
+
+def k3_packed_row(device, gen, pk: dict, rate: float) -> dict:
+    """K3 at the registry pack's launch shape, on the pack's own group,
+    file and last-rule ids and seeded statuses and unsure bits, against
+    its plain version."""
+    import torch
+
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.kernels import plain
+
+    spec = pk["rim_spec"]
+    d, r, g, f = main_shape(pk["shapes"], "rim_reduce")
+    check((r, g, f) == (len(spec.group_ids), spec.n_groups, spec.n_files),
+          f"the packed K3 shape {(d, r, g, f)} is not the pack's")
+    args = k3_inputs(gen, d, r, g, f, device)[:2] + tuple(
+        torch.from_numpy(a).to(device) for a in (spec.group_ids, spec.file_ids, spec.last_ids))
+    return {
+        "name": "rim_reduce", "path": "packing",
+        "shape": {"D": d, "R": r, "G": g, "F": f},
+        "shape_launches": pk["shapes"]["rim_reduce"][(d, r, g, f)],
+        "branch": K._lib().guard_rim_reduce_branch(d, r, g, f),
+        "max_abs_err": _max_abs_err(K.rim_reduce(*args, g, f), plain.rim_reduce(*args, g, f)),
+        "ms": cuda_ms(lambda: K.rim_reduce(*args, g, f)),
+        "device_ms": graph_ms(lambda: K.rim_reduce(*args, g, f)),
+        "plain_ms": cuda_ms(lambda: plain.rim_reduce(*args, g, f), reps=3),
+        "bound_ms": k3_bytes(d, r, g, f) / rate * 1e3,
+        "library_ms": None,
+    }
 
 
 def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
@@ -1889,6 +2267,9 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
             "bound_ms": k3_bytes(d, r, g, f) / rate * 1e3,
             "library_ms": None,
         })
+    # the rim of the registry's pack (phase `packing`)
+    if "packing" in infos:
+        out.append(k3_packed_row(device, gen, infos["packing"], rate))
     del vec, idx, args
 
     for d, nq, ns in (main_shape(xref_info["shapes"], "set_count_rows"),
@@ -1977,7 +2358,8 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
         name = entry["name"]
         entry.update({
             "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": infos[main_path.get(name, "security")]["launches"][name],
+            "launches": infos[entry.get("path") or main_path.get(name, "security")][
+                "launches"][name],
             "bound_by": "bytes",
             "launches_by_path": {path: info["launches"][name] for path, info in infos.items()},
             "sweep": sweep[name],
@@ -2509,6 +2891,8 @@ def main() -> int:
     log(f"phase 2 (kernels vs plain) ok in {took()}")
     with tempfile.TemporaryDirectory(prefix="guard_smoke_") as td:
         tmp = Path(td)
+        # the plan layer's artifacts, of this run and its subprocesses
+        os.environ["GUARD_TPU_PLAN_CACHE_DIR"] = str(tmp / "plans")
         slice_info, evaluation, data_files = phase_slice(device, tmp)
         log(f"phase 3 (slice) ok in {took()}: "
             f"{json.dumps({k: v for k, v in slice_info.items() if k != 'shapes'})}")
@@ -2516,7 +2900,13 @@ def main() -> int:
         log(f"phase 3 (breakdown) in {took()}: {json.dumps(breakdown)}")
         ingest_info = phase_ingest(device, tmp, slice_info, evaluation)
         log(f"phase 3 (ingest) ok in {took()}")
-        report_info = phase_report(device, tmp, data_files, evaluation)
+        # the first N_REPORT_DOCS templates and the volume template (the
+        # last document, alone in its 65,536-node bucket)
+        rows = list(range(N_REPORT_DOCS)) + [len(data_files) - 1]
+        check(len(data_files[-1].content) == max(len(df.content) for df in data_files),
+              "the slice's last document is not the volume template")
+        report_info = phase_report(device, tmp, [data_files[i] for i in rows], evaluation,
+                                   rows)
         del evaluation, data_files
         log(f"phase 3 (report) ok in {took()}: {json.dumps(report_info)}")
         backends_info = phase_backends(device, tmp)
@@ -2540,6 +2930,8 @@ def main() -> int:
         log(f"phase 3 (flagship) ok in {took()}: {flagship}")
         corpus = phase_corpus(device)
         log(f"phase 3 (corpus) ok in {took()}: {corpus}")
+        packing, packing_info = phase_packing(device, tmp)
+        log(f"phase 3 (packing) ok in {took()}: {json.dumps(packing)}")
         summary_info = phase_summary(device)
         log(f"phase 3 (summary) ok in {took()}: "
             f"{json.dumps({k: v for k, v in summary_info.items() if k != 'shapes'})}")
@@ -2549,7 +2941,8 @@ def main() -> int:
         log(f"phase 4 (cli) ok in {took()}: {cli}")
     infos = {"security": slice_info, "xref": xref_info, "fnvar": fnvar_info,
              "summary": summary_info, "entry": entry_info, "report": report_info,
-             "ingest_ii": ingest_info["ii_auto"], "xref_ingest": xref_ingest}
+             "ingest_ii": ingest_info["ii_auto"], "xref_ingest": xref_ingest,
+             "packing": packing_info}
     kernels = contract_kernels(device, infos, sweep, card)
     log(f"kernels line in {took()}")
     leaked = sorted(
@@ -2571,7 +2964,7 @@ def main() -> int:
         "xref_breakdown": xref_breakdown,
         "fnvar": {k: v for k, v in fnvar_info.items() if k != "shapes"},
         "fnvar_breakdown": fnvar_breakdown,
-        "flagship": flagship, "corpus": corpus,
+        "flagship": flagship, "corpus": corpus, "packing": packing,
         "summary": {k: v for k, v in summary_info.items() if k != "shapes"},
         "report": report_info, "ingest": ingest_info, "xref_ingest": xref_ingest,
         "backends": backends_info,

@@ -17,5 +17,11 @@ reach the card from the port's native encoder (`ops/native_encoder.py`),
 in process or over a spawn pool of ingest workers
 (`parallel/ingest.py`), with the JAX package's document quarantine
 (`--max-doc-failures`); `validate --backend cpu|native|auto` evaluates
-on the host instead, with no card.
+on the host instead, with no card. Rule files are lowered once into a
+plan (`ops/plan.py`: an in-process memo and content-addressed artifacts
+on disk) and the files that can share one program are fused into packs,
+one walk and one rim reduction per (pack, bucket).
 """
+
+#: the port's own version: it keys the plan artifacts (ops/plan.py)
+__version__ = "0.1.0"

@@ -3,8 +3,9 @@
     python -m guard_tpu_torch validate -r RULES -d DATA \
         [-o single-line-summary|json|yaml|junit|sarif] [-z] \
         [-S fail,pass,...] [-i PARAMS] [-P] [-a|-m] [-t TYPE] [-v] [-p] \
-        [--backend tpu|cpu|native|auto] [--statuses-only] \
-        [--ingest-workers N] [--max-doc-failures N] [--device cpu]
+        [--backend tpu|cpu|native|auto] [--statuses-only] [--no-pack] \
+        [--ingest-workers N] [--max-doc-failures N] [--no-plan-cache] \
+        [--no-verify-plans] [--device cpu]
 
 Same flags, stdout, stderr and exit codes (0 pass / 19 fail / 5 error)
 as `python -m guard_tpu.cli validate` with the same flags and the same
@@ -16,6 +17,10 @@ when it is built (ops/native_oracle.build_native), else by the port's
 CPU evaluator; it runs on the CUDA device unless `--device` names
 another, and with no card and no `--device` it stops with code 5.
 `cpu`, `native` and `auto` evaluate on the host and need no card.
+
+The JAX package's `validate` flags not ported yet: `--no-result-cache`,
+`--delta-stats`, `--no-vector-rim`, `--mesh-shape`, `--trace-out` and
+`--metrics-out`.
 """
 
 from __future__ import annotations
@@ -68,6 +73,12 @@ def build_parser() -> argparse.ArgumentParser:
         "(no oracle rerun of the documents that fail on the device)",
     )
     v.add_argument(
+        "--no-pack",
+        action="store_true",
+        help="tpu backend: disable fused multi-rule-file dispatch "
+        "(evaluate each rule file through its own walk)",
+    )
+    v.add_argument(
         "--ingest-workers",
         type=int,
         default=None,
@@ -84,6 +95,20 @@ def build_parser() -> argparse.ArgumentParser:
         "more than this many docs were quarantined (0 = quarantine "
         "records but any failing doc still fails the run; omit the "
         "flag for the historical abort-on-first-failure behavior)",
+    )
+    v.add_argument(
+        "--no-plan-cache",
+        action="store_true",
+        help="tpu backend: disable the compiled-plan artifact layer "
+        "(re-lower the rule registry per call instead of reusing the "
+        "canonical plan; bit-parity escape hatch)",
+    )
+    v.add_argument(
+        "--no-verify-plans",
+        action="store_true",
+        help="tpu backend: skip the analysis plane's plan/IR invariant "
+        "verifier after lowering, relocation and artifact load "
+        "(advisory escape hatch)",
     )
     v.add_argument(
         "--device", default=None,
@@ -118,6 +143,9 @@ def run(argv: Optional[List[str]] = None, writer: Optional[Writer] = None,
         statuses_only=args.statuses_only,
         ingest_workers=args.ingest_workers,
         max_doc_failures=args.max_doc_failures,
+        pack_rules=not args.no_pack,
+        plan_cache=not args.no_plan_cache,
+        verify_plans=not args.no_verify_plans,
         device=args.device,
     )
     try:

@@ -150,6 +150,15 @@ class Validate:
     # message and left out of every report, and the run exits 5 only
     # when more than N were (a negative N allows any number)
     max_doc_failures: Optional[int] = None
+    # tpu backend: fuse the rule files that can share one program into
+    # packs (--no-pack turns it off)
+    pack_rules: bool = True
+    # tpu backend: the plan layer (ops/plan.py; --no-plan-cache turns it
+    # off)
+    plan_cache: bool = True
+    # tpu backend: the plan/IR verifier (analysis/verify.py;
+    # --no-verify-plans turns it off)
+    verify_plans: bool = True
     # None = CUDA (raises without a card); "cpu" runs the plain kernels
     device: Optional[str] = None
     # data files loaded by an earlier run, reused in place of `data`

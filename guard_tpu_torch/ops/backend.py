@@ -4,16 +4,30 @@ reruns for the reports.
 The port of the JAX package's `tpu_validate` (guard_tpu/ops/backend.py:
 1695) and its report half (`_report_files`, `_finish_report`):
 
-  1. encode the documents (`_encode_docs`: the quarantine encode under
-     --max-doc-failures, else the ingest pool, else the native encoder
-     in process, else the tree encoder) and lower every rule file;
-     files with function variables get their function results
-     precomputed on the host by the CPU evaluator
-     (ops/fnvars.precompute_fn_values) and encoded with each document,
-     so the walk's StepFnVar arm selects them on the device. Document
-     trees are built only where something walks them (`_docs_for`);
-  2. evaluate each file bucket by bucket on the device, the rim
-     reductions (K3) behind each walk;
+  1. encode the documents once (`_encode_docs`: the quarantine encode
+     under --max-doc-failures, else the ingest pool, else the native
+     encoder in process, else the tree encoder), lower every rule file
+     up front through the plan layer (ops/plan.py: the in-process memo,
+     the disk artifact, else a build), and relocate the shared encode
+     into the plan's id namespace; files with function variables get
+     their function results precomputed on the host by the CPU
+     evaluator (ops/fnvars.precompute_fn_values) and encoded with each
+     document into the plan's interner, so the walk's StepFnVar arm
+     selects them on the device. Document trees are built only where
+     something walks them (`_docs_for`);
+  2. evaluate on the device: the files that can share the shared
+     encode's program are fused into packs (`plan_packs`, one walk and
+     one rim reduction (K3) per (pack, bucket); every (pack, bucket) is
+     dispatched before any is collected), and each pack's statuses,
+     unsure bits and rim blocks are sliced back per file; the other
+     files (function variables, no device rule, a singleton pack,
+     --no-pack) evaluate bucket by bucket on their own, K3 behind each
+     walk. A packed dispatch or collect that raises a GuardError (an
+     injected `dispatch`/`collect` fault, a GUARD_TPU_DISPATCH_TIMEOUT
+     timeout) reruns per file for that bucket on the device, and a
+     failed rerun ends the run. On the per-file path an injected fault
+     sends its bucket to the host oracle, as in the JAX package; a
+     timeout, and any other error, ends the run;
   3. pass A: whole-corpus masks over the rim blocks (`rim_masks`) pick
      the documents whose report needs the oracle (failures unless
      --statuses-only, unsure bits, documents the device did not
@@ -54,13 +68,34 @@ from ..core.qresult import Status
 from ..core.scopes import RootScope
 from ..core.values import PV
 from ..core.values import Path as VPath
+from ..utils.faults import FAULT_COUNTERS, bounded_call, maybe_fail
 from ..utils.io import Writer
 from .encoder import Interner, encode_bucketed
 from .fnvars import precompute_fn_values, precomputable_fn_vars
-from .ir import FAIL, PASS, SKIP, CompiledRules, build_rim_spec, compile_rules_file
-from ..parallel.device import DeviceBatchEvaluator, evaluate_groups, resolve_device
+from .ir import (
+    FAIL,
+    PASS,
+    SKIP,
+    CompiledRules,
+    PackIncompatible,
+    build_rim_spec,
+    compile_rules_file,
+    name_groups,
+    pack_compatible,
+    pack_compiled,
+)
+from ..parallel.device import (
+    EFFICIENCY_COUNTERS,
+    DeviceBatchEvaluator,
+    evaluate_groups,
+    resolve_device,
+)
 
 log = logging.getLogger("guard_tpu_torch.backend")
+
+# rule-packing ceiling: packs close when their rule count would exceed
+# this (the 249 corpus files' 253 packable rules fit in one pack)
+PACK_MAX_RULES = 512
 
 STATUS = {PASS: Status.PASS, FAIL: Status.FAIL, SKIP: Status.SKIP}
 
@@ -93,6 +128,9 @@ class FileResult:
     # the per-bucket groups this file was evaluated on: the shared ones,
     # or its own when its function results were encoded with the docs
     groups: Optional[list] = None
+    # the position of the pack this file was evaluated in
+    # (Evaluation.packs), None when it was evaluated on its own
+    pack: Optional[int] = None
 
 
 @dataclass
@@ -123,6 +161,8 @@ class Evaluation:
     # "pool", "native" or "tree" (None when no file used it), the
     # ingest workers, and the pool's stats
     ingest: dict = field(default_factory=dict)
+    # the member file positions of each pack evaluated
+    packs: List[tuple] = field(default_factory=list)
 
 
 def rim_masks(any_fail, any_unsure, host_mask, has_host_rules: bool,
@@ -165,15 +205,173 @@ def uses_shared_encode(rule_file) -> bool:
     return bool(rule_file.rules.guard_rules) and not precomputable_fn_vars(rule_file.rules)
 
 
-def evaluate(rule_files, docs, device=None, shared=None) -> Evaluation:
+def plan_packs(items, max_rules: Optional[int] = None):
+    """Greedy pack planner over [(file_idx, CompiledRules)] pairs
+    already screened with ir.pack_compatible: packs fill in file order
+    and close when the next file would push the pack past `max_rules`.
+    File order is preserved so packed statuses slice back per file in
+    the caller's order."""
+    max_rules = PACK_MAX_RULES if max_rules is None else max_rules
+    packs, cur, cur_rules = [], [], 0
+    for fi, c in items:
+        n = len(c.rules)
+        if cur and cur_rules + n > max_rules:
+            packs.append(cur)
+            cur, cur_rules = [], 0
+        cur.append((fi, c))
+        cur_rules += n
+    if cur:
+        packs.append(cur)
+    return packs
+
+
+class PackPending:
+    """In-flight state between `dispatch_packs` and `collect_packs`:
+    per pack (pack, PackedRules, RimSpec, evaluator, handles), each
+    handle (doc indices, bucket batch, dispatch handle or None when the
+    dispatch failed), and the documents no bucket holds."""
+
+    __slots__ = ("pending", "host_docs", "n_docs")
+
+    def __init__(self, pending, host_docs, n_docs):
+        self.pending = pending
+        self.host_docs = host_docs
+        self.n_docs = n_docs
+
+
+def dispatch_packs(items, groups, n_docs: int, oversize=(), device=None,
+                   prepacked=None) -> PackPending:
+    """Dispatch half of the fused multi-rule-file path: pack the
+    compatible compiled files (plan_packs; or `prepacked`, the plan
+    layer's [(pack, PackedRules, RimSpec)], which skips planning and
+    packing) and dispatch EVERY (pack, bucket) of the shared encode
+    `groups` without collecting. `oversize` are the documents no bucket
+    holds. A dispatch that raises a GuardError keeps its bucket (handle
+    None) for collect_packs' ladder."""
+    dev = resolve_device(device)
+    planned = [] if prepacked is None else prepacked
+    if prepacked is None and len(items) >= 2:
+        for pack in plan_packs(items):
+            if len(pack) < 2:
+                continue  # a singleton pack gains nothing over per-file
+            try:
+                packed = pack_compiled([c for _, c in pack])
+            except PackIncompatible as e:
+                log.info("pack of %d files fell back to per-file: %s", len(pack), e)
+                continue
+            planned.append((pack, packed, packed.rim_spec()))
+    pending = []
+    # every pack's evaluator is built before the first dispatch
+    for pack, packed, spec in planned:
+        EFFICIENCY_COUNTERS["pack_rule_slots_used"] += len(packed.compiled.rules)
+        EFFICIENCY_COUNTERS["pack_rule_slots_capacity"] += PACK_MAX_RULES
+        ev = DeviceBatchEvaluator(packed.compiled, dev, rim_spec=spec)
+        pending.append((pack, packed, spec, ev, []))
+    for pack, _packed, _spec, ev, handles in pending:
+        for sub, idx in groups:
+            try:
+                maybe_fail("dispatch")
+                handles.append((idx, sub, ev.dispatch(sub)))
+            except GuardError as e:
+                log.warning("packed dispatch failed for a %d-doc bucket (%s); "
+                            "will retry per-file at collect", len(idx), e)
+                FAULT_COUNTERS["dispatch_fallbacks"] += 1
+                handles.append((idx, sub, None))
+    return PackPending(pending, {int(i) for i in oversize}, n_docs)
+
+
+def collect_packs(pp: PackPending) -> dict:
+    """Collect half: wait for every (pack, bucket) and slice the results
+    back per file. Returns {file_idx: (statuses (D, R_f) int8, unsure
+    (D, R_f) bool, host_docs set, rim)}, `rim` the file's six blocks in
+    FileResult's shapes (doc status, any-fail and any-unsure as (D, 1)
+    columns).
+
+    The degradation ladder: a bucket whose dispatch or collect raised a
+    GuardError (an injected fault or a timeout) reruns per file for that
+    bucket on the device, and the rim blocks of the recovered bucket are
+    recomputed from its recovered status rows by the pack's K3. Nothing
+    goes to the host oracle: a per-file rerun that fails (a timeout, a
+    kernel that does not build or launch, a CUDA error) ends the run.
+    The JAX package sends such a file's documents to its host oracle;
+    the port keeps every document it put on the device there."""
+    results: dict = {}
+    d = pp.n_docs
+    for pack, packed, spec, ev, handles in pp.pending:
+        n_rules = len(packed.compiled.rules)
+        statuses = np.full((d, n_rules), SKIP, np.int8)
+        unsure = np.zeros((d, n_rules), bool)
+        rim = [
+            np.full((d, w), fill, dt) for w, fill, dt in (
+                (spec.n_groups, SKIP, np.int8), (spec.n_groups, False, bool),
+                (spec.n_files, SKIP, np.int8), (spec.n_files, False, bool),
+                (spec.n_files, False, bool), (spec.n_groups, SKIP, np.int8),
+            )
+        ]
+        for idx, sub, handle in handles:
+            if handle is not None:
+                try:
+                    maybe_fail("collect")
+                    st, un, blocks = bounded_call(ev.collect, handle)
+                except GuardError as e:
+                    log.warning("packed collect failed for a %d-doc bucket (%s); "
+                                "retrying per-file", len(idx), e)
+                    FAULT_COUNTERS["dispatch_fallbacks"] += 1
+                else:
+                    statuses[idx] = st
+                    if un is not None:
+                        unsure[idx] = un
+                    for b, block in enumerate(blocks):
+                        rim[b][idx] = block
+                    continue
+            # rung 2: per file for just this bucket, on the same device;
+            # a failure here (a timeout among them) ends the run
+            for k, (_fi, c) in enumerate(pack):
+                seg = packed.segment(k)
+                ev2 = DeviceBatchEvaluator(c, ev.device)
+                st, un = bounded_call(lambda: ev2.collect(ev2.dispatch(sub)))
+                statuses[idx, seg] = st
+                if un is not None:
+                    unsure[idx, seg] = un
+            for b, block in enumerate(ev.rim_of(statuses[idx], unsure[idx])):
+                rim[b][idx] = block
+        for k, (fi, _c) in enumerate(pack):
+            seg = packed.segment(k)
+            gsl = spec.file_slice(k)
+            fsl = slice(k, k + 1)
+            blocks_f = (rim[0][:, gsl], rim[1][:, gsl], rim[2][:, fsl],
+                        rim[3][:, fsl], rim[4][:, fsl], rim[5][:, gsl])
+            results[fi] = (statuses[:, seg], unsure[:, seg],
+                           set(pp.host_docs), blocks_f)
+    return results
+
+
+def _evaluate_packs(items, groups, n_docs: int, oversize=(), device=None,
+                    prepacked=None) -> dict:
+    """dispatch_packs + collect_packs: every (pack, bucket) dispatches
+    before anything collects."""
+    return collect_packs(dispatch_packs(items, groups, n_docs, oversize, device, prepacked))
+
+
+def evaluate(rule_files, docs, device=None, shared=None, pack_rules: bool = True,
+             plan_cache: bool = True, verify_plans: bool = True) -> Evaluation:
     """Lower every rules file and evaluate it on `device` (CUDA unless
     given). `docs` are the documents' PV trees (a sequence that may
     build them on access). `shared` is the shared encode, (groups,
     oversize, interner) as encoder.encode_bucketed returns them, when
     the caller has it; else it is encoded from `docs` when a file uses
-    it (uses_shared_encode). Files with function variables get their
-    function values precomputed and are encoded on their own, into the
-    shared encode's interner."""
+    it (uses_shared_encode).
+
+    With the plan layer on (`plan_cache`) the
+    files are lowered through ops/plan.get_plan and the shared encode is
+    relocated into the plan's interner (`verify_plans` runs the
+    analysis plane's invariants there); otherwise each file is lowered
+    against the shared encode's interner. With packing on (`pack_rules`)
+    the files on the shared encode evaluate as packs.
+    Files with function variables get their function values precomputed
+    and are encoded on their own, into the same interner."""
+    from .plan import get_plan, relocate_batch
+
     dev = resolve_device(device)
     seconds = {"fn_precompute": 0.0, "encode": 0.0}
     if shared is not None:
@@ -181,11 +379,24 @@ def evaluate(rule_files, docs, device=None, shared=None) -> Evaluation:
         shared = (shared[0], {int(i) for i in shared[1]})
     else:
         interner = Interner()
+    if shared is None and any(uses_shared_encode(rf) for rf in rule_files):
+        t1 = time.perf_counter()
+        groups, oversize, _ = encode_bucketed(docs, interner)
+        shared = (groups, {int(i) for i in oversize})
+        seconds["encode"] += time.perf_counter() - t1
 
     t0 = time.perf_counter()
+    shared_encode_s = seconds["encode"]
+    plan = None
+    if plan_cache:
+        plan = get_plan(rule_files, verify=verify_plans, device=dev)
+        if shared is not None:
+            relocate_batch(plan, [b for b, _ in shared[0]], interner, verify=verify_plans)
+        interner = plan.interner
     lowered = []
-    for rf in rule_files:
+    for fi, rf in enumerate(rule_files):
         f_groups, f_host = None, set()
+        compiled = None if plan is None else plan.compiled[fi]
         if precomputable_fn_vars(rf.rules):
             t1 = time.perf_counter()
             fn_vars, fn_vals, fn_err = precompute_fn_values(rf.rules, docs)
@@ -198,42 +409,59 @@ def evaluate(rule_files, docs, device=None, shared=None) -> Evaluation:
             # a function raised on these documents: the oracle reruns
             # them and reproduces the error
             f_host = {int(i) for i in f_oversize} | set(fn_err)
+            compiled = None  # lowered after its own encode
         elif uses_shared_encode(rf):
-            if shared is None:
-                t1 = time.perf_counter()
-                groups, oversize, _ = encode_bucketed(docs, interner)
-                shared = (groups, {int(i) for i in oversize})
-                seconds["encode"] += time.perf_counter() - t1
             f_groups, f_host = shared[0], set(shared[1])
-        compiled = compile_rules_file(rf.rules, interner)
-        ev = spec = None
-        if compiled.rules:
-            spec = build_rim_spec([compiled.rules])
-            ev = DeviceBatchEvaluator(compiled, dev, rim_spec=spec)
-        lowered.append((rf, compiled, ev, spec, f_groups, f_host))
+        if compiled is None:
+            compiled = compile_rules_file(rf.rules, interner)
+        lowered.append((rf, compiled, f_groups, f_host))
+
     seconds["lower"] = (
-        time.perf_counter() - t0 - seconds["fn_precompute"] - seconds["encode"]
+        time.perf_counter() - t0 - seconds["fn_precompute"]
+        - (seconds["encode"] - shared_encode_s)
     )
 
     t0 = time.perf_counter()
     d = len(docs)
+    packed_results: dict = {}
+    pack_members: List[tuple] = []
+    if pack_rules and shared is not None:
+        items = [
+            (fi, c) for fi, (_rf, c, g, _h) in enumerate(lowered)
+            if g is shared[0] and pack_compatible(c) is None
+        ]
+        pending = dispatch_packs(
+            items, shared[0], d, shared[1], dev,
+            prepacked=plan.prepacked_items() if plan is not None else None,
+        )
+        pack_members = [tuple(fi for fi, _c in pack) for pack, *_ in pending.pending]
+        packed_results = collect_packs(pending)
+    pack_of = {fi: p for p, members in enumerate(pack_members) for fi in members}
     files = []
-    for rf, compiled, ev, spec, f_groups, f_host in lowered:
-        if ev is None:
+    for fi, (rf, compiled, f_groups, f_host) in enumerate(lowered):
+        if fi in packed_results:
+            statuses, unsure, host, rim = packed_results[fi]
+            files.append(FileResult(rf, compiled, statuses, unsure, rim,
+                                    name_groups(compiled.rules)[1], host, f_groups,
+                                    pack_of[fi]))
+            continue
+        if not compiled.rules:
             st = np.zeros((d, 0), np.int8)
             un = np.zeros((d, 0), bool)
             files.append(FileResult(rf, compiled, st, un, _empty_rim(d), [],
                                     f_host, f_groups))
             continue
+        spec = build_rim_spec([compiled.rules])
+        ev = DeviceBatchEvaluator(compiled, dev, rim_spec=spec)
         # documents outside f_groups are left SKIP by evaluate_groups
-        statuses, unsure, _host, rim = evaluate_groups(
+        statuses, unsure, host, rim = evaluate_groups(
             ev, len(compiled.rules), f_groups, (), d
         )
         files.append(FileResult(rf, compiled, statuses, unsure, rim,
-                                spec.file_group_names[0], f_host, f_groups))
+                                spec.file_group_names[0], f_host | host, f_groups))
     seconds["device"] = time.perf_counter() - t0
     return Evaluation(None if shared is None else shared[0], d, interner, files,
-                      dev, seconds)
+                      dev, seconds, packs=pack_members)
 
 
 def _materialize_row(name_row, unsure_row, names):
@@ -559,6 +787,7 @@ def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
                     evaluation.oracle_docs += 1
                     t0 = time.perf_counter()
                     try:
+                        maybe_fail("oracle", key=data_file.name)
                         scope = RootScope(rule_file.rules, data_file.path_value)
                         oracle_status = eval_rules_file(
                             rule_file.rules, scope, data_file.name
@@ -607,7 +836,6 @@ def _finish_report(validate, acc: _ReportAcc, writer: Writer, quarantined,
     """Structured-output emission and the exit code: an error wins, then
     more quarantined documents than --max-doc-failures allows (a
     negative limit allows any number), then a failing document."""
-    from ..utils.faults import FAULT_COUNTERS
     from ..commands.reporters.junit import write_junit
     from ..commands.reporters.sarif import write_sarif
     from ..commands.reporters.structured import write_structured
@@ -753,8 +981,11 @@ def tpu_validate(validate, rule_files, data_files, writer: Writer) -> int:
         for df in data_files:
             df.path_value
         seconds["load"] = time.perf_counter() - t0
-    evaluation = evaluate(rule_files, _docs_for(data_files, quarantined), validate.device,
-                          shared=shared)
+    evaluation = evaluate(
+        rule_files, _docs_for(data_files, quarantined), validate.device, shared=shared,
+        pack_rules=validate.pack_rules, plan_cache=validate.plan_cache,
+        verify_plans=validate.verify_plans,
+    )
     evaluation.seconds["encode"] += seconds.pop("encode", 0.0)
     evaluation.seconds.update(seconds)
     evaluation.ingest = ingest

@@ -9,10 +9,21 @@ dispatch and returns host arrays. `with_summary` runs the walk and
 kernel K7's per-rule counts (mesh.py:540-546) and waits for both. On
 the CPU the same code runs the plain versions of the kernels
 synchronously.
+
+`evaluate_groups` is the per-file rung of the device path's degradation
+ladder, as the JAX package's `evaluate_bucketed` (mesh.py:590-626): the
+`dispatch` and `collect` fault points fire before each bucket's
+dispatch and collect, each collect runs under
+`GUARD_TPU_DISPATCH_TIMEOUT` (utils/faults.bounded_call), and a bucket
+whose dispatch or collect raises an injected fault goes to the host
+oracle, as in the JAX package. Every other error (a timeout, a kernel
+that does not build or launch, a CUDA error) propagates and ends the
+run: no real device failure moves a bucket to the CPU.
 """
 
 from __future__ import annotations
 
+import logging
 from contextlib import nullcontext
 from typing import List, Optional, Tuple
 
@@ -23,6 +34,18 @@ from .. import kernels as K
 from ..ops.encoder import NODE_BUCKETS_EXTENDED, DocBatch, split_batch_by_size
 from ..ops.ir import SKIP, CompiledRules, RimSpec
 from ..ops.kernels import arrays_from_numpy, build_doc_evaluator
+from ..utils.faults import FAULT_COUNTERS, InjectedFault, bounded_call, maybe_fail
+
+log = logging.getLogger("guard_tpu_torch.device")
+
+#: walks enqueued on a device (one per (program, bucket) dispatch),
+#: under the JAX package's group name; a pack of k files issues one
+#: where the files alone issue k
+DISPATCH_COUNTERS = {"dispatches": 0}
+
+#: rule slots the packs of a run fill against the PACK_MAX_RULES
+#: ceiling they close at (ops/backend.dispatch_packs)
+EFFICIENCY_COUNTERS = {"pack_rule_slots_used": 0, "pack_rule_slots_capacity": 0}
 
 # dtypes of the rim blocks, in kernels.rim_reduce order: name status,
 # name unsure, doc status, any fail, any unsure, name last
@@ -88,6 +111,7 @@ class DeviceBatchEvaluator:
         """Enqueue one bucket: returns (out, d, rim) without waiting,
         out = (statuses, unsure) device tensors, rim the six K3 blocks
         or None."""
+        DISPATCH_COUNTERS["dispatches"] += 1
         with self._on_stream():
             statuses, unsure = self._walk(batch)
             rim = None
@@ -113,6 +137,21 @@ class DeviceBatchEvaluator:
         if self.rim_spec is None:
             return st, un
         return st, un, tuple(b.cpu().numpy() for b in rim)
+
+    def rim_of(self, statuses: np.ndarray, unsure: Optional[np.ndarray]) -> tuple:
+        """The six rim blocks (K3, on this evaluator's device) of host
+        status rows: a degradation rung that recovered the statuses of a
+        bucket recomputes the blocks its failed dispatch lost."""
+        st = torch.from_numpy(np.ascontiguousarray(statuses)).to(self.device)
+        un = None
+        if self._with_unsure and unsure is not None:
+            un = torch.from_numpy(np.ascontiguousarray(unsure)).to(self.device)
+        with self._on_stream():
+            blocks = K.rim_reduce(st, un, *self._rim_ids, self.rim_spec.n_groups,
+                                  self.rim_spec.n_files)
+        if self._stream is not None:
+            self._stream.synchronize()
+        return tuple(b.cpu().numpy() for b in blocks)
 
     def __call__(self, batch: DocBatch) -> np.ndarray:
         st, un = self.collect(self.dispatch(batch))[:2]
@@ -156,8 +195,9 @@ def evaluate_groups(evaluator: DeviceBatchEvaluator, n_rules: int, groups,
     the `oversize` documents (beyond the last bucket, or with numbers
     that have no exact device encoding) stay SKIP and are returned in
     `host_docs`; `rim` is the six (D, ...) rim blocks when the evaluator
-    has a rim_spec, else None. A failed dispatch or collect raises — no
-    bucket degrades to a host evaluation."""
+    has a rim_spec, else None. A bucket whose dispatch or collect raises
+    an InjectedFault stays SKIP (its rim rows too) and joins
+    `host_docs`; any other error, a timeout included, propagates."""
     statuses = np.full((n_docs, n_rules), SKIP, np.int8)
     unsure = np.zeros((n_docs, n_rules), bool)
     spec = evaluator.rim_spec
@@ -170,17 +210,35 @@ def evaluate_groups(evaluator: DeviceBatchEvaluator, n_rules: int, groups,
             np.full((n_docs, w), f, dt)
             for w, f, dt in zip(widths, fills, _RIM_DTYPES)
         ]
-    pending: List[Tuple[np.ndarray, tuple]] = [
-        (idx, evaluator.dispatch(sub)) for sub, idx in groups
-    ]
+    host = {int(i) for i in oversize}
+
+    def to_host(stage: str, exc: InjectedFault, idx) -> None:
+        # one bucket's injected failure degrades that bucket to the host
+        # oracle; every other bucket's results are untouched
+        log.warning("device %s failed for a %d-doc bucket (%s); falling back "
+                    "to the host oracle", stage, len(idx), exc)
+        FAULT_COUNTERS["dispatch_fallbacks"] += 1
+        FAULT_COUNTERS["oracle_fallbacks"] += 1
+        host.update(int(i) for i in idx)
+
+    pending: List[Tuple[np.ndarray, tuple]] = []
+    for sub, idx in groups:
+        try:
+            maybe_fail("dispatch")
+            pending.append((idx, evaluator.dispatch(sub)))
+        except InjectedFault as e:
+            to_host("dispatch", e, idx)
     for idx, handle in pending:
-        got = evaluator.collect(handle)
+        try:
+            maybe_fail("collect")
+            got = bounded_call(evaluator.collect, handle)
+        except InjectedFault as e:
+            to_host("collect", e, idx)
+            continue
         statuses[idx] = got[0]
         if got[1] is not None:
             unsure[idx] = got[1]
         if rim is not None:
             for block, part in zip(rim, got[2]):
                 block[idx] = part
-    return statuses, unsure, {int(i) for i in oversize}, (
-        None if rim is None else tuple(rim)
-    )
+    return statuses, unsure, host, None if rim is None else tuple(rim)

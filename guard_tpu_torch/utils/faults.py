@@ -21,11 +21,17 @@ where `<point>` is one of POINTS and `<spec>` is one of:
 
 The grammar accepts every point the JAX package names. The port fires
 `parse` and `encode` (ops/encoder.encode_chunk_texts, the
---max-doc-failures encode of `validate`); `read` fires where the sweep
-reads its chunks, which the port does not have yet, and the JAX
-package's `validate` does not fire it either. Every firing counts in
-`FAULT_COUNTERS["injected_<point>"]`; `quarantined_docs` counts the
-documents a run quarantined.
+--max-doc-failures encode of `validate`), `dispatch` and `collect`
+(the degradation ladder of the device path: ops/backend.collect_packs,
+parallel/device.evaluate_groups), `oracle` (the inline CPU rerun of
+ops/backend._report_files) and `store_write` (ops/plan.save_plan);
+`read` fires where the sweep reads its chunks, which the port does not
+have yet, and the JAX package's `validate` does not fire it either.
+Every firing counts in `FAULT_COUNTERS["injected_<point>"]`;
+`quarantined_docs` counts the documents a run quarantined,
+`dispatch_fallbacks` the device dispatches and collects that failed
+and were retried lower on the ladder, `oracle_fallbacks` the injected
+faults that sent documents to the host oracle (no other failure does).
 """
 
 from __future__ import annotations
@@ -44,8 +50,13 @@ POINTS = (
     "admission", "shed", "journal", "store_write",
 )
 
-#: firings per point and the documents quarantined, for this process
-FAULT_COUNTERS = {**{f"injected_{p}": 0 for p in POINTS}, "quarantined_docs": 0}
+#: firings per point and the recoveries they caused, for this process
+FAULT_COUNTERS = {
+    **{f"injected_{p}": 0 for p in POINTS},
+    "quarantined_docs": 0,
+    "dispatch_fallbacks": 0,
+    "oracle_fallbacks": 0,
+}
 
 
 class InjectedFault(GuardError):
@@ -170,3 +181,46 @@ def quarantine_record(file: str, stage: str, exc: BaseException) -> dict:
         "error": type(exc).__name__,
         "message": str(exc),
     }
+
+
+def fault_stats() -> dict:
+    return dict(FAULT_COUNTERS)
+
+
+def reset_faults() -> None:
+    """Counters AND call/fired state (tests: fresh nth= sequencing)."""
+    for k in FAULT_COUNTERS:
+        FAULT_COUNTERS[k] = 0
+    _STATE.update(env=None, specs={}, calls={}, fired=set())
+
+
+def dispatch_timeout() -> float:
+    """Per-dispatch/collect timeout in seconds (0 = unbounded), from
+    `GUARD_TPU_DISPATCH_TIMEOUT`."""
+    raw = os.environ.get("GUARD_TPU_DISPATCH_TIMEOUT", "").strip()
+    try:
+        return float(raw) if raw else 0.0
+    except ValueError:
+        return 0.0
+
+
+def bounded_call(fn, *args):
+    """Run `fn(*args)` under the configured dispatch timeout. With no
+    timeout configured this is a direct call. On timeout the worker
+    thread is abandoned (a wedged device call cannot be cancelled, only
+    orphaned) and a GuardError is raised so the caller's degradation
+    ladder engages."""
+    t = dispatch_timeout()
+    if t <= 0:
+        return fn(*args)
+    from concurrent.futures import ThreadPoolExecutor, TimeoutError
+
+    ex = ThreadPoolExecutor(max_workers=1)
+    try:
+        fut = ex.submit(fn, *args)
+        try:
+            return fut.result(timeout=t)
+        except TimeoutError:
+            raise GuardError(f"device call timed out after {t:g}s")
+    finally:
+        ex.shutdown(wait=False)

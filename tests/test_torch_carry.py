@@ -179,3 +179,94 @@ def test_fn_buckets_carry_the_jax_rows(name, text, docs):
                 continue
             np.testing.assert_array_equal(mine, theirs, err_msg=k)
     assert covered == set(range(len(docs)))
+
+
+# -- a packed program ----------------------------------------------------
+def _pack_inputs():
+    """The corpus files above fused into one pack, over the union of
+    their test inputs."""
+    rules, docs = [], []
+    for name in CORPUS_FILES:
+        text, case_docs = corpus_case(name)
+        rules.append((text, name))
+        docs.extend(case_docs)
+    return rules, docs
+
+
+def _pack_both(relocate: bool):
+    """(JAX (PackedRules, RimSpec, batch), port (PackedRules, RimSpec,
+    batch)): each package's pack_compiled over its own lowering of the
+    same files, or with `relocate` each package's plan (ops/plan.py)
+    with the batch relocated into it."""
+    from guard_tpu.commands.validate import RuleFile as JRuleFile
+    from guard_tpu.ops import plan as j_plan
+    from guard_tpu.ops.encoder import Interner as JInterner
+    from guard_tpu.ops.ir import pack_compiled as j_pack
+    from guard_tpu_torch.commands.validate import RuleFile as TRuleFile
+    from guard_tpu_torch.ops import plan as t_plan
+    from guard_tpu_torch.ops.encoder import Interner as TInterner
+    from guard_tpu_torch.ops.ir import pack_compiled as t_pack
+
+    rules, docs = _pack_inputs()
+    if not relocate:
+        jb, ji = j_encode([j_from_plain(d) for d in docs])
+        tb, ti = t_encode([t_from_plain(d) for d in docs])
+        jp = j_pack([j_compile(j_parse(t, n), ji) for t, n in rules])
+        tp = t_pack([t_compile(t_parse(t, n), ti) for t, n in rules])
+        return (jp, jp.rim_spec(), jb), (tp, tp.rim_spec(), tb)
+    jplan = j_plan.build_plan([JRuleFile(n, n, t, j_parse(t, n)) for t, n in rules])
+    tplan = t_plan.build_plan([TRuleFile(n, n, t, t_parse(t, n)) for t, n in rules])
+    jchunk, tchunk = JInterner(), TInterner()
+    jb, _ = j_encode([j_from_plain(d) for d in docs], jchunk)
+    tb, _ = t_encode([t_from_plain(d) for d in docs], tchunk)
+    j_plan.relocate_batch(jplan, jb, jchunk)
+    t_plan.relocate_batch(tplan, [tb], tchunk)
+    (_jpos, jp, jspec), = jplan.packs
+    (_tpos, tp, tspec), = tplan.packs
+    return (jp, jspec, jb), (tp, tspec, tb)
+
+
+@pytest.mark.parametrize("relocate", [False, True], ids=["pack_compiled", "plan"])
+def test_packed_program_carries_bit_identical(relocate):
+    """The packed program's device arrays and literals, its rim spec and
+    its segment map equal the JAX package's, key for key, in dtype and
+    bytes."""
+    (jp, jspec, jb), (tp, tspec, tb) = _pack_both(relocate)
+    assert tp.offsets == jp.offsets and tp.sizes == jp.sizes
+    assert len(tp.offsets) == len(CORPUS_FILES)
+    ja, ta = jp.compiled.device_arrays(jb), tp.compiled.device_arrays(tb)
+    assert list(ja) == list(ta)
+    for k in ja:
+        assert ja[k].dtype == ta[k].dtype and ja[k].shape == ta[k].shape, k
+        assert ja[k].tobytes() == ta[k].tobytes(), k
+    jl, tl = jp.compiled.lit_values(), tp.compiled.lit_values()
+    assert jl.dtype == tl.dtype and jl.tobytes() == tl.tobytes()
+    for fld in ("group_ids", "file_ids", "last_ids"):
+        a, b = getattr(jspec, fld), getattr(tspec, fld)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), fld
+    assert tspec.file_group_names == jspec.file_group_names
+    assert tspec.group_offsets == jspec.group_offsets
+    assert (tspec.n_groups, tspec.n_files) == (jspec.n_groups, jspec.n_files)
+
+
+@pytest.mark.parametrize("relocate", [False, True], ids=["pack_compiled", "plan"])
+def test_jax_packed_arrays_drive_the_port_walk(relocate):
+    """Carried into the port's walk of the packed program, the JAX
+    arrays give the port's own statuses and rim blocks."""
+    import torch
+
+    from guard_tpu_torch import kernels as K
+
+    (jp, jspec, jb), (tp, tspec, tb) = _pack_both(relocate)
+    arrays, lits = arrays_from_numpy(jp.compiled.device_arrays(jb),
+                                     jp.compiled.lit_values(), "cpu")
+    st, un = build_doc_evaluator(tp.compiled)(arrays, lits)
+    own = DeviceBatchEvaluator(tp.compiled, "cpu", rim_spec=tspec)
+    own_st, own_un, own_rim = own.collect(own.dispatch(tb))
+    np.testing.assert_array_equal(st.numpy(), own_st)
+    ids = [torch.from_numpy(np.asarray(getattr(jspec, f), np.int32))
+           for f in ("group_ids", "file_ids", "last_ids")]
+    rim = K.rim_reduce(st, un if tp.compiled.needs_unsure else None, *ids,
+                       jspec.n_groups, jspec.n_files)
+    for mine, theirs in zip(rim, own_rim):
+        np.testing.assert_array_equal(mine.numpy(), theirs)

@@ -1055,3 +1055,65 @@ def test_cuda_native_ingest_matches_tree_encoder(cuda_device, ingest_inputs, mon
         assert np.array_equal(a.unsure, b.unsure)
         for x, y in zip(a.rim, b.rim):
             assert np.array_equal(x, y)
+
+
+def _registry(n_docs: int):
+    """All corpus/rules files and their tests' inputs, replicated in
+    order to n_docs documents: the registry configuration."""
+    import pathlib
+
+    import yaml
+
+    from guard_tpu_torch.commands.validate import RuleFile
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.values import from_plain
+
+    corpus = pathlib.Path(__file__).resolve().parent.parent / "corpus" / "rules"
+    rule_files, inputs = [], []
+    for p in sorted(corpus.glob("*.guard")):
+        text = p.read_text()
+        rule_files.append(RuleFile(p.name, str(p), text, parse_rules_file(text, p.name)))
+        spec = corpus / "tests" / f"{p.stem}_tests.yaml"
+        inputs += [c["input"] for c in yaml.safe_load(spec.read_text()) or []
+                   if isinstance(c, dict) and "input" in c]
+    pvs = [from_plain(d) for d in inputs]
+    return rule_files, [pvs[i % len(pvs)] for i in range(n_docs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_docs", [725, 8192])
+def test_cuda_packed_registry_matches_per_file_and_cpu(cuda_device, tmp_path, monkeypatch,
+                                                       n_docs):
+    """The 249 corpus files (245 in one pack of 253 rules) over the
+    corpus inputs: the packed evaluation on the card gives the per-file
+    evaluation's and the CPU's statuses, unsure bits, rim blocks and
+    oracle documents, with one walk and one K3 launch per (pack, bucket)
+    where the per-file path launches one per (file, bucket)."""
+    from guard_tpu_torch.ops.backend import evaluate
+    from guard_tpu_torch.parallel.device import DISPATCH_COUNTERS
+
+    monkeypatch.setenv("GUARD_TPU_PLAN_CACHE_DIR", str(tmp_path / "plans"))
+    rule_files, docs = _registry(n_docs)
+    runs = {}
+    for label, device, pack in (("packed", "cuda", True), ("per_file", "cuda", False),
+                                ("cpu", "cpu", True)):
+        K.reset_launches()
+        DISPATCH_COUNTERS["dispatches"] = 0
+        ev = evaluate(rule_files, docs, device, pack_rules=pack)
+        torch.cuda.synchronize()
+        runs[label] = (ev, dict(K.LAUNCHES), DISPATCH_COUNTERS["dispatches"])
+    packed, per_file, cpu = (runs[k][0] for k in ("packed", "per_file", "cpu"))
+    assert [len(p) for p in packed.packs] == [245] and per_file.packs == []
+    assert sum(len(fr.compiled.rules) for fr in packed.files if fr.pack == 0) == 253
+    n_buckets = len(packed.groups)
+    own = sum(len(fr.groups) for fr in packed.files if fr.pack is None and fr.compiled.rules)
+    assert runs["packed"][2] == n_buckets + own
+    assert runs["packed"][1]["rim_reduce"] == n_buckets + own
+    assert runs["per_file"][2] == runs["per_file"][1]["rim_reduce"] == 245 * n_buckets + own
+    for other in (per_file, cpu):
+        for a, b in zip(packed.files, other.files):
+            assert np.array_equal(a.statuses, b.statuses)
+            assert np.array_equal(a.unsure, b.unsure)
+            assert a.host_docs == b.host_docs
+            for x, y in zip(a.rim, b.rim):
+                assert x.dtype == y.dtype and np.array_equal(x, y)
