@@ -45,11 +45,28 @@ no result line):
    set to 0 just before and read just after: statuses, unsure bits, rim
    blocks and stdout equal
    to the tree-encoder run's, launches equal to it (K1 84, K2 98, K3 2),
-   each run's seconds per stage and peak host RSS printed; then path
+   each run's seconds per stage and peak host RSS printed; run (i) is
+   traced as --trace-out and --metrics-out trace a run
+   (cli.telemetry_export): the trace must be Chrome trace_event JSON on
+   the lanes of telemetry._LANE_ORDER, the snapshot must pass
+   tools/check_metrics_schema.py in a subprocess, and each stage's span
+   total is printed; then path
    (ii) with one template made invalid JSON under --max-doc-failures 1
    (rc 19, one `skipping ...: invalid JSON` line, the template absent
    from stdout, every other template's statuses as before) and, over
-   the first 2,048 templates, 0 (rc 5). Then full
+   the first 2,048 templates, 0 (rc 5). Then the same 65,537 texts
+   under this slice's flags (phase `flags`), every counter set to 0
+   just before each run and read just after: (a) the result cache:
+   the run with --no-result-cache, then in a fresh directory with
+   --delta-stats cold (65,537 entries stored), warm (every document
+   replayed: no evaluation, no kernel launch) and with one template's
+   bytes changed (a delta of one document: K3 once), each with the
+   no-cache run's stdout and rc, and their walls beside the no-cache
+   run's; (b) --no-vector-rim: the same stdout, no K3 launch, 65,537
+   documents materialized; (c) --mesh-shape 2x1 over the security
+   policy and the flagship rules (one pack of two files): the stdout
+   and the launches of the same run without the flag (one card runs
+   every shape unsharded). Then full
    reports of the first 16,384 of the same documents and the volume
    template (phase `report`, their trees reused)
    through Validate on the card without --statuses-only: (a) the
@@ -93,7 +110,10 @@ no result line):
    corpus/rules over the corpus's own test inputs, each on the card and
    on the CPU, exactly equal; then each of them through Validate over
    its own tests' inputs, the single-line report with `-S all` and the
-   structured JSON, on the card and on the CPU, byte-equal.
+   structured JSON, on the card and on the CPU, byte-equal. Then (phase
+   `test`) `test --dir corpus/rules` through the port's CLI on the card
+   and with --backend cpu, single-line, JSON and JUnit: equal stdout
+   and rc, 249 files and 725 cases, no K3 launch.
    Then the registry (phase `packing`): all 249 corpus files over the
    corpus's 725 test inputs replicated in order to N_PACKING documents,
    through backend.evaluate packed and with packing off on the card and
@@ -101,8 +121,8 @@ no result line):
    and read just after: 245 files in one pack of 253 rules, one walk and
    one K3 launch per (pack, bucket) against one per (file, bucket), and
    per file equal statuses, unsure bits, rim blocks and oracle
-   documents; the pack's columnarization and walk; the CLI over the 725
-   inputs (`-S all`, `-z -o json -S none`) packed, --no-pack,
+   documents; the pack's columnarization and walk; the CLI over every
+   third of the 725 inputs (`-S all`, `-z -o json -S none`) packed, --no-pack,
    --no-plan-cache and in a process that loads the plan artifact, each
    in a process of its own, all with the same stdout, stderr and rc;
    --statuses-only over N_PACKING_STATUSES documents, packed; and the
@@ -134,8 +154,9 @@ one-document 65,536-node bucket's heaviest shape; K3 also at the
 registry pack's shape) on its main path
 (K1-K3 the security policy's, K4-K6
 the cross-reference policy's, K7 the summary's; every path's in
-`launches_by_path`, the report phase's run (a) and the packed
-registry's among them, and
+`launches_by_path`, the report phase's run (a), the packed
+registry's, the cache's three runs, the scalar rim's, the mesh's and
+the `test` command's among them, and
 for K1 the launches made by the StepFnVar arm), its error against the plain version, its
 time (`ms`, host cost included, and `device_ms`, the card's alone), the
 plain version's, the bound (bytes over the card's memory rate) and a
@@ -200,11 +221,15 @@ N_XREF_TEMPLATES = 16384
 N_REPORT_DOCS = 16384
 N_VERBOSE = 64  # templates printed with -v and -p
 QUARANTINE_DOC = 1234  # the template the quarantine runs make invalid JSON
-N_PACKING = 65536  # registry documents: the corpus's test inputs replicated in order
-# documents of the registry's packed --statuses-only run: the largest
-# power of two whose pass B (249 files a document) fits in about 120 s
-# on the card's host (16,384 took 140 s there)
-N_PACKING_STATUSES = 8192
+# registry documents: the corpus's test inputs replicated in order. Cut
+# from 65,536, the packed --statuses-only run (pass B's 249 files a
+# document) from 8,192, and the CLI's plan-layer states from all 725
+# inputs to every third: with the first two uncut the whole smoke took
+# 1,344 s on a slow host, and 1,083 s with them cut, against the
+# 1,200 s limit (PERF.md §6, PR 12)
+N_PACKING = 16384
+N_PACKING_STATUSES = 2048
+N_PACKING_CLI_STRIDE = 3
 N_PACKING_FAULT = 16  # registry documents of the fault legs (inline oracle reruns)
 # launches of the statuses-only runs on the tree encoder (the native
 # buckets must give the same)
@@ -852,7 +877,7 @@ def drive_validate(device, tmp: Path, name: str, rules_text: str, docs,
         data_files = read_templates(data)
         read_s = time.perf_counter() - t0
         cmd = Validate(rules=[str(rules)], prepared_data=data_files, statuses_only=True,
-                       device=str(device), **flags)
+                       device=str(device), result_cache=False, **flags)
         rc = cmd.execute(writer, Reader())
         sync(device)
         wall = time.perf_counter() - t0
@@ -960,24 +985,28 @@ def same_evaluation(ev, base, label: str, skip=()) -> None:
               f"{label}: oracle documents differ")
 
 
-def run_ingest(device, rules: Path, data: Path, data_files=None, **flags) -> dict:
+def run_ingest(device, rules: Path, data: Path, data_files=None, trace_out=None,
+               metrics_out=None, **flags) -> dict:
     """One statuses-only run of Validate over the templates of `data`,
     read inside the timed run (unless `data_files` are given: read_s is
     then 0), every kernel counter set to 0 just before and read just
-    after, and the peak host RSS sampled throughout."""
+    after, and the peak host RSS sampled throughout. `trace_out` and
+    `metrics_out` trace the run as the CLI's --trace-out and
+    --metrics-out do (cli.telemetry_export)."""
     from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.cli import telemetry_export
     from guard_tpu_torch.commands.validate import Validate
     from guard_tpu_torch.utils.io import Reader, Writer
 
     writer = Writer.buffered()
     K.reset_launches()
     sync(device)
-    with PeakRss() as rss:
+    with PeakRss() as rss, telemetry_export(trace_out, metrics_out):
         t0 = time.perf_counter()
         files = read_templates(data) if data_files is None else data_files
         read_s = time.perf_counter() - t0
         cmd = Validate(rules=[str(rules)], prepared_data=files, statuses_only=True,
-                       device=str(device), **flags)
+                       device=str(device), **{"result_cache": False, **flags})
         rc = cmd.execute(writer, Reader())
         sync(device)
         wall = time.perf_counter() - t0
@@ -1000,11 +1029,13 @@ def run_ingest(device, rules: Path, data: Path, data_files=None, **flags) -> dic
     }
 
 
-def phase_ingest(device, tmp: Path, slice_info: dict, slice_ev) -> dict:
+def phase_ingest(device, tmp: Path, slice_info: dict, slice_ev):
     """The slice's files through the host ingest: the native encoder in
     this process (i), over the auto count of ingest workers (ii) and
     over 4 (iii), each equal to the tree-encoder run (and so to the
-    CPU) with its launches; then the quarantine on path (ii)."""
+    CPU) with its launches; then the quarantine on path (ii). Run (i)
+    is traced (leg (d): `check_trace`). Returns (info, the texts run (i)
+    read)."""
     from guard_tpu_torch.ops import native_encoder
     from guard_tpu_torch.parallel.ingest import resolve_ingest_workers
 
@@ -1019,8 +1050,12 @@ def phase_ingest(device, tmp: Path, slice_info: dict, slice_ev) -> dict:
             continue
         # (i) reads the files inside its run; the others take the same
         # texts, so that the file system's read is paid once
+        traced = {}
+        if texts is None:
+            traced = {"trace_out": tmp / "ingest_i.trace.json",
+                      "metrics_out": tmp / "ingest_i.metrics.json"}
         run = run_ingest(device, rules, data, ingest_workers=workers,
-                         data_files=None if texts is None else fresh_files(texts))
+                         data_files=None if texts is None else fresh_files(texts), **traced)
         texts = texts or run["files"]
         info = run["summary"]
         pooled = resolve_ingest_workers(workers) >= 2
@@ -1033,6 +1068,8 @@ def phase_ingest(device, tmp: Path, slice_info: dict, slice_ev) -> dict:
         if device.type == "cuda":
             check(info["launches"] == slice_info["launches"],
                   f"ingest {label}: launches {info['launches']} against {slice_info['launches']}")
+        if traced:
+            info["telemetry"] = check_trace(traced["trace_out"], traced["metrics_out"], run["ev"])
         out[label] = info
         log(f"ingest {label}: {json.dumps(info)}")
         del run
@@ -1056,6 +1093,191 @@ def phase_ingest(device, tmp: Path, slice_info: dict, slice_ev) -> dict:
     check(run["rc"] == 5, f"quarantine 0: rc {run['rc']}")
     check(run["err"] == f"skipping {bad.name}: invalid JSON\n", f"quarantine 0: {run['err']!r}")
     out["quarantine_0"] = run["summary"]
+    return out, texts
+
+
+def check_trace(trace_out: Path, metrics_out: Path, ev) -> dict:
+    """Leg (d): the traced run's trace is Chrome trace_event JSON on the
+    lanes of telemetry._LANE_ORDER (and the instant-event lane), its
+    metrics snapshot passes tools/check_metrics_schema.py run as a
+    subprocess, and each stage's span total is printed."""
+    from guard_tpu_torch.utils.telemetry import _LANE_ORDER
+
+    trace = json.loads(trace_out.read_text())
+    events = trace["traceEvents"]
+    check(isinstance(events, list) and events, "trace: no traceEvents")
+    check({e["ph"] for e in events} <= {"M", "X", "i"}, "trace: unknown event phases")
+    lanes = {e["args"]["name"] for e in events if e["ph"] == "M" and e["name"] == "thread_name"}
+    check(lanes <= set(_LANE_ORDER) | {"events"}, f"trace: lanes {sorted(lanes)}")
+    # one rules file: the per-file path, whose `dispatch` span holds the
+    # wait for the card (a packed run adds the `collect` lane)
+    check({"rules", "ingest", "dispatch", "rim"} <= lanes, f"trace: lanes {sorted(lanes)}")
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "check_metrics_schema.py"),
+                           str(metrics_out)], capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"metrics snapshot: {proc.stderr[-1000:]}")
+    # this run's spans, from its trace (the snapshot's roll-ups hold the
+    # whole process's, the earlier phases' flight-recorder spans among
+    # them)
+    spans: dict = {}
+    for e in events:
+        if e["ph"] == "X":
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+    log(f"ingest (i) span totals (s): {json.dumps(spans)}")
+    check(spans.get("dispatch", 0.0) > 0 and spans.get("report", 0.0) > 0,
+          "trace: no dispatch or report span")
+    return {"lanes": sorted(lanes), "span_s": spans,
+            "events": len(events), "device_s": ev.seconds["device"],
+            "trace_bytes": trace_out.stat().st_size}
+
+
+CACHE_CHANGED_DOC = 7  # the template whose bytes the cache's third run changes
+
+
+def run_flagged(device, rules, files, **flags) -> dict:
+    """One statuses-only Validate run over `files` with `flags`, every
+    kernel counter and the rim counters set to 0 just before and read
+    just after."""
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.commands.validate import Validate
+    from guard_tpu_torch.ops.backend import RIM_COUNTERS
+    from guard_tpu_torch.utils.io import Reader, Writer
+
+    writer = Writer.buffered()
+    for key in RIM_COUNTERS:
+        RIM_COUNTERS[key] = 0
+    K.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    cmd = Validate(rules=[str(r) for r in rules], prepared_data=files, statuses_only=True,
+                   device=str(device), **flags)
+    rc = cmd.execute(writer, Reader())
+    sync(device)
+    wall = time.perf_counter() - t0
+    out = writer.stripped()
+    ev = cmd.last_evaluation
+    return {
+        "rc": rc, "out": out, "err": writer.err_to_stripped(), "ev": ev,
+        "summary": {
+            "rc": rc, "wall_s": wall, "docs": len(files),
+            "seconds": None if ev is None else dict(ev.seconds),
+            "stdout_sha256": hashlib.sha256(out.encode()).hexdigest(),
+            "launches": dict(K.LAUNCHES), "rim": dict(RIM_COUNTERS),
+        },
+    }
+
+
+def phase_slice_flags(device, tmp: Path, slice_info: dict, texts) -> dict:
+    """The slice's 65,537 documents (the texts the ingest run (i) read)
+    under the flags of this slice, statuses-only, each run's counters
+    set to 0 just before and read just after:
+
+    (a) the result cache: the run with --no-result-cache, then in a
+        fresh GUARD_TPU_RESULT_CACHE_DIR, with --delta-stats: cold
+        (every document stored), warm (every one replayed: no encode,
+        no launch of any kernel), and with one template's bytes changed
+        (a delta of 1: the launches of that template's bucket only);
+        each run's stdout and rc are the no-cache slice run's, and each
+        wall is set beside the no-cache run's (`vs_no_cache`);
+    (b) --no-vector-rim: the slice's stdout, no K3 launch, and every
+        document materialized;
+    (c) --mesh-shape 2x1 over the security policy and the flagship rules
+        (one pack of two files): the stdout and the launches of the same
+        run without the flag, since one card runs every shape
+        unsharded."""
+    from guard_tpu_torch.cache import results as rcache
+    from guard_tpu_torch.workloads import FLAGSHIP_RULES
+
+    rules = tmp / "security.guard"
+    n_docs = len(texts)
+    want_out = slice_info["stdout_sha256"]
+    out = {"docs": n_docs, "launches": {}}
+    zero = {name: 0 for name in slice_info["launches"]}
+
+    # (a) the result cache, beside the same run without it
+    run = run_flagged(device, [rules], fresh_files(texts), delta_stats=True,
+                      result_cache=False)
+    check(run["rc"] == slice_info["rc"] and run["summary"]["stdout_sha256"] == want_out
+          and run["err"] == "", "cache_off: rc, stdout or stderr differs from the slice's")
+    off_wall = run["summary"]["wall_s"]
+    out["cache_off"] = run["summary"]
+    out["launches"]["cache_off"] = run["summary"]["launches"]
+    log(f"cache_off: {json.dumps(run['summary'])}")
+    del run
+    saved_dir = os.environ.get("GUARD_TPU_RESULT_CACHE_DIR")
+    os.environ["GUARD_TPU_RESULT_CACHE_DIR"] = str(tmp / "results")
+    files = fresh_files(texts)
+    changed = fresh_files(texts)
+    changed[CACHE_CHANGED_DOC].content += "\n "
+    legs = (("cache_cold", files, 0), ("cache_warm", fresh_files(texts), n_docs),
+            ("cache_delta", changed, n_docs - 1))
+    for label, run_files, hits in legs:
+        rcache.reset_result_cache_stats()
+        run = run_flagged(device, [rules], run_files, delta_stats=True)
+        info = run["summary"]
+        info["cache"] = rcache.result_cache_stats()
+        info["vs_no_cache"] = info["wall_s"] / off_wall
+        check(run["rc"] == slice_info["rc"] and info["stdout_sha256"] == want_out,
+              f"{label}: rc {run['rc']} or stdout differs from the run without the cache")
+        check(run["err"] == f"result-cache: {hits}/{n_docs} docs cached, "
+                            f"{n_docs - hits} dispatched\n", f"{label}: stderr {run['err']!r}")
+        check(info["cache"]["hits"] == hits and info["cache"]["stores"] == n_docs - hits,
+              f"{label}: cache counters {info['cache']}")
+        if label == "cache_warm":
+            check(run["ev"] is None, "cache_warm: an evaluation ran")
+            if device.type == "cuda":
+                check(info["launches"] == zero, f"cache_warm: launches {info['launches']}")
+        if label == "cache_delta":
+            check(run["ev"].n_docs == 1 and len(run["ev"].groups) == 1,
+                  "cache_delta: more than one document evaluated")
+            if device.type == "cuda":
+                check(info["launches"]["rim_reduce"] == 1
+                      and 0 < info["launches"]["gather_rows"]
+                      < slice_info["launches"]["gather_rows"],
+                      f"cache_delta: launches {info['launches']}")
+        out[label] = info
+        out["launches"][label] = info["launches"]
+        log(f"{label}: {json.dumps(info)}")
+        del run
+    if saved_dir is None:
+        os.environ.pop("GUARD_TPU_RESULT_CACHE_DIR")
+    else:
+        os.environ["GUARD_TPU_RESULT_CACHE_DIR"] = saved_dir
+
+    # (b) the scalar rim
+    run = run_flagged(device, [rules], fresh_files(texts), vector_rim=False, result_cache=False)
+    info = run["summary"]
+    check(run["rc"] == slice_info["rc"] and info["stdout_sha256"] == want_out,
+          "no_vector_rim: stdout differs from the vector rim's")
+    check(info["rim"] == {"docs_materialized": n_docs, "docs_settled": 0},
+          f"no_vector_rim: rim counters {info['rim']}")
+    if device.type == "cuda":
+        check(info["launches"]["rim_reduce"] == 0, f"no_vector_rim: K3 launched {info}")
+    out["no_vector_rim"] = info
+    out["launches"]["no_vector_rim"] = info["launches"]
+    log(f"no_vector_rim: {json.dumps(info)}")
+    del run
+
+    # (c) the mesh, over a pack of two files
+    flagship = tmp / "flagship.guard"
+    flagship.write_text(FLAGSHIP_RULES)
+    runs = {}
+    for label, shape in (("mesh_off", "off"), ("mesh_2x1", "2x1")):
+        runs[label] = run_flagged(device, [rules, flagship], fresh_files(texts),
+                                  mesh_shape=shape, result_cache=False)
+    base, mesh = runs["mesh_off"], runs["mesh_2x1"]
+    check((mesh["rc"], mesh["out"]) == (base["rc"], base["out"]) and mesh["err"] == "",
+          "mesh_2x1: stdout or rc differs from the unsharded run")
+    ev = mesh["ev"]
+    check([len(p) for p in ev.packs] == [2], f"mesh_2x1: packs {ev.packs}")
+    if device.type == "cuda":
+        check(mesh["summary"]["launches"] == base["summary"]["launches"]
+              and base["summary"]["launches"]["rim_reduce"] == len(ev.groups),
+              f"mesh_2x1: launches {mesh['summary']['launches']} against "
+              f"{base['summary']['launches']} unsharded")
+    for label, run in runs.items():
+        out[label] = run["summary"]
+        out["launches"][label] = run["summary"]["launches"]
+        log(f"{label}: {json.dumps(out[label])}")
     return out
 
 
@@ -1099,7 +1321,7 @@ def phase_backends(device, tmp: Path) -> dict:
     def run(backend, data, **flags):
         writer = Writer.buffered()
         cmd = Validate(rules=[str(rules)], data=[str(data)], backend=backend,
-                       device=str(device), **flags)
+                       device=str(device), result_cache=False, **flags)
         t0 = time.perf_counter()
         rc = cmd.execute(writer, Reader())
         sync(device)
@@ -1246,7 +1468,8 @@ def run_report(device, rules: Path, data_files, **flags) -> dict:
     from guard_tpu_torch.commands.validate import Validate
     from guard_tpu_torch.utils.io import Reader, Writer
 
-    cmd = Validate(rules=[str(rules)], prepared_data=data_files, device=str(device), **flags)
+    cmd = Validate(rules=[str(rules)], prepared_data=data_files, device=str(device),
+                   result_cache=False, **flags)
     writer = Writer.buffered()
     K.reset_launches()
     sync(device)
@@ -1614,6 +1837,64 @@ def corpus_reports(device) -> dict:
     return {"runs": runs, "native_reports": native, "seconds": time.perf_counter() - t0}
 
 
+def phase_test_command(device) -> dict:
+    """Leg (e): `test --dir corpus/rules` through the port's CLI in this
+    process, on the card (`--backend tpu`, the default) and with
+    `--backend cpu`, in the single-line, JSON and JUnit formats: the
+    same stdout and rc, all 249 files and their 725 cases, most of them
+    answered by the walk on the card, every kernel counter set to 0
+    just before each card run and read just after."""
+    from guard_tpu_torch import cli
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.commands.test import Test
+    from guard_tpu_torch.utils.io import Writer
+
+    corpus = ROOT / "corpus" / "rules"
+    seen = []
+
+    class Recording(Test):
+        def execute(self, writer, reader):
+            seen.append(self)
+            return super().execute(writer, reader)
+
+    out = {}
+    launches = None
+    cli.Test, real = Recording, cli.Test
+    try:
+        for fmt in ("single-line-summary", "json", "junit"):
+            runs = {}
+            for backend, extra in (("tpu", ["--device", str(device)]), ("cpu", ["--backend", "cpu"])):
+                w = Writer.buffered()
+                K.reset_launches()
+                sync(device)
+                t0 = time.perf_counter()
+                rc = cli.run(["test", "-d", str(corpus), "-o", fmt, *extra], writer=w)
+                sync(device)
+                runs[backend] = {"rc": rc, "out": w.stripped(), "err": w.err_to_stripped(),
+                                 "wall_s": time.perf_counter() - t0,
+                                 "launches": dict(K.LAUNCHES), "routes": seen[-1].routes}
+            tpu, cpu = runs["tpu"], runs["cpu"]
+            check((tpu["rc"], tpu["out"], tpu["err"]) == (cpu["rc"], cpu["out"], cpu["err"]),
+                  f"test {fmt}: the card's run differs from --backend cpu")
+            check(tpu["rc"] == 0 and sum(tpu["routes"].values()) == 725,
+                  f"test {fmt}: rc {tpu['rc']}, routes {tpu['routes']}")
+            check(tpu["routes"]["device"] >= 600, f"test {fmt}: routes {tpu['routes']}")
+            if fmt == "single-line-summary":
+                files = tpu["out"].count("Testing Guard File ")
+                check(files == 249, f"test: {files} files tested")
+                launches = tpu["launches"]
+                if device.type == "cuda":
+                    check(launches["gather_rows"] > 0 and launches["rim_reduce"] == 0,
+                          f"test: launches {launches}")
+            out[fmt] = {b: {k: v for k, v in r.items() if k not in ("out", "err")}
+                        for b, r in runs.items()}
+            out[fmt]["bytes"] = len(tpu["out"].encode())
+    finally:
+        cli.Test = real
+    out["launches"] = launches
+    return out
+
+
 def phase_cli(tmp: Path) -> dict:
     from guard_tpu_torch.workloads import FLAGSHIP_RULES, example_docs
 
@@ -1915,7 +2196,8 @@ def phase_packing(device, tmp: Path) -> dict:
     statuses, unsure bits, rim blocks and oracle documents per file, one
     walk and one K3 launch per (pack, bucket) against one per (file,
     bucket); (2) the pack's columnarization and walk; (3) `validate`
-    over the 725 inputs, `-S all` and `-z -o json`, packed, --no-pack,
+    over every N_PACKING_CLI_STRIDE-th of the 725 inputs, `-S all` and
+    `-z -o json`, packed, --no-pack,
     --no-plan-cache and on a warm plan cache (a disk hit): the same
     stdout and rc, and the module entry point's equal to them; (4)
     --statuses-only over N_PACKING_STATUSES documents, packed; (5) the
@@ -1924,6 +2206,8 @@ def phase_packing(device, tmp: Path) -> dict:
     and oracle:nth=1 (native oracle off) exits 5 with the injected line.
     Every kernel counter is set to 0 just before the packed run (1) and
     read just after it."""
+    import shutil
+
     import numpy as np
     import torch
 
@@ -2023,13 +2307,19 @@ def phase_packing(device, tmp: Path) -> dict:
     del packed
     log(f"packing columns: {json.dumps(out['pack_bucket'])}")
 
-    # (3) the CLI over the 725 inputs, in four states of the plan layer:
-    # the packed runs first, `python -m guard_tpu_torch validate` with a
-    # cold plan cache (each saves the artifact), then the other states of
-    # both flag sets side by side, the warm one a new process that loads
-    # the artifact
+    # (3) the CLI over every N_PACKING_CLI_STRIDE-th input, in four
+    # states of the plan layer: the packed runs first, `python -m
+    # guard_tpu_torch validate` with a cold plan cache (each saves the
+    # artifact), then the other states of both flag sets side by side,
+    # the warm one a new process that loads the artifact
+    cli_data = tmp / "registry_cli_data"
+    cli_data.mkdir()
+    for i in range(0, len(texts), N_PACKING_CLI_STRIDE):
+        shutil.copyfile(data_dir / f"d{i:04d}.json", cli_data / f"d{i:04d}.json")
+    out["cli_inputs"] = len(range(0, len(texts), N_PACKING_CLI_STRIDE))
     cli_dir = tmp / "registry_plans"
-    base = ["validate", "--device", str(device), "-r", str(rules_dir), "-d", str(data_dir)]
+    base = ["validate", "--no-result-cache", "--device", str(device),
+            "-r", str(rules_dir), "-d", str(cli_data)]
     flag_sets = {"show_all": ["-S", "all"],
                  "structured_json": ["-z", "-o", "json", "-S", "none"]}
     states = {"no_pack": ["--no-pack"], "no_plan_cache": ["--no-plan-cache"], "warm": []}
@@ -2061,7 +2351,7 @@ def phase_packing(device, tmp: Path) -> dict:
              for i in range(N_PACKING_STATUSES)]
     writer = Writer.buffered()
     cmd = Validate(rules=[str(rules_dir)], prepared_data=files, statuses_only=True,
-                   device=str(device))
+                   device=str(device), result_cache=False)
     K.reset_launches()
     sync(device)
     t0 = time.perf_counter()
@@ -2083,7 +2373,7 @@ def phase_packing(device, tmp: Path) -> dict:
     fault_data.mkdir()
     for i, text in enumerate(texts[:N_PACKING_FAULT]):
         (fault_data / f"d{i:04d}.json").write_text(text)
-    fault_args = ["validate", "--device", str(device), "-S", "all",
+    fault_args = ["validate", "--no-result-cache", "--device", str(device), "-S", "all",
                   "-r", str(rules_dir), "-d", str(fault_data)]
 
     def armed(spec):
@@ -2891,15 +3181,22 @@ def main() -> int:
     log(f"phase 2 (kernels vs plain) ok in {took()}")
     with tempfile.TemporaryDirectory(prefix="guard_smoke_") as td:
         tmp = Path(td)
-        # the plan layer's artifacts, of this run and its subprocesses
+        # the plan layer's artifacts, the result cache's entries and the
+        # flight recorder's dumps, of this run and its subprocesses
         os.environ["GUARD_TPU_PLAN_CACHE_DIR"] = str(tmp / "plans")
+        os.environ["GUARD_TPU_RESULT_CACHE_DIR"] = str(tmp / "results_default")
+        os.environ["GUARD_TPU_FLIGHTREC_DIR"] = str(tmp / "flightrec")
         slice_info, evaluation, data_files = phase_slice(device, tmp)
         log(f"phase 3 (slice) ok in {took()}: "
             f"{json.dumps({k: v for k, v in slice_info.items() if k != 'shapes'})}")
         breakdown = phase_breakdown(device, evaluation)
         log(f"phase 3 (breakdown) in {took()}: {json.dumps(breakdown)}")
-        ingest_info = phase_ingest(device, tmp, slice_info, evaluation)
+        ingest_info, texts = phase_ingest(device, tmp, slice_info, evaluation)
         log(f"phase 3 (ingest) ok in {took()}")
+        flags_info = phase_slice_flags(device, tmp, slice_info, texts)
+        del texts
+        log(f"phase 3 (cache, scalar rim, mesh) ok in {took()}: "
+            f"{json.dumps({k: v for k, v in flags_info.items() if k != 'launches'})}")
         # the first N_REPORT_DOCS templates and the volume template (the
         # last document, alone in its 65,536-node bucket)
         rows = list(range(N_REPORT_DOCS)) + [len(data_files) - 1]
@@ -2930,6 +3227,8 @@ def main() -> int:
         log(f"phase 3 (flagship) ok in {took()}: {flagship}")
         corpus = phase_corpus(device)
         log(f"phase 3 (corpus) ok in {took()}: {corpus}")
+        test_info = phase_test_command(device)
+        log(f"phase 3 (test) ok in {took()}: {json.dumps(test_info)}")
         packing, packing_info = phase_packing(device, tmp)
         log(f"phase 3 (packing) ok in {took()}: {json.dumps(packing)}")
         summary_info = phase_summary(device)
@@ -2942,7 +3241,10 @@ def main() -> int:
     infos = {"security": slice_info, "xref": xref_info, "fnvar": fnvar_info,
              "summary": summary_info, "entry": entry_info, "report": report_info,
              "ingest_ii": ingest_info["ii_auto"], "xref_ingest": xref_ingest,
-             "packing": packing_info}
+             "packing": packing_info,
+             **{path: {"launches": launches}
+                for path, launches in flags_info["launches"].items()},
+             "test_command": {"launches": test_info["launches"]}}
     kernels = contract_kernels(device, infos, sweep, card)
     log(f"kernels line in {took()}")
     leaked = sorted(
@@ -2967,6 +3269,7 @@ def main() -> int:
         "flagship": flagship, "corpus": corpus, "packing": packing,
         "summary": {k: v for k, v in summary_info.items() if k != "shapes"},
         "report": report_info, "ingest": ingest_info, "xref_ingest": xref_ingest,
+        "flags": {k: v for k, v in flags_info.items() if k != "launches"}, "test": test_info,
         "backends": backends_info,
         "entry": entry_info, "cli": cli,
         "build_s": build_s, "oracle_build_s": oracle_build_s,

@@ -20,7 +20,11 @@ in process or over a spawn pool of ingest workers
 on the host instead, with no card. Rule files are lowered once into a
 plan (`ops/plan.py`: an in-process memo and content-addressed artifacts
 on disk) and the files that can share one program are fused into packs,
-one walk and one rim reduction per (pack, bucket).
+one walk and one rim reduction per (pack, bucket). Unchanged documents
+replay from a content-addressed result cache (`cache/results.py`), every
+host stage runs in a span of the telemetry plane (`utils/telemetry.py`,
+`--trace-out`, `--metrics-out`), and `test` (`commands/test.py`) runs a
+rule registry's expectation suites on the card.
 """
 
 #: the port's own version: it keys the plan artifacts (ops/plan.py)

@@ -22,24 +22,26 @@ healthy plan computes.
 
 from __future__ import annotations
 
-#: analysis-plane counters, under the JAX package's names:
+from ..utils.telemetry import REGISTRY as _TELEMETRY
+
+#: analysis-plane counters, the telemetry group "analysis" under the
+#: JAX package's names:
 #: `invariants_checked` counts individual invariant evaluations across
 #: verify_plan/verify_relocation calls, `violations` the failures,
 #: `lint_findings` the linter's findings (no linter in the port yet),
 #: `signatures_extracted` per-file anchor signatures derived during
 #: plan builds.
-ANALYSIS_COUNTERS = {
+ANALYSIS_COUNTERS = _TELEMETRY.counter_group("analysis", {
     "invariants_checked": 0,
     "violations": 0,
     "lint_findings": 0,
     "signatures_extracted": 0,
-}
+})
 
 
 def analysis_stats() -> dict:
-    return dict(ANALYSIS_COUNTERS)
+    return _TELEMETRY.group_stats("analysis")
 
 
 def reset_analysis_stats() -> None:
-    for k in ANALYSIS_COUNTERS:
-        ANALYSIS_COUNTERS[k] = 0
+    _TELEMETRY.reset_group("analysis")

@@ -47,6 +47,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..core.errors import GuardError
+from ..utils.telemetry import span as _span
 from ..ops.ir import (
     CBlockClause,
     CClause,
@@ -399,16 +400,18 @@ def _plan_parts(plan):
 def verify_plan(plan) -> List[Violation]:
     """Full structural verification of a RulePlan; returns every
     violation found (empty list = healthy). Pure host."""
-    out: List[Violation] = []
-    out.extend(_check_segments(plan))
-    out.extend(_check_slots(plan))
-    out.extend(_check_bit_widths(plan))
-    out.extend(_check_chains(plan))
-    out.extend(_check_rim(plan))
-    out.extend(_check_buckets())
-    ANALYSIS_COUNTERS["invariants_checked"] += len(INVARIANTS) - 1
-    ANALYSIS_COUNTERS["violations"] += len(out)
-    return out
+    with _span("verify_plan", {"files": len(plan.compiled),
+                               "packs": len(plan.packs)}):
+        out: List[Violation] = []
+        out.extend(_check_segments(plan))
+        out.extend(_check_slots(plan))
+        out.extend(_check_bit_widths(plan))
+        out.extend(_check_chains(plan))
+        out.extend(_check_rim(plan))
+        out.extend(_check_buckets())
+        ANALYSIS_COUNTERS["invariants_checked"] += len(INVARIANTS) - 1
+        ANALYSIS_COUNTERS["violations"] += len(out)
+        return out
 
 
 def verify_relocation(plan, batch) -> List[Violation]:

@@ -9,6 +9,8 @@ package's names:
 * `tpu` (the port's default): the device path, `ops/backend.tpu_validate`
   on the CUDA card (or the device `--device` names) — full reports in
   every output format, or rule-level statuses under `--statuses-only`;
+  unchanged documents replay from the result cache unless
+  `--no-result-cache`;
 * `cpu`: the CPU evaluator (core/evaluator.py), one pair at a time;
 * `native`: the native C++ oracle (ops/native_oracle.py, built on first
   use), falling back to the CPU evaluator for each pair it declines;
@@ -35,6 +37,7 @@ from ..core.qresult import Status
 from ..core.scopes import RootScope
 from ..core.values import PV
 from ..utils.io import Reader, Writer
+from ..utils.telemetry import span as _span
 from .files import DATA_FILE_EXTENSIONS, RULE_FILE_EXTENSIONS, gather
 from .report import rule_statuses_from_root, serde_record_json, simplified_report_from_root
 
@@ -159,6 +162,21 @@ class Validate:
     # tpu backend: the plan/IR verifier (analysis/verify.py;
     # --no-verify-plans turns it off)
     verify_plans: bool = True
+    # tpu backend: the vector rim (K3 on the device, mask arithmetic in
+    # pass A, documents settled from shared templates); --no-vector-rim
+    # launches no K3 and walks every (document, rule) status
+    vector_rim: bool = True
+    # tpu backend: the (doc shards x pack columns) mesh, --mesh-shape
+    # (parallel/mesh2d.py); None = auto. One card runs every shape
+    # unsharded
+    mesh_shape: Optional[str] = None
+    # tpu backend: the result cache (cache/results.py): unchanged
+    # documents replay, only the delta is encoded and dispatched;
+    # --no-result-cache turns it off
+    result_cache: bool = True
+    # tpu backend: print the cache's partition (cached against
+    # dispatched documents) on stderr after the run
+    delta_stats: bool = False
     # None = CUDA (raises without a card); "cpu" runs the plain kernels
     device: Optional[str] = None
     # data files loaded by an earlier run, reused in place of `data`
@@ -206,6 +224,10 @@ class Validate:
 
     # -- input loading ------------------------------------------------
     def _load_data_files(self, reader: Reader) -> List[DataFile]:
+        with _span("read_parse"):
+            return self._load_data_files_inner(reader)
+
+    def _load_data_files_inner(self, reader: Reader) -> List[DataFile]:
         if self.prepared_data is not None:
             return list(self.prepared_data)
         if self.data:
@@ -228,20 +250,24 @@ class Validate:
     def _load_rule_files(self, writer: Writer):
         rule_files: List[RuleFile] = []
         errors = 0
-        for f in gather(self.rules, RULE_FILE_EXTENSIONS, self.last_modified):
-            content = f.read_text()
-            try:
-                rf = parse_rules_file(content, f.name)
-            except ParseError as e:
-                # per-file error isolation (validate.rs:406-434)
-                writer.writeln_err(f"Parse Error on ruleset file {f.name}")
-                writer.writeln_err(str(e))
-                errors += 1
-                continue
-            if rf is not None:
-                rule_files.append(
-                    RuleFile(name=f.name, full_name=str(f), content=content, rules=rf)
-                )
+        sources = [
+            (f.name, f.read_text(), str(f))
+            for f in gather(self.rules, RULE_FILE_EXTENSIONS, self.last_modified)
+        ]
+        with _span("rule_parse", {"files": len(sources)}):
+            for name, content, full in sources:
+                try:
+                    rf = parse_rules_file(content, name)
+                except ParseError as e:
+                    # per-file error isolation (validate.rs:406-434)
+                    writer.writeln_err(f"Parse Error on ruleset file {name}")
+                    writer.writeln_err(str(e))
+                    errors += 1
+                    continue
+                if rf is not None:
+                    rule_files.append(
+                        RuleFile(name=name, full_name=full, content=content, rules=rf)
+                    )
         return rule_files, errors
 
     def _merged_input_params(self) -> Optional[PV]:

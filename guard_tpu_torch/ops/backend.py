@@ -4,7 +4,11 @@ reruns for the reports.
 The port of the JAX package's `tpu_validate` (guard_tpu/ops/backend.py:
 1695) and its report half (`_report_files`, `_finish_report`):
 
-  1. encode the documents once (`_encode_docs`: the quarantine encode
+  0. partition the documents against the result cache (cache/results.py,
+     `_result_cache_setup`; on unless --no-result-cache): the cached
+     ones replay in pass B, the rest (the delta) go through steps 1-5,
+     and a run with no delta encodes nothing and launches nothing;
+  1. encode the delta once (`_encode_docs`: the quarantine encode
      under --max-doc-failures, else the ingest pool, else the native
      encoder in process, else the tree encoder), lower every rule file
      up front through the plan layer (ops/plan.py: the in-process memo,
@@ -18,7 +22,9 @@ The port of the JAX package's `tpu_validate` (guard_tpu/ops/backend.py:
   2. evaluate on the device: the files that can share the shared
      encode's program are fused into packs (`plan_packs`, one walk and
      one rim reduction (K3) per (pack, bucket); every (pack, bucket) is
-     dispatched before any is collected), and each pack's statuses,
+     dispatched before any is collected; --mesh-shape is resolved as the
+     JAX package resolves it and runs unsharded on one card,
+     parallel/mesh2d.py), and each pack's statuses,
      unsure bits and rim blocks are sliced back per file; the other
      files (function variables, no device rule, a singleton pack,
      --no-pack) evaluate bucket by bucket on their own, K3 behind each
@@ -32,29 +38,33 @@ The port of the JAX package's `tpu_validate` (guard_tpu/ops/backend.py:
      the documents whose report needs the oracle (failures unless
      --statuses-only, unsure bits, documents the device did not
      evaluate, host rules, rich output) and those whose per-rule
-     statuses must be built at all;
+     statuses must be built at all; under --no-vector-rim no K3 runs
+     and pass A walks every (document, rule) status instead;
   4. the reruns: the native C++ oracle (ops/native_oracle.py) where it
      is built and accepts the rules, else the CPU evaluator
      (core/evaluator.py), over a spawn pool (ops/oracle_pool.py) when
      there are enough of them;
   5. pass B: every (rules file, document) pair's report in order, the
      documents pass A settled from one shared template per distinct
-     status row; then the structured outputs and the exit code.
+     status row and the cached ones replayed; then the structured
+     outputs, the store of the delta's results and the exit code.
 
 A device status that differs from the oracle's where no unsure bit was
 set is an error (the `TPU/native` and `TPU/CPU` nets, as the JAX
 package words them). A quarantined document stands in as `null` and
-is left out of every report. The JAX package's result cache and scalar
-rim are not ported: pass B walks the documents in order and is where
-each would slot in.
+is left out of every report. Each stage runs in a span of
+utils/telemetry.py under the JAX package's name (encode, lower_compile,
+pack_compile, dispatch, collect, rim_reduce, oracle, report).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
 from collections.abc import Sequence
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -70,6 +80,10 @@ from ..core.values import PV
 from ..core.values import Path as VPath
 from ..utils.faults import FAULT_COUNTERS, bounded_call, maybe_fail
 from ..utils.io import Writer
+from ..utils.telemetry import REGISTRY as _TELEMETRY
+from ..utils.telemetry import span as _span
+from ..utils.telemetry import span_begin as _span_begin
+from ..utils.telemetry import span_end as _span_end
 from .encoder import Interner, encode_bucketed
 from .fnvars import precompute_fn_values, precomputable_fn_vars
 from .ir import (
@@ -98,6 +112,16 @@ log = logging.getLogger("guard_tpu_torch.backend")
 PACK_MAX_RULES = 512
 
 STATUS = {PASS: Status.PASS, FAIL: Status.FAIL, SKIP: Status.SKIP}
+_STATUS_VALUES = {s.value for s in Status}
+
+#: the telemetry group "rim", the JAX package's counters:
+#: `docs_materialized` counts (document, rules file) pairs whose
+#: per-rule status dict was built — failures, unsure bits, host
+#: documents, rich output, and every pair under --no-vector-rim —
+#: and `docs_settled` those reported from a shared status-row template
+RIM_COUNTERS = _TELEMETRY.counter_group(
+    "rim", {"docs_materialized": 0, "docs_settled": 0}
+)
 
 # the counters of a report run (Evaluation.reruns)
 RERUN_KEYS = (
@@ -229,45 +253,74 @@ class PackPending:
     """In-flight state between `dispatch_packs` and `collect_packs`:
     per pack (pack, PackedRules, RimSpec, evaluator, handles), each
     handle (doc indices, bucket batch, dispatch handle or None when the
-    dispatch failed), and the documents no bucket holds."""
+    dispatch failed), the documents no bucket holds and whether K3 rode
+    the dispatches (`with_rim`)."""
 
-    __slots__ = ("pending", "host_docs", "n_docs")
+    __slots__ = ("pending", "host_docs", "n_docs", "with_rim")
 
-    def __init__(self, pending, host_docs, n_docs):
+    def __init__(self, pending, host_docs, n_docs, with_rim=True):
         self.pending = pending
         self.host_docs = host_docs
         self.n_docs = n_docs
+        self.with_rim = with_rim
 
 
 def dispatch_packs(items, groups, n_docs: int, oversize=(), device=None,
-                   prepacked=None) -> PackPending:
+                   prepacked=None, with_rim: bool = True,
+                   mesh_shape=None) -> PackPending:
     """Dispatch half of the fused multi-rule-file path: pack the
     compatible compiled files (plan_packs; or `prepacked`, the plan
     layer's [(pack, PackedRules, RimSpec)], which skips planning and
     packing) and dispatch EVERY (pack, bucket) of the shared encode
-    `groups` without collecting. `oversize` are the documents no bucket
-    holds. A dispatch that raises a GuardError keeps its bucket (handle
-    None) for collect_packs' ladder."""
+    `groups` without collecting. `oversize` are the documents no
+    bucket holds. A dispatch that raises a GuardError keeps its bucket
+    (handle None) for collect_packs' ladder.
+
+    `with_rim` False is the scalar rim (--no-vector-rim): no K3 rides
+    the walks. `mesh_shape` is the --mesh-shape value (None = auto),
+    resolved here as the JAX package resolves it
+    (parallel/mesh2d.resolve_mesh_shape: a malformed value raises, a
+    shape wider than the cards warns); every shape runs unsharded on
+    one card."""
+    if (not prepacked) if prepacked is not None else (len(items) < 2):
+        return PackPending([], set(), n_docs, with_rim)
+    with _span("dispatch", {"files": len(items)}):
+        return _dispatch_packs_inner(items, groups, n_docs, oversize, device,
+                                     prepacked, with_rim, mesh_shape)
+
+
+def _dispatch_packs_inner(items, groups, n_docs, oversize, device, prepacked,
+                          with_rim, mesh_shape) -> PackPending:
+    from ..parallel import mesh2d
+
     dev = resolve_device(device)
-    planned = [] if prepacked is None else prepacked
-    if prepacked is None and len(items) >= 2:
+    mesh2d.resolve_mesh_shape(mesh_shape, mesh2d.device_count(dev))
+    if prepacked is not None:
+        planned = prepacked
+    else:
+        planned = []
         for pack in plan_packs(items):
             if len(pack) < 2:
                 continue  # a singleton pack gains nothing over per-file
             try:
-                packed = pack_compiled([c for _, c in pack])
+                with _span("pack_compile", {"files": len(pack)}):
+                    packed = pack_compiled([c for _, c in pack])
+                    spec = packed.rim_spec()
             except PackIncompatible as e:
                 log.info("pack of %d files fell back to per-file: %s", len(pack), e)
                 continue
-            planned.append((pack, packed, packed.rim_spec()))
+            planned.append((pack, packed, spec))
+    if not planned:
+        return PackPending([], set(), n_docs, with_rim)
     pending = []
     # every pack's evaluator is built before the first dispatch
     for pack, packed, spec in planned:
         EFFICIENCY_COUNTERS["pack_rule_slots_used"] += len(packed.compiled.rules)
         EFFICIENCY_COUNTERS["pack_rule_slots_capacity"] += PACK_MAX_RULES
-        ev = DeviceBatchEvaluator(packed.compiled, dev, rim_spec=spec)
+        ev = DeviceBatchEvaluator(packed.compiled, dev,
+                                  rim_spec=spec if with_rim else None)
         pending.append((pack, packed, spec, ev, []))
-    for pack, _packed, _spec, ev, handles in pending:
+    for _pack, _packed, _spec, ev, handles in pending:
         for sub, idx in groups:
             try:
                 maybe_fail("dispatch")
@@ -277,7 +330,11 @@ def dispatch_packs(items, groups, n_docs: int, oversize=(), device=None,
                             "will retry per-file at collect", len(idx), e)
                 FAULT_COUNTERS["dispatch_fallbacks"] += 1
                 handles.append((idx, sub, None))
-    return PackPending(pending, {int(i) for i in oversize}, n_docs)
+    used = EFFICIENCY_COUNTERS["pack_rule_slots_used"]
+    cap = EFFICIENCY_COUNTERS["pack_rule_slots_capacity"]
+    if cap:
+        _TELEMETRY.set_gauge("efficiency.pack_slot_utilization", used / cap)
+    return PackPending(pending, {int(i) for i in oversize}, n_docs, with_rim)
 
 
 def collect_packs(pp: PackPending) -> dict:
@@ -285,7 +342,7 @@ def collect_packs(pp: PackPending) -> dict:
     back per file. Returns {file_idx: (statuses (D, R_f) int8, unsure
     (D, R_f) bool, host_docs set, rim)}, `rim` the file's six blocks in
     FileResult's shapes (doc status, any-fail and any-unsure as (D, 1)
-    columns).
+    columns), or None when no K3 rode the dispatches.
 
     The degradation ladder: a bucket whose dispatch or collect raised a
     GuardError (an injected fault or a timeout) reruns per file for that
@@ -294,35 +351,46 @@ def collect_packs(pp: PackPending) -> dict:
     goes to the host oracle: a per-file rerun that fails (a timeout, a
     kernel that does not build or launch, a CUDA error) ends the run.
     The JAX package sends such a file's documents to its host oracle;
-    the port keeps every document it put on the device there."""
+    the port keeps every document it put on the device there. The span
+    closes after the last copy to the host."""
+    if not pp.pending:
+        return {}
+    with _span("collect", {"packs": len(pp.pending)}):
+        return _collect_packs_inner(pp)
+
+
+def _collect_packs_inner(pp: PackPending) -> dict:
     results: dict = {}
     d = pp.n_docs
     for pack, packed, spec, ev, handles in pp.pending:
         n_rules = len(packed.compiled.rules)
         statuses = np.full((d, n_rules), SKIP, np.int8)
         unsure = np.zeros((d, n_rules), bool)
-        rim = [
-            np.full((d, w), fill, dt) for w, fill, dt in (
-                (spec.n_groups, SKIP, np.int8), (spec.n_groups, False, bool),
-                (spec.n_files, SKIP, np.int8), (spec.n_files, False, bool),
-                (spec.n_files, False, bool), (spec.n_groups, SKIP, np.int8),
-            )
-        ]
+        rim = None
+        if pp.with_rim:
+            rim = [
+                np.full((d, w), fill, dt) for w, fill, dt in (
+                    (spec.n_groups, SKIP, np.int8), (spec.n_groups, False, bool),
+                    (spec.n_files, SKIP, np.int8), (spec.n_files, False, bool),
+                    (spec.n_files, False, bool), (spec.n_groups, SKIP, np.int8),
+                )
+            ]
         for idx, sub, handle in handles:
             if handle is not None:
                 try:
                     maybe_fail("collect")
-                    st, un, blocks = bounded_call(ev.collect, handle)
+                    got = bounded_call(ev.collect, handle)
                 except GuardError as e:
                     log.warning("packed collect failed for a %d-doc bucket (%s); "
                                 "retrying per-file", len(idx), e)
                     FAULT_COUNTERS["dispatch_fallbacks"] += 1
                 else:
-                    statuses[idx] = st
-                    if un is not None:
-                        unsure[idx] = un
-                    for b, block in enumerate(blocks):
-                        rim[b][idx] = block
+                    statuses[idx] = got[0]
+                    if got[1] is not None:
+                        unsure[idx] = got[1]
+                    if rim is not None:
+                        for b, block in enumerate(got[2]):
+                            rim[b][idx] = block
                     continue
             # rung 2: per file for just this bucket, on the same device;
             # a failure here (a timeout among them) ends the run
@@ -333,28 +401,32 @@ def collect_packs(pp: PackPending) -> dict:
                 statuses[idx, seg] = st
                 if un is not None:
                     unsure[idx, seg] = un
-            for b, block in enumerate(ev.rim_of(statuses[idx], unsure[idx])):
-                rim[b][idx] = block
+            if rim is not None:
+                for b, block in enumerate(ev.rim_of(statuses[idx], unsure[idx])):
+                    rim[b][idx] = block
         for k, (fi, _c) in enumerate(pack):
             seg = packed.segment(k)
-            gsl = spec.file_slice(k)
-            fsl = slice(k, k + 1)
-            blocks_f = (rim[0][:, gsl], rim[1][:, gsl], rim[2][:, fsl],
-                        rim[3][:, fsl], rim[4][:, fsl], rim[5][:, gsl])
-            results[fi] = (statuses[:, seg], unsure[:, seg],
-                           set(pp.host_docs), blocks_f)
+            blocks_f = None
+            if rim is not None:
+                gsl = spec.file_slice(k)
+                fsl = slice(k, k + 1)
+                blocks_f = (rim[0][:, gsl], rim[1][:, gsl], rim[2][:, fsl],
+                            rim[3][:, fsl], rim[4][:, fsl], rim[5][:, gsl])
+            results[fi] = (statuses[:, seg], unsure[:, seg], set(pp.host_docs), blocks_f)
     return results
 
 
 def _evaluate_packs(items, groups, n_docs: int, oversize=(), device=None,
-                    prepacked=None) -> dict:
+                    prepacked=None, with_rim: bool = True, mesh_shape=None) -> dict:
     """dispatch_packs + collect_packs: every (pack, bucket) dispatches
     before anything collects."""
-    return collect_packs(dispatch_packs(items, groups, n_docs, oversize, device, prepacked))
+    return collect_packs(dispatch_packs(items, groups, n_docs, oversize, device, prepacked,
+                                        with_rim, mesh_shape))
 
 
 def evaluate(rule_files, docs, device=None, shared=None, pack_rules: bool = True,
-             plan_cache: bool = True, verify_plans: bool = True) -> Evaluation:
+             plan_cache: bool = True, verify_plans: bool = True,
+             vector_rim: bool = True, mesh_shape: Optional[str] = None) -> Evaluation:
     """Lower every rules file and evaluate it on `device` (CUDA unless
     given). `docs` are the documents' PV trees (a sequence that may
     build them on access). `shared` is the shared encode, (groups,
@@ -367,9 +439,12 @@ def evaluate(rule_files, docs, device=None, shared=None, pack_rules: bool = True
     relocated into the plan's interner (`verify_plans` runs the
     analysis plane's invariants there); otherwise each file is lowered
     against the shared encode's interner. With packing on (`pack_rules`)
-    the files on the shared encode evaluate as packs.
+    the files on the shared encode evaluate as packs (`mesh_shape`,
+    --mesh-shape, is resolved there and runs unsharded on one card).
     Files with function variables get their function values precomputed
-    and are encoded on their own, into the same interner."""
+    and are encoded on their own, into the same interner. `vector_rim`
+    False (--no-vector-rim) launches no K3: every FileResult.rim is
+    None and pass A walks the statuses."""
     from .plan import get_plan, relocate_batch
 
     dev = resolve_device(device)
@@ -381,7 +456,8 @@ def evaluate(rule_files, docs, device=None, shared=None, pack_rules: bool = True
         interner = Interner()
     if shared is None and any(uses_shared_encode(rf) for rf in rule_files):
         t1 = time.perf_counter()
-        groups, oversize, _ = encode_bucketed(docs, interner)
+        with _span("encode", {"docs": len(docs)}):
+            groups, oversize, _ = encode_bucketed(docs, interner)
         shared = (groups, {int(i) for i in oversize})
         seconds["encode"] += time.perf_counter() - t1
 
@@ -394,27 +470,32 @@ def evaluate(rule_files, docs, device=None, shared=None, pack_rules: bool = True
             relocate_batch(plan, [b for b, _ in shared[0]], interner, verify=verify_plans)
         interner = plan.interner
     lowered = []
-    for fi, rf in enumerate(rule_files):
-        f_groups, f_host = None, set()
-        compiled = None if plan is None else plan.compiled[fi]
-        if precomputable_fn_vars(rf.rules):
-            t1 = time.perf_counter()
-            fn_vars, fn_vals, fn_err = precompute_fn_values(rf.rules, docs)
-            seconds["fn_precompute"] += time.perf_counter() - t1
-            t1 = time.perf_counter()
-            f_groups, f_oversize, _ = encode_bucketed(
-                docs, interner, fn_values=fn_vals, fn_var_order=fn_vars
-            )
-            seconds["encode"] += time.perf_counter() - t1
-            # a function raised on these documents: the oracle reruns
-            # them and reproduces the error
-            f_host = {int(i) for i in f_oversize} | set(fn_err)
-            compiled = None  # lowered after its own encode
-        elif uses_shared_encode(rf):
-            f_groups, f_host = shared[0], set(shared[1])
-        if compiled is None:
-            compiled = compile_rules_file(rf.rules, interner)
-        lowered.append((rf, compiled, f_groups, f_host))
+    # one span over the whole lowering without the plan layer, one per
+    # function-variable file with it, as in the JAX package
+    with _span("lower_compile", {"files": len(rule_files)}) if plan is None else nullcontext():
+        for fi, rf in enumerate(rule_files):
+            f_groups, f_host = None, set()
+            compiled = None if plan is None else plan.compiled[fi]
+            if precomputable_fn_vars(rf.rules):
+                with (_span("lower_compile", {"files": 1, "mode": "fnvar"})
+                      if plan is not None else nullcontext()):
+                    t1 = time.perf_counter()
+                    fn_vars, fn_vals, fn_err = precompute_fn_values(rf.rules, docs)
+                    seconds["fn_precompute"] += time.perf_counter() - t1
+                    t1 = time.perf_counter()
+                    f_groups, f_oversize, _ = encode_bucketed(
+                        docs, interner, fn_values=fn_vals, fn_var_order=fn_vars
+                    )
+                    seconds["encode"] += time.perf_counter() - t1
+                    # a function raised on these documents: the oracle
+                    # reruns them and reproduces the error
+                    f_host = {int(i) for i in f_oversize} | set(fn_err)
+                    compiled = compile_rules_file(rf.rules, interner)
+            elif uses_shared_encode(rf):
+                f_groups, f_host = shared[0], set(shared[1])
+            if compiled is None:
+                compiled = compile_rules_file(rf.rules, interner)
+            lowered.append((rf, compiled, f_groups, f_host))
 
     seconds["lower"] = (
         time.perf_counter() - t0 - seconds["fn_precompute"]
@@ -433,32 +514,35 @@ def evaluate(rule_files, docs, device=None, shared=None, pack_rules: bool = True
         pending = dispatch_packs(
             items, shared[0], d, shared[1], dev,
             prepacked=plan.prepacked_items() if plan is not None else None,
+            with_rim=vector_rim, mesh_shape=mesh_shape,
         )
         pack_members = [tuple(fi for fi, _c in pack) for pack, *_ in pending.pending]
         packed_results = collect_packs(pending)
     pack_of = {fi: p for p, members in enumerate(pack_members) for fi in members}
     files = []
     for fi, (rf, compiled, f_groups, f_host) in enumerate(lowered):
+        names = name_groups(compiled.rules)[1]
         if fi in packed_results:
             statuses, unsure, host, rim = packed_results[fi]
-            files.append(FileResult(rf, compiled, statuses, unsure, rim,
-                                    name_groups(compiled.rules)[1], host, f_groups,
-                                    pack_of[fi]))
+            files.append(FileResult(rf, compiled, statuses, unsure, rim, names, host,
+                                    f_groups, pack_of[fi]))
             continue
         if not compiled.rules:
             st = np.zeros((d, 0), np.int8)
             un = np.zeros((d, 0), bool)
-            files.append(FileResult(rf, compiled, st, un, _empty_rim(d), [],
+            files.append(FileResult(rf, compiled, st, un,
+                                    _empty_rim(d) if vector_rim else None, [],
                                     f_host, f_groups))
             continue
-        spec = build_rim_spec([compiled.rules])
+        spec = build_rim_spec([compiled.rules]) if vector_rim else None
         ev = DeviceBatchEvaluator(compiled, dev, rim_spec=spec)
         # documents outside f_groups are left SKIP by evaluate_groups
-        statuses, unsure, host, rim = evaluate_groups(
-            ev, len(compiled.rules), f_groups, (), d
-        )
-        files.append(FileResult(rf, compiled, statuses, unsure, rim,
-                                spec.file_group_names[0], f_host | host, f_groups))
+        with _span("dispatch", {"mode": "per_file", "file": fi}):
+            statuses, unsure, host, rim = evaluate_groups(
+                ev, len(compiled.rules), f_groups, (), d
+            )
+        files.append(FileResult(rf, compiled, statuses, unsure, rim, names,
+                                f_host | host, f_groups))
     seconds["device"] = time.perf_counter() - t0
     return Evaluation(None if shared is None else shared[0], d, interner, files,
                       dev, seconds, packs=pack_members)
@@ -546,12 +630,177 @@ class _ReportAcc:
         }
 
 
+# -- the result cache (cache/results.py) -------------------------------
+def _fragment(report: dict, rule_statuses, doc_status) -> dict:
+    """One (document, rules file) result as the cache stores it."""
+    return {
+        "report": report,
+        "rs": {n: s.value for n, s in rule_statuses.items()},
+        "ds": doc_status.value,
+    }
+
+
+def _result_cache_setup(validate, rule_files, data_files, device):
+    """Partition one validate run against the result cache, before any
+    encode: a content-addressed lookup per document. Returns None when
+    the cache is off (--no-result-cache) or the inputs are not files
+    (a payload, merged --input-params documents), else the context
+    threaded through _report_files (every entry is read in one batch): `cached` maps a document index to
+    its per-rules-file fragments, `delta_idx` lists the documents to
+    encode and dispatch, `keys` the store addresses, `capture` and
+    `skip_store` are filled in pass B, and `fault_snap` is the fault
+    counters' sum at partition time (a run that degraded anywhere
+    stores nothing). The key goes through plan.plan_digest, so it holds
+    the port's version and the device census: a run on the card and a
+    run on the CPU never share an entry."""
+    from ..cache import results as rcache
+    from .plan import plan_digest
+
+    if not validate.result_cache:
+        return None
+    if validate.payload or validate.input_params:
+        # merged and stdin documents are not content-addressable files
+        return None
+    cfg = rcache.config_hash(
+        mode="validate",
+        output_format=validate.output_format,
+        show_summary=list(validate.show_summary),
+        structured=bool(validate.structured),
+        verbose=bool(validate.verbose),
+        print_json=bool(validate.print_json),
+        statuses_only=bool(validate.statuses_only),
+    )
+    pdig = plan_digest(rule_files, device)
+    n_files = len(rule_files)
+    cached: dict = {}
+    keys = [rcache.result_key(pdig, rcache.doc_digest(df.content), cfg) for df in data_files]
+    delta_idx: list = []
+    # reports embed the document's name (the key does not): a
+    # same-content document under another name replays only a portable
+    # entry, else it is a plain miss
+    payloads = rcache.load_entries([(key, df.name) for key, df in zip(keys, data_files)])
+    for odi, payload in enumerate(payloads):
+        frags = payload.get("files") if payload else None
+        if (
+            isinstance(frags, list)
+            and len(frags) == n_files
+            and all(
+                isinstance(f, dict)
+                and isinstance(f.get("report"), dict)
+                and isinstance(f.get("rs"), dict)
+                and f.get("ds") in _STATUS_VALUES
+                for f in frags
+            )
+        ):
+            cached[odi] = frags
+        else:
+            delta_idx.append(odi)
+    rcache.set_delta_gauge(len(delta_idx), len(data_files))
+    return {
+        "full_files": list(data_files),
+        "cached": cached,
+        "delta_idx": delta_idx,
+        "keys": keys,
+        "capture": {},
+        "skip_store": set(),
+        "fault_snap": int(sum(FAULT_COUNTERS.values())),
+    }
+
+
+def _replay_cached_doc(validate, writer: Writer, acc: _ReportAcc, data_file, rule_file,
+                       frag) -> None:
+    """Emit one (document, rules file) result from a cached fragment
+    through the report path a fresh evaluation takes (the console chain,
+    or the report list and JUnit cases of a structured run, the only
+    one that emits them), so every output format replays byte for
+    byte."""
+    from ..commands.reporters.aware import console_chain
+    from ..commands.reporters.junit import JunitTestCase, failure_info_from_report
+
+    report = frag["report"]
+    if report.get("name") != data_file.name:
+        # a portable entry replayed under another name: the live name,
+        # in the same key order (structured output keeps it)
+        report = {k: (data_file.name if k == "name" else v) for k, v in report.items()}
+    doc_status = Status(frag["ds"])
+    if doc_status == Status.FAIL:
+        acc.had_fail = True
+    if validate.structured:
+        acc.all_reports.append(report)
+        fname, fmsgs = failure_info_from_report(report)
+        acc.junit_suites[data_file.name].append(
+            JunitTestCase(
+                name=rule_file.name,
+                status=doc_status,
+                failure_name=fname if doc_status == Status.FAIL else None,
+                failure_messages=fmsgs if doc_status == Status.FAIL else None,
+            )
+        )
+        return
+    console_chain(
+        writer, data_file.name, data_file.content, data_file,
+        rule_file.name, doc_status, {n: Status(v) for n, v in frag["rs"].items()},
+        report, validate.show_summary, validate.output_format,
+    )
+
+
+def _result_cache_store(rule_files, cache_ctx) -> None:
+    """Write back the delta documents' captured fragments, in one
+    batch. Never stored: the documents in `skip_store` (quarantined,
+    the host oracle's, an oracle error), and the whole run when any
+    fault or recovery counter moved since the partition."""
+    from ..cache import results as rcache
+
+    if int(sum(FAULT_COUNTERS.values())) != cache_ctx["fault_snap"]:
+        return
+    n_files = len(rule_files)
+    entries = []
+    for odi in cache_ctx["delta_idx"]:
+        if odi in cache_ctx["skip_store"]:
+            continue
+        frags = cache_ctx["capture"].get(odi)
+        if frags is None or len(frags) != n_files:
+            continue
+        df = cache_ctx["full_files"][odi]
+        # portable: the name appears nowhere in the fragments but each
+        # report's own name field, so a same-content document under any
+        # name can replay the entry with its own name
+        scrubbed = [
+            {**f, "report": {k: v for k, v in f["report"].items() if k != "name"}}
+            for f in frags
+        ]
+        portable = df.name not in json.dumps(scrubbed)
+        entries.append((cache_ctx["keys"][odi],
+                         {"name": df.name, "files": frags, "portable": portable}))
+    rcache.store_entries(entries)
+
+
+def _emit_delta_stats(validate, writer: Writer, cache_ctx) -> None:
+    """--delta-stats: one stderr line with the partition (stdout stays
+    the bytes of a run without the cache)."""
+    if cache_ctx is None or not validate.delta_stats:
+        return
+    hits = len(cache_ctx["cached"])
+    delta = len(cache_ctx["delta_idx"])
+    writer.writeln_err(
+        f"result-cache: {hits}/{hits + delta} docs cached, {delta} dispatched"
+    )
+
+
 def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
-                  writer: Writer, acc: _ReportAcc) -> None:
+                  writer: Writer, acc: _ReportAcc, cache_ctx=None) -> None:
     """Report half of the device path, one iteration per rules file:
     pass A (which docs need the oracle), the native, pooled and inline
     reruns, and pass B (report emission in document order). Quarantined
-    documents are neither rerun nor reported."""
+    documents are neither rerun nor reported.
+
+    Pass A runs over the rim blocks (the vector rim) or, under
+    --no-vector-rim (FileResult.rim None), walks every (document, rule)
+    status, materializing every pair. With a `cache_ctx` (the result
+    cache) `data_files` are the delta documents: pass A and the reruns
+    stay delta-sized, while pass B walks the full document order,
+    replaying the cached documents between the fresh ones and capturing
+    the fresh ones' fragments for the store."""
     from ..commands.reporters.aware import console_chain
     from ..commands.reporters.junit import JunitTestCase, failure_info_from_report
     from ..commands.validate import _looks_json
@@ -575,8 +824,13 @@ def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
     show_rich = bool({"pass", "skip", "all"} & set(validate.show_summary))
     raw_allowed = not validate.input_params
     D = len(data_files)
+    full_files = data_files
+    delta_pos = None
+    if cache_ctx is not None:
+        full_files = cache_ctx["full_files"]
+        delta_pos = {odi: k for k, odi in enumerate(cache_ctx["delta_idx"])}
 
-    for fr in evaluation.files:
+    for fi, fr in enumerate(evaluation.files):
         rule_file = fr.rule_file
         native = None
         if not rich_tree:
@@ -643,51 +897,103 @@ def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
             finally:
                 secs["native"] += time.perf_counter() - t0
 
-        # -- pass A: whole-corpus masks over the rim blocks ------------
-        name_st, name_un, doc_st, any_fail, any_un, _last = fr.rim
-        names = fr.names
-        host_mask = np.zeros(D, bool)
-        host_mask[sorted(hd for hd in fr.host_docs if hd < D)] = True
-        need_oracle_v, needs_statuses_v, materialize_v = rim_masks(
-            any_fail[:, 0], any_un[:, 0], host_mask, bool(fr.compiled.host_rules),
-            rich_mode, statuses_only, show_rich,
-        )
-        if quarantined:
-            qmask = np.zeros(D, bool)
-            qmask[list(quarantined)] = True
-            need_oracle_v &= ~qmask
-            materialize_v &= ~qmask
-        prefilter_v = need_oracle_v & (needs_statuses_v | statuses_only)
-        doc_infos: dict = {}
-        oracle_dis = []
-        native_declines = 0
-        for di in np.nonzero(materialize_v)[0]:
-            di = int(di)
-            data_file = data_files[di]
-            if not host_mask[di]:
-                rule_statuses, unsure_rules = _materialize_row(
-                    name_st[di], name_un[di], names
-                )
-                doc_status = STATUS[int(doc_st[di, 0])]
-            else:
-                rule_statuses, unsure_rules = {}, set()
-                doc_status = Status.SKIP
+        def _admit(di, rule_statuses, unsure_rules, doc_status, need_oracle,
+                   prefilter):
+            """Record one materialized pair for pass B: the native
+            statuses prefilter settles it where statuses suffice;
+            returns whether it declined."""
             counts["materialized"] += 1
-            need_oracle = bool(need_oracle_v[di])
+            RIM_COUNTERS["docs_materialized"] += 1
             native_statuses = None
-            if need_oracle and native is not None and prefilter_v[di]:
-                native_statuses = _native_prefilter(data_file)
+            declined = False
+            if need_oracle and native is not None and prefilter:
+                native_statuses = _native_prefilter(data_files[di])
                 if native_statuses is not None:
                     if statuses_only or native_statuses[1] != Status.FAIL:
                         # statuses suffice: no rich rerun
                         need_oracle = False
                         counts["native_statuses"] += 1
                 else:
-                    native_declines += 1
+                    declined = True
             doc_infos[di] = (rule_statuses, unsure_rules, doc_status, native_statuses)
             if need_oracle:
                 oracle_dis.append(di)
-        counts["settled"] += int(D - materialize_v.sum())
+            return declined
+
+        doc_infos: dict = {}
+        oracle_dis = []
+        native_declines = 0
+        names = fr.names
+        name_st = None  # the vector rim's name statuses, for settled docs
+        host_mask = np.zeros(D, bool)
+        host_mask[sorted(hd for hd in fr.host_docs if hd < D)] = True
+        sp_rim = _span_begin(
+            "rim_reduce",
+            {"docs": D, "file": fi, "mode": "vector" if fr.rim is not None else "scalar"},
+        )
+        if fr.rim is not None:
+            # -- pass A, vector: whole-corpus masks over the rim blocks
+            name_st, name_un, doc_st, any_fail, any_un, _last = fr.rim
+            need_oracle_v, needs_statuses_v, materialize_v = rim_masks(
+                any_fail[:, 0], any_un[:, 0], host_mask, bool(fr.compiled.host_rules),
+                rich_mode, statuses_only, show_rich,
+            )
+            if quarantined:
+                qmask = np.zeros(D, bool)
+                qmask[list(quarantined)] = True
+                need_oracle_v &= ~qmask
+                materialize_v &= ~qmask
+            prefilter_v = need_oracle_v & (needs_statuses_v | statuses_only)
+            for di in np.nonzero(materialize_v)[0]:
+                di = int(di)
+                if not host_mask[di]:
+                    rule_statuses, unsure_rules = _materialize_row(
+                        name_st[di], None if name_un is None else name_un[di], names
+                    )
+                    doc_status = STATUS[int(doc_st[di, 0])]
+                else:
+                    rule_statuses, unsure_rules = {}, set()
+                    doc_status = Status.SKIP
+                native_declines += _admit(di, rule_statuses, unsure_rules, doc_status,
+                                          bool(need_oracle_v[di]), bool(prefilter_v[di]))
+            n_settled = int(D - materialize_v.sum())
+            counts["settled"] += n_settled
+            RIM_COUNTERS["docs_settled"] += n_settled
+        else:
+            # -- pass A, scalar (--no-vector-rim): the device statuses,
+            # one (document, rule) pair at a time
+            statuses, unsure = fr.statuses, fr.unsure
+            rules = fr.compiled.rules
+            has_host_rules = bool(fr.compiled.host_rules)
+            for di in range(D):
+                if di in quarantined:
+                    continue
+                rule_statuses = {}
+                unsure_rules = set()
+                doc_status = Status.SKIP
+                if not host_mask[di]:
+                    for ri, crule in enumerate(rules):
+                        st = STATUS[int(statuses[di, ri])]
+                        # same-name merge as the report layer: non-SKIP
+                        # beats SKIP, FAIL dominates
+                        prev = rule_statuses.get(crule.name)
+                        if prev is None or (prev == Status.SKIP and st != Status.SKIP):
+                            rule_statuses[crule.name] = st
+                        elif st == Status.FAIL:
+                            rule_statuses[crule.name] = Status.FAIL
+                        doc_status = doc_status.and_(st)
+                        if unsure is not None and bool(unsure[di, ri]):
+                            unsure_rules.add(crule.name)
+                needs_statuses = has_host_rules or bool(unsure_rules) or bool(host_mask[di])
+                need_oracle = (
+                    needs_statuses
+                    or rich_mode
+                    or (not statuses_only
+                        and any(s == Status.FAIL for s in rule_statuses.values()))
+                )
+                native_declines += _admit(di, rule_statuses, unsure_rules, doc_status,
+                                          need_oracle, needs_statuses or statuses_only)
+        _span_end(sp_rim)
         counts["native_declines"] += native_declines
 
         # -- the reruns: a spawn pool when there are enough ------------
@@ -707,7 +1013,8 @@ def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
                 ]
                 t0 = time.perf_counter()
                 try:
-                    pooled_results = run_oracle_jobs(0, rule_file, jobs, workers)
+                    with _span("oracle", {"jobs": len(jobs), "workers": workers}):
+                        pooled_results = run_oracle_jobs(0, rule_file, jobs, workers)
                 except Exception as e:
                     # a pool can fail to start (an embedder's unguarded
                     # __main__ re-executed under spawn): the inline
@@ -726,8 +1033,20 @@ def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
         # (a run that emits those materializes every doc)
         oracle_set = set(oracle_dis)
         row_cache: dict = {}
-        for di, data_file in enumerate(data_files):
+        sp_report = _span_begin("report", {"docs": len(full_files), "file": fi})
+        for odi, data_file in enumerate(full_files):
+            if cache_ctx is None:
+                di = odi
+            else:
+                frags = cache_ctx["cached"].get(odi)
+                if frags is not None:
+                    _replay_cached_doc(validate, writer, acc, data_file, rule_file,
+                                       frags[fi])
+                    continue
+                di = delta_pos[odi]
             if di in quarantined:
+                if cache_ctx is not None:
+                    cache_ctx["skip_store"].add(odi)
                 continue
             if di not in doc_infos:
                 key = name_st[di].tobytes()
@@ -737,12 +1056,16 @@ def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
                 fields, rule_statuses, doc_status = cached
                 if doc_status == Status.FAIL:
                     acc.had_fail = True
+                report = {"name": data_file.name, "metadata": {}, **fields}
                 if not validate.structured:
-                    report = {"name": data_file.name, "metadata": {}, **fields}
                     console_chain(
                         writer, data_file.name, data_file.content, data_file,
                         rule_file.name, doc_status, rule_statuses, report,
                         validate.show_summary, validate.output_format,
+                    )
+                if cache_ctx is not None:
+                    cache_ctx["capture"].setdefault(odi, []).append(
+                        _fragment(report, rule_statuses, doc_status)
                     )
                 continue
             rule_statuses, unsure_rules, doc_status, native_statuses = doc_infos[di]
@@ -778,6 +1101,8 @@ def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
                     if err is not None:
                         writer.writeln_err(err)
                         acc.errors += 1
+                        if cache_ctx is not None:
+                            cache_ctx["skip_store"].add(odi)
                         continue
                     oracle_status = Status(st_val)
                     report = p_report
@@ -795,6 +1120,8 @@ def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
                     except GuardError as e:
                         writer.writeln_err(str(e))
                         acc.errors += 1
+                        if cache_ctx is not None:
+                            cache_ctx["skip_store"].add(odi)
                         continue
                     finally:
                         secs["inline"] += time.perf_counter() - t0
@@ -826,6 +1153,17 @@ def _report_files(validate, evaluation: Evaluation, data_files, quarantined,
                     rule_file.name, doc_status, rule_statuses, report,
                     validate.show_summary, validate.output_format,
                 )
+            if cache_ctx is not None:
+                # the host oracle's documents (beyond the last bucket,
+                # exotic numbers, a raising function, an injected
+                # fault) are never stored; unsure-bit and rich-report
+                # reruns are deterministic and are
+                if host_mask[di]:
+                    cache_ctx["skip_store"].add(odi)
+                cache_ctx["capture"].setdefault(odi, []).append(
+                    _fragment(report, rule_statuses, doc_status)
+                )
+        _span_end(sp_report)
 
         if native is not None:
             native.close()
@@ -939,61 +1277,94 @@ def _encode_docs(validate, data_files, writer: Writer, seconds: dict):
             shared = got[:3]
             ingest.update(path="pool", stats=got[3])
             seconds["merge"] = got[3]["merge_s"]
-    if (
-        shared is None
-        and not validate.input_params
-        and all(_looks_json(c) for c in contents)
-        and native_available()
-    ):
-        groups, oversize, interner, err = encode_json_bucketed(contents)
-        if err is None:
-            shared = (groups, oversize, interner)
-            ingest["path"] = "native"
     if shared is None:
-        t1 = time.perf_counter()
-        docs = list(_docs_for(data_files, quarantined))
-        seconds["load"] = time.perf_counter() - t1
-        shared = encode_bucketed(docs)
-        ingest["path"] = "tree"
+        # the encode in this process: one span over whichever encoder
+        # runs (the quarantine encode and the pool's workers record
+        # their own)
+        with _span("encode", {"docs": len(data_files)}):
+            if (
+                not validate.input_params
+                and all(_looks_json(c) for c in contents)
+                and native_available()
+            ):
+                groups, oversize, interner, err = encode_json_bucketed(contents)
+                if err is None:
+                    shared = (groups, oversize, interner)
+                    ingest["path"] = "native"
+            if shared is None:
+                t1 = time.perf_counter()
+                docs = list(_docs_for(data_files, quarantined))
+                seconds["load"] = time.perf_counter() - t1
+                shared = encode_bucketed(docs)
+                ingest["path"] = "tree"
     seconds["encode"] = time.perf_counter() - t0 - seconds.get("load", 0.0)
     return shared, quarantined, ingest
 
 
 def tpu_validate(validate, rule_files, data_files, writer: Writer) -> int:
-    """Drop-in body of Validate.execute on the device: encode the
-    documents (the shared encode only when a file uses it, or under
-    --max-doc-failures), evaluate, then report (full reports, or rule
-    statuses alone under --statuses-only)."""
+    """Drop-in body of Validate.execute on the device: partition the
+    documents against the result cache (unless --no-result-cache),
+    encode the delta (the shared encode only when a file uses it, or
+    under --max-doc-failures), evaluate it, then report every document
+    in order, the cached ones replayed (full reports, or rule statuses
+    alone under --statuses-only), and store the fresh results. A run
+    whose every document is cached replays them all: no encode, no
+    kernel launch, and `validate.last_evaluation` stays None."""
     from ..commands.validate import SUCCESS_STATUS_CODE
 
+    validate.last_evaluation = None
     if not data_files or not rule_files:
         return SUCCESS_STATUS_CODE
+    dev = resolve_device(validate.device)
+    cache_ctx = _result_cache_setup(validate, rule_files, data_files, dev)
+    delta_files = data_files
+    if cache_ctx is not None:
+        delta_files = [data_files[i] for i in cache_ctx["delta_idx"]]
+        if not delta_files:
+            acc = _ReportAcc(data_files, {})
+            for fi, rule_file in enumerate(rule_files):
+                with _span("report", {"docs": len(data_files), "file": fi}):
+                    for odi, df in enumerate(data_files):
+                        _replay_cached_doc(validate, writer, acc, df, rule_file,
+                                           cache_ctx["cached"][odi][fi])
+            _emit_delta_stats(validate, writer, cache_ctx)
+            return _finish_report(validate, acc, writer, {}, validate.max_doc_failures)
     seconds = {"load": 0.0}
     shared, quarantined, ingest = None, {}, {"path": None}
     if validate.max_doc_failures is not None or any(
         uses_shared_encode(rf) for rf in rule_files
     ):
-        shared, quarantined, ingest = _encode_docs(validate, data_files, writer, seconds)
+        shared, quarantined, ingest = _encode_docs(validate, delta_files, writer, seconds)
     else:
         # every tree, in document order, as the JAX package's encode
         # builds them: a document that does not load stops the run here
         t0 = time.perf_counter()
-        for df in data_files:
+        for df in delta_files:
             df.path_value
         seconds["load"] = time.perf_counter() - t0
     evaluation = evaluate(
-        rule_files, _docs_for(data_files, quarantined), validate.device, shared=shared,
+        rule_files, _docs_for(delta_files, quarantined), dev, shared=shared,
         pack_rules=validate.pack_rules, plan_cache=validate.plan_cache,
-        verify_plans=validate.verify_plans,
+        verify_plans=validate.verify_plans, vector_rim=validate.vector_rim,
+        mesh_shape=validate.mesh_shape,
     )
     evaluation.seconds["encode"] += seconds.pop("encode", 0.0)
     evaluation.seconds.update(seconds)
     evaluation.ingest = ingest
     validate.last_evaluation = evaluation
     t0 = time.perf_counter()
-    acc = _ReportAcc(data_files, quarantined)
+    if cache_ctx is None:
+        acc = _ReportAcc(data_files, quarantined)
+    else:
+        # the accumulators span every document; quarantine indices are
+        # the delta's
+        acc = _ReportAcc(data_files, {cache_ctx["delta_idx"][di] for di in quarantined})
     try:
-        _report_files(validate, evaluation, data_files, quarantined, writer, acc)
+        _report_files(validate, evaluation, delta_files, quarantined, writer, acc,
+                      cache_ctx)
+        if cache_ctx is not None:
+            _result_cache_store(rule_files, cache_ctx)
+            _emit_delta_stats(validate, writer, cache_ctx)
         return _finish_report(validate, acc, writer, quarantined, validate.max_doc_failures)
     finally:
         secs = evaluation.seconds

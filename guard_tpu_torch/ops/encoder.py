@@ -1112,6 +1112,13 @@ def encode_chunk_texts(names: List[str], contents: List[str]):
     message and one quarantine record (utils/faults.quarantine_record)
     per failure, and the per-document trees when the tree loader ran
     (None on the native path)."""
+    from ..utils.telemetry import span
+
+    with span("encode", {"docs": len(names)}):
+        return _encode_chunk_texts_inner(names, contents)
+
+
+def _encode_chunk_texts_inner(names: List[str], contents: List[str]):
     from ..utils.faults import fault_active, maybe_fail, quarantine_record
     from .native_encoder import encode_json_bucketed_resilient
 

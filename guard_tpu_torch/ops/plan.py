@@ -25,8 +25,8 @@ and dispatch:
 3. **Content-addressed disk artifacts** (`get_plan`): the canonical
    plan (still-empty interner + lowered IR + packs) is pickled under
    `GUARD_TPU_PLAN_CACHE_DIR` (default `~/.cache/guard_tpu_torch/plans`)
-   keyed by a sha256 over the port's name and version, the artifact
-   schema, the device (`cuda:<card name>` and the card count, or `cpu`),
+   keyed by a sha256 over the port's name, version and sources
+   (`source_digest`), the artifact schema, the device (`cuda:<card name>` and the card count, or `cpu`),
    the bucket ladder, the pack ceiling and the rule-file bytes in order.
    A fresh process with a warm cache performs zero lowering passes.
    Corrupt or mismatched artifacts are MISSES, never errors, and an
@@ -56,6 +56,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..utils.faults import maybe_fail
+from ..utils.telemetry import REGISTRY as _TELEMETRY
+from ..utils.telemetry import span as _span
 from .encoder import Interner, remap_interned_ids
 from .ir import (
     CompiledRules,
@@ -72,13 +74,14 @@ log = logging.getLogger("guard_tpu_torch.plan")
 #: key to different digests and age out as misses.
 PLAN_SCHEMA_VERSION = 1
 
-#: plan-cache counters, under the JAX package's names: `hits` counts
+#: plan-cache counters, the telemetry group "plan_cache" under the JAX
+#: package's names: `hits` counts
 #: in-process memo AND disk loads, `misses` full builds, `relocations`
 #: relocate_batch passes, `artifacts_saved` / `bytes_loaded` the disk
 #: traffic. The three `corrupt_*` counters split load failures by
 #: cause: torn writes and refused classes (`unreadable`), stale layouts
 #: (`version_mismatch`), a named invariant failed (`verify`).
-PLAN_COUNTERS = {
+PLAN_COUNTERS = _TELEMETRY.counter_group("plan_cache", {
     "hits": 0,
     "misses": 0,
     "relocations": 0,
@@ -87,16 +90,15 @@ PLAN_COUNTERS = {
     "corrupt_unreadable": 0,
     "corrupt_version_mismatch": 0,
     "corrupt_verify": 0,
-}
+})
 
 
 def plan_stats() -> dict:
-    return dict(PLAN_COUNTERS)
+    return _TELEMETRY.group_stats("plan_cache")
 
 
 def reset_plan_stats() -> None:
-    for k in PLAN_COUNTERS:
-        PLAN_COUNTERS[k] = 0
+    _TELEMETRY.reset_group("plan_cache")
 
 
 def plan_cache_dir() -> Path:
@@ -104,6 +106,37 @@ def plan_cache_dir() -> Path:
     if d:
         return Path(d)
     return Path(os.path.expanduser("~")) / ".cache" / "guard_tpu_torch" / "plans"
+
+
+#: the port's source files whose bytes key every plan and result:
+#: Python modules and the CUDA and C++ sources its kernels and native
+#: libraries are built from
+_SOURCE_SUFFIXES = (".py", ".cu", ".cuh", ".cpp", ".cc", ".h", ".hpp")
+_SOURCE_DIGEST: Optional[str] = None
+
+
+def source_digest() -> str:
+    """sha256 over the port's own sources (relative path and bytes of
+    every file under guard_tpu_torch/ with a _SOURCE_SUFFIXES suffix,
+    in path order, then the native oracle's C++ source), computed once
+    per process. It keys plans and,
+    through plan_digest, results: a change to any module or kernel
+    source turns every stored plan and result into a miss, where the
+    version string alone would replay what older code computed."""
+    global _SOURCE_DIGEST
+    if _SOURCE_DIGEST is None:
+        root = Path(__file__).resolve().parent.parent
+        h = hashlib.sha256()
+        for path in sorted(root.rglob("*")):
+            if path.suffix in _SOURCE_SUFFIXES and "__pycache__" not in path.parts:
+                h.update(path.relative_to(root).as_posix().encode() + b"\0")
+                h.update(hashlib.sha256(path.read_bytes()).digest())
+        from .native_oracle import SOURCE as oracle_source
+
+        if oracle_source.exists():
+            h.update(hashlib.sha256(oracle_source.read_bytes()).digest())
+        _SOURCE_DIGEST = h.hexdigest()
+    return _SOURCE_DIGEST
 
 
 def _device_fingerprint(device=None) -> Tuple[str, int]:
@@ -131,7 +164,8 @@ def plan_key(
     The pack plan is a pure function of the rule bytes in order plus
     `PACK_MAX_RULES`; bucket shape and device kind/count key what a warm
     process runs the plan on (`device`, when the kind and count are not
-    given). File NAMES are excluded — the artifact stores none, so
+    given), and `source_digest` the code that lowers and runs it. File
+    NAMES are excluded — the artifact stores none, so
     byte-identical registries share."""
     from .. import __version__
     from .backend import PACK_MAX_RULES
@@ -149,6 +183,7 @@ def plan_key(
     h.update(b"guard_tpu_torch;")
     h.update(f"schema={schema_version};".encode())
     h.update(f"version={__version__};".encode())
+    h.update(f"source={source_digest()};".encode())
     h.update(f"device={device_kind}x{device_count};".encode())
     h.update(f"buckets={tuple(buckets)};".encode())
     h.update(f"pack_max_rules={pack_max_rules};".encode())
@@ -205,14 +240,15 @@ def build_plan(rule_files) -> RulePlan:
     interner = Interner()
     compiled: List[Optional[CompiledRules]] = []
     slow: List[int] = []
-    for fi, rf in enumerate(rule_files):
-        if precomputable_fn_vars(rf.rules):
-            # function-variable files encode the documents with their
-            # function results before lowering — per run, slow path
-            compiled.append(None)
-            slow.append(fi)
-            continue
-        compiled.append(compile_rules_file(rf.rules, interner))
+    with _span("lower_compile", {"files": len(rule_files), "mode": "plan"}):
+        for fi, rf in enumerate(rule_files):
+            if precomputable_fn_vars(rf.rules):
+                # function-variable files encode the documents with their
+                # function results before lowering — per run, slow path
+                compiled.append(None)
+                slow.append(fi)
+                continue
+            compiled.append(compile_rules_file(rf.rules, interner))
     items = [
         (fi, c) for fi, c in enumerate(compiled)
         if c is not None and pack_compatible(c) is None
@@ -221,8 +257,10 @@ def build_plan(rule_files) -> RulePlan:
     for pack in plan_packs(items):
         if len(pack) < 2:
             continue  # a singleton pack gains nothing over per-file
-        packed = pack_compiled([c for _fi, c in pack])
-        packs.append((tuple(fi for fi, _c in pack), packed, packed.rim_spec()))
+        with _span("pack_compile", {"files": len(pack), "mode": "plan"}):
+            packed = pack_compiled([c for _fi, c in pack])
+            spec = packed.rim_spec()
+        packs.append((tuple(fi for fi, _c in pack), packed, spec))
     try:
         from ..analysis.signatures import extract_plan_signatures
 
@@ -250,7 +288,7 @@ def relocate_batch(plan: RulePlan, batches, chunk_interner: Interner,
     invariants run per batch after the extend; a violation is an
     in-process relocation bug, raised as a PlanVerifyError."""
     batches = list(batches)
-    with PLAN_LOCK:
+    with PLAN_LOCK, _span("relocate", {"docs": sum(b.n_docs for b in batches)}):
         strings = chunk_interner.strings
         if strings:
             remap = np.fromiter(
@@ -329,29 +367,30 @@ def save_plan(plan: RulePlan, digest: str) -> bool:
     writers and torn writes can only ever produce a whole artifact or a
     miss. Failures warn and return False — persistence is an
     optimization, never a correctness dependency."""
-    try:
-        # the persistence seam's fault point: an injected store_write
-        # fault downgrades to a cache-off warning like a real ENOSPC
-        maybe_fail("store_write", key=digest)
-        payload = {
-            "schema": PLAN_SCHEMA_VERSION,
-            "version": _port_version(),
-            "digest": digest,
-            "plan": plan,
-        }
-        blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
-        path = _artifact_path(digest)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".tmp.{os.getpid()}")
-        tmp.write_bytes(blob)
-        os.replace(tmp, path)
-    except Exception as e:
-        log.warning("plan artifact save failed (%s); continuing "
-                    "without persistence", e)
-        return False
-    _save_signature_sidecar(plan, digest, path)
-    PLAN_COUNTERS["artifacts_saved"] += 1
-    return True
+    with _span("save_plan"):
+        try:
+            # the persistence seam's fault point: an injected store_write
+            # fault downgrades to a cache-off warning like a real ENOSPC
+            maybe_fail("store_write", key=digest)
+            payload = {
+                "schema": PLAN_SCHEMA_VERSION,
+                "version": _port_version(),
+                "digest": digest,
+                "plan": plan,
+            }
+            blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
+            path = _artifact_path(digest)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".tmp.{os.getpid()}")
+            tmp.write_bytes(blob)
+            os.replace(tmp, path)
+        except Exception as e:
+            log.warning("plan artifact save failed (%s); continuing "
+                        "without persistence", e)
+            return False
+        _save_signature_sidecar(plan, digest, path)
+        PLAN_COUNTERS["artifacts_saved"] += 1
+        return True
 
 
 def _save_signature_sidecar(plan: RulePlan, digest: str, path: Path) -> None:
@@ -413,50 +452,51 @@ def load_plan(digest: str, verify: bool = True) -> Optional[RulePlan]:
     matching `corrupt_*` counter, and counts as a miss; it is rewritten
     by the save after the rebuild."""
     path = _artifact_path(digest)
-    try:
+    with _span("load_plan"):
         try:
-            if not path.exists():
-                return None
-            blob = path.read_bytes()
-            payload = _ArtifactUnpickler(io.BytesIO(blob)).load()
-        except Exception as e:
-            raise _LoadReject("unreadable", "corrupt_unreadable", str(e)) from e
-        if not isinstance(payload, dict):
-            raise _LoadReject("version-mismatch", "corrupt_version_mismatch",
-                              "artifact payload is not a dict")
-        if payload.get("schema") != PLAN_SCHEMA_VERSION:
-            raise _LoadReject(
-                "version-mismatch", "corrupt_version_mismatch",
-                f"schema {payload.get('schema')!r} != {PLAN_SCHEMA_VERSION}",
-            )
-        if payload.get("version") != _port_version():
-            raise _LoadReject("version-mismatch", "corrupt_version_mismatch",
-                              "guard_tpu_torch version mismatch")
-        if payload.get("digest") != digest:
-            raise _LoadReject("version-mismatch", "corrupt_version_mismatch",
-                              "digest mismatch")
-        plan = payload.get("plan")
-        if not isinstance(plan, RulePlan):
-            raise _LoadReject("version-mismatch", "corrupt_version_mismatch",
-                              "artifact plan is not a RulePlan")
-        if verify:
-            from ..analysis.verify import verify_plan
-
-            violations = verify_plan(plan)
-            if violations:
+            try:
+                if not path.exists():
+                    return None
+                blob = path.read_bytes()
+                payload = _ArtifactUnpickler(io.BytesIO(blob)).load()
+            except Exception as e:
+                raise _LoadReject("unreadable", "corrupt_unreadable", str(e)) from e
+            if not isinstance(payload, dict):
+                raise _LoadReject("version-mismatch", "corrupt_version_mismatch",
+                                  "artifact payload is not a dict")
+            if payload.get("schema") != PLAN_SCHEMA_VERSION:
                 raise _LoadReject(
-                    f"verify:{violations[0].invariant}", "corrupt_verify",
-                    "; ".join(str(v) for v in violations),
+                    "version-mismatch", "corrupt_version_mismatch",
+                    f"schema {payload.get('schema')!r} != {PLAN_SCHEMA_VERSION}",
                 )
-    except _LoadReject as e:
-        log.warning(
-            "plan artifact %s unusable (cause=%s: %s); treating as "
-            "a cache miss", path.name, e.cause, e,
-        )
-        PLAN_COUNTERS[e.counter] += 1
-        return None
-    PLAN_COUNTERS["bytes_loaded"] += len(blob)
-    return plan
+            if payload.get("version") != _port_version():
+                raise _LoadReject("version-mismatch", "corrupt_version_mismatch",
+                                  "guard_tpu_torch version mismatch")
+            if payload.get("digest") != digest:
+                raise _LoadReject("version-mismatch", "corrupt_version_mismatch",
+                                  "digest mismatch")
+            plan = payload.get("plan")
+            if not isinstance(plan, RulePlan):
+                raise _LoadReject("version-mismatch", "corrupt_version_mismatch",
+                                  "artifact plan is not a RulePlan")
+            if verify:
+                from ..analysis.verify import verify_plan
+
+                violations = verify_plan(plan)
+                if violations:
+                    raise _LoadReject(
+                        f"verify:{violations[0].invariant}", "corrupt_verify",
+                        "; ".join(str(v) for v in violations),
+                    )
+        except _LoadReject as e:
+            log.warning(
+                "plan artifact %s unusable (cause=%s: %s); treating as "
+                "a cache miss", path.name, e.cause, e,
+            )
+            PLAN_COUNTERS[e.counter] += 1
+            return None
+        PLAN_COUNTERS["bytes_loaded"] += len(blob)
+        return plan
 
 
 def _port_version() -> str:

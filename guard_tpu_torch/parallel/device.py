@@ -35,17 +35,28 @@ from ..ops.encoder import NODE_BUCKETS_EXTENDED, DocBatch, split_batch_by_size
 from ..ops.ir import SKIP, CompiledRules, RimSpec
 from ..ops.kernels import arrays_from_numpy, build_doc_evaluator
 from ..utils.faults import FAULT_COUNTERS, InjectedFault, bounded_call, maybe_fail
+from ..utils.telemetry import REGISTRY as _TELEMETRY
 
 log = logging.getLogger("guard_tpu_torch.device")
 
 #: walks enqueued on a device (one per (program, bucket) dispatch),
-#: under the JAX package's group name; a pack of k files issues one
-#: where the files alone issue k
-DISPATCH_COUNTERS = {"dispatches": 0}
+#: the telemetry group "dispatch" as in the JAX package; a pack of k
+#: files issues one where the files alone issue k
+DISPATCH_COUNTERS = _TELEMETRY.counter_group("dispatch", {"dispatches": 0})
 
-#: rule slots the packs of a run fill against the PACK_MAX_RULES
-#: ceiling they close at (ops/backend.dispatch_packs)
-EFFICIENCY_COUNTERS = {"pack_rule_slots_used": 0, "pack_rule_slots_capacity": 0}
+#: the telemetry group "efficiency", under the JAX package's names:
+#: documents dispatched (one card pads none), the bytes of the columns
+#: and literals copied to the device per dispatch and of the statuses,
+#: unsure bits and rim blocks copied back per collect, and the rule
+#: slots the packs of a run fill against the PACK_MAX_RULES ceiling
+#: they close at (ops/backend.dispatch_packs).
+EFFICIENCY_COUNTERS = _TELEMETRY.counter_group("efficiency", {
+    "docs_real": 0,
+    "host_to_device_bytes": 0,
+    "device_to_host_bytes": 0,
+    "pack_rule_slots_used": 0,
+    "pack_rule_slots_capacity": 0,
+})
 
 # dtypes of the rim blocks, in kernels.rim_reduce order: name status,
 # name unsure, doc status, any fail, any unsure, name last
@@ -104,6 +115,10 @@ class DeviceBatchEvaluator:
         (statuses (D, R) int8, unsure (D, R) bool) device tensors."""
         arrays = self.compiled.device_arrays(batch)
         lits = self.compiled.lit_values()
+        EFFICIENCY_COUNTERS["docs_real"] += batch.n_docs
+        EFFICIENCY_COUNTERS["host_to_device_bytes"] += int(
+            sum(a.nbytes for a in arrays.values()) + lits.size * 4
+        )
         t_arrays, t_lits = arrays_from_numpy(arrays, lits, self.device)
         return self._fn(t_arrays, t_lits)
 
@@ -128,15 +143,20 @@ class DeviceBatchEvaluator:
 
     def collect(self, handle):
         """Wait for a dispatch: (statuses (d, R) int8, unsure (d, R) bool
-        or None), plus the rim blocks as a third element with a rim_spec."""
+        or None), plus the rim blocks as a third element with a rim_spec.
+        Returns once the copies to the host are done."""
         (statuses, unsure, done), _d, rim = handle
         if done is not None:
             done.synchronize()
         st = statuses.cpu().numpy()
         un = unsure.cpu().numpy() if self._with_unsure else None
+        d2h = st.nbytes + (0 if un is None else un.nbytes)
         if self.rim_spec is None:
+            EFFICIENCY_COUNTERS["device_to_host_bytes"] += d2h
             return st, un
-        return st, un, tuple(b.cpu().numpy() for b in rim)
+        blocks = tuple(b.cpu().numpy() for b in rim)
+        EFFICIENCY_COUNTERS["device_to_host_bytes"] += d2h + sum(b.nbytes for b in blocks)
+        return st, un, blocks
 
     def rim_of(self, statuses: np.ndarray, unsure: Optional[np.ndarray]) -> tuple:
         """The six rim blocks (K3, on this evaluator's device) of host

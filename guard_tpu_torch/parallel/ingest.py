@@ -65,8 +65,10 @@ def _validate_shard_job(args):
     oversize, strings, stats) or ("parse_error", index, message)."""
     names, contents, use_native = args
     from ..ops.encoder import batch_payload, encode_bucketed
+    from ..utils.telemetry import worker_spans
 
     t0 = time.perf_counter()
+    w0 = time.time()
     enc = None
     native = False
     if use_native:
@@ -89,10 +91,14 @@ def _validate_shard_job(args):
                 return ("parse_error", i, str(e))
         enc = encode_bucketed(pvs)
     groups, oversize, interner = enc
+    encode_s = time.perf_counter() - t0
     stats = {
-        "encode_s": time.perf_counter() - t0,
+        "encode_s": encode_s,
         "native": native,
         "rss_kb": _rss_kb(),
+        # wall-anchored span records for the parent's trace (dropped
+        # there when tracing is off)
+        "spans": worker_spans([("encode", w0, encode_s)]),
     }
     return ("ok", [(batch_payload(b), idx) for b, idx in groups], oversize,
             interner.strings, stats)
@@ -238,11 +244,15 @@ def parallel_encode_documents(names: List[str], contents: List[str], workers: in
     except Exception as e:
         log.warning("ingest workers failed (%s); encoding serially", e)
         return None
+    from ..utils.telemetry import ingest_worker_spans
+
     for res in results:
         if res[0] == "parse_error":
             # shards are contiguous and in document order, so the
             # earliest shard's first failure is the global first
             raise GuardError(res[2])
+    for res in results:
+        ingest_worker_spans(res[4].pop("spans", None))
     t0 = time.perf_counter()
     merged = Interner()
     shards = []

@@ -24,7 +24,9 @@ The grammar accepts every point the JAX package names. The port fires
 --max-doc-failures encode of `validate`), `dispatch` and `collect`
 (the degradation ladder of the device path: ops/backend.collect_packs,
 parallel/device.evaluate_groups), `oracle` (the inline CPU rerun of
-ops/backend._report_files) and `store_write` (ops/plan.save_plan);
+ops/backend._report_files), `store_write` (ops/plan.save_plan,
+cache/results.store_entries, per entry) and `cache`
+(cache/results.load_entries and store_entries, per entry);
 `read` fires where the sweep reads its chunks, which the port does not
 have yet, and the JAX package's `validate` does not fire it either.
 Every firing counts in `FAULT_COUNTERS["injected_<point>"]`;
@@ -42,6 +44,8 @@ import os
 from typing import Optional
 
 from ..core.errors import GuardError
+from .telemetry import REGISTRY as _TELEMETRY
+from .telemetry import EventedCounters
 
 #: the JAX package's injection points, in pipeline order
 POINTS = (
@@ -50,13 +54,16 @@ POINTS = (
     "admission", "shed", "journal", "store_write",
 )
 
-#: firings per point and the recoveries they caused, for this process
-FAULT_COUNTERS = {
+#: firings per point and the recoveries they caused, for this process:
+#: the telemetry group "fault", an EventedCounters, so every increment
+#: is an instant trace event when tracing is on and arms the flight
+#: recorder's abnormal-exit dump
+FAULT_COUNTERS = _TELEMETRY.counter_group("fault", EventedCounters("fault", {
     **{f"injected_{p}": 0 for p in POINTS},
     "quarantined_docs": 0,
     "dispatch_fallbacks": 0,
     "oracle_fallbacks": 0,
-}
+}))
 
 
 class InjectedFault(GuardError):
@@ -189,8 +196,7 @@ def fault_stats() -> dict:
 
 def reset_faults() -> None:
     """Counters AND call/fired state (tests: fresh nth= sequencing)."""
-    for k in FAULT_COUNTERS:
-        FAULT_COUNTERS[k] = 0
+    _TELEMETRY.reset_group("fault")
     _STATE.update(env=None, specs={}, calls={}, fired=set())
 
 

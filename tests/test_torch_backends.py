@@ -51,7 +51,7 @@ def run_both(backend, args, stdin=None):
     want = (rc, w.stripped(), w.err_to_stripped())
     w = Writer.buffered()
     r = Reader.from_string(stdin if stdin is not None else "")
-    rc = port_cli.run(["validate", "--backend", backend, *args], writer=w, reader=r)
+    rc = port_cli.run(["validate", "--no-result-cache", "--backend", backend, *args], writer=w, reader=r)
     got = (rc, w.stripped(), w.err_to_stripped())
     assert got[0] == want[0], (got[2], want[2])
     assert got[2] == want[2]
@@ -206,7 +206,8 @@ def test_no_jax_and_off_the_device_no_torch(native_lib_dir, tmp_path, backend):
     code = (
         "import sys\n"
         "from guard_tpu_torch import cli\n"
-        f"rc = cli.run(['validate', '--backend', {backend!r}, '--device', 'cpu',\n"
+        f"rc = cli.run(['validate', '--no-result-cache', '--backend', {backend!r},\n"
+        f"             '--device', 'cpu',\n"
         f"             '--ingest-workers', '0', '-r', {str(root / 'rules')!r},\n"
         f"             '-d', {str(root / 'data')!r}])\n"
         "mods = {m.split('.')[0] for m in sys.modules}\n"

@@ -65,7 +65,8 @@ def run_jax(args):
 
 def run_port(args):
     w = Writer.buffered()
-    rc = port_cli.run(["validate", "--statuses-only", "--device", "cpu", *args], writer=w)
+    rc = port_cli.run(["validate", "--no-result-cache", "--statuses-only", "--device", "cpu",
+                       *args], writer=w)
     return rc, w.stripped(), w.err_to_stripped()
 
 
@@ -95,7 +96,8 @@ def test_module_entry_point_matches(corpus_dir):
     args = ["-r", str(corpus_dir / "rules" / "flagship.guard"),
             "-d", str(corpus_dir / "data")]
     proc = subprocess.run(
-        [sys.executable, "-m", "guard_tpu_torch", "validate", "--statuses-only",
+        [sys.executable, "-m", "guard_tpu_torch", "validate", "--no-result-cache",
+         "--statuses-only",
          "--device", "cpu", *args],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
@@ -277,7 +279,8 @@ def test_module_cli_matches_jax_cli_on_oracle_inputs(tmp_path, case):
             cwd=ROOT, capture_output=True, timeout=300, env=env,
         )
         port_proc = subprocess.run(
-            [sys.executable, "-m", "guard_tpu_torch", *args, "--device", "cpu", *show],
+            [sys.executable, "-m", "guard_tpu_torch", *args, "--no-result-cache",
+             "--device", "cpu", *show],
             cwd=ROOT, capture_output=True, timeout=300, env=env,
         )
         assert port_proc.returncode == jax_proc.returncode
@@ -294,7 +297,7 @@ def test_missing_statuses_only_is_refused(tmp_path):
     the run reports each failing clause."""
     (tmp_path / "r.guard").write_text("rule a { a exists }\n")
     (tmp_path / "d.json").write_text('{"b": 1}')
-    args = ["validate", "--device", "cpu", "-r", str(tmp_path / "r.guard"),
+    args = ["validate", "--no-result-cache", "--device", "cpu", "-r", str(tmp_path / "r.guard"),
             "-d", str(tmp_path / "d.json")]
     w = Writer.buffered()
     rc = port_cli.run([*args, "--statuses-only", "-o", "json"], writer=w)
@@ -317,11 +320,12 @@ def test_no_cuda_no_device_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     cmd = Validate(rules=[str(tmp_path / "r.guard")], data=[str(tmp_path / "d.json")],
-                   statuses_only=True)
+                   statuses_only=True, result_cache=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cmd.execute(Writer.buffered(), Reader.from_string(""))
     w = Writer.buffered()
-    rc = port_cli.run(["validate", "--statuses-only", "-r", str(tmp_path / "r.guard"),
+    rc = port_cli.run(["validate", "--no-result-cache", "--statuses-only",
+                       "-r", str(tmp_path / "r.guard"),
                        "-d", str(tmp_path / "d.json")], writer=w)
     assert rc == 5 and w.stripped() == "" and "CUDA" in w.err_to_stripped()
 
@@ -340,7 +344,7 @@ print(rc, bad)
 
 def test_port_process_imports_no_jax_and_no_guard_tpu(corpus_dir):
     proc = subprocess.run(
-        [sys.executable, "-c", _ISOLATION, "validate", "--statuses-only",
+        [sys.executable, "-c", _ISOLATION, "validate", "--no-result-cache", "--statuses-only",
          "--device", "cpu", "-r", str(corpus_dir / "rules"), "-d",
          str(corpus_dir / "data")],
         cwd=ROOT, capture_output=True, text=True, timeout=300,

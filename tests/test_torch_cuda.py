@@ -24,7 +24,10 @@ at every R % 16 and at n_valid 0, 1, D - 3 and D. Results are integers:
 exact equality, no tolerance. Beyond the kernels: full reports of 1,024
 templates on the card against the CPU, and statuses-only validate of
 8,192 templates on the card from the native encoder (in process and
-over 2 ingest workers) against the tree encoder, launches included.
+over 2 ingest workers) against the tree encoder, launches included;
+the `test` command over corpus/rules on the card against the CPU (no
+K3), a warm result-cache run (no launch at all) and --no-vector-rim (no
+K3).
 """
 
 import numpy as np
@@ -283,7 +286,8 @@ def test_cuda_full_reports_match_cpu(cuda_device, report_inputs, monkeypatch, fm
     outs = []
     for device in ("cuda", "cpu"):
         cmd = Validate(rules=[str(report_inputs / "security.guard")],
-                       data=[str(report_inputs / "data")], device=device, **kw)
+                       data=[str(report_inputs / "data")], device=device,
+                       result_cache=False, **kw)
         w = Writer.buffered()
         rc = cmd.execute(w, Reader.from_string(""))
         outs.append((rc, w.stripped(), w.err_to_stripped()))
@@ -1038,7 +1042,7 @@ def test_cuda_native_ingest_matches_tree_encoder(cuda_device, ingest_inputs, mon
         monkeypatch.setattr(native_encoder, "_configured", None)
         cmd = Validate(rules=[str(ingest_inputs / "security.guard")],
                        data=[str(ingest_inputs / "data")], device="cuda",
-                       statuses_only=True, ingest_workers=w)
+                       statuses_only=True, ingest_workers=w, result_cache=False)
         w_ = Writer.buffered()
         K.reset_launches()
         rc = cmd.execute(w_, Reader.from_string(""))
@@ -1117,3 +1121,87 @@ def test_cuda_packed_registry_matches_per_file_and_cpu(cuda_device, tmp_path, mo
             assert a.host_docs == b.host_docs
             for x, y in zip(a.rim, b.rim):
                 assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+def _port_cli(argv):
+    """(rc, stdout, stderr) of the port's CLI in this process."""
+    from guard_tpu_torch import cli
+    from guard_tpu_torch.utils.io import Writer
+
+    w = Writer.buffered()
+    rc = cli.run(argv, writer=w)
+    return rc, w.stripped(), w.err_to_stripped()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["single-line-summary", "json", "junit"])
+def test_cuda_test_command_matches_cpu(cuda_device, fmt):
+    """`test --dir corpus/rules` on the card prints what it prints on the
+    CPU: 725 cases, most of them answered by the walk on the card (K1
+    and K2 launch), and no rim reduction (K3 0)."""
+    import pathlib
+
+    from guard_tpu_torch import cli
+    from guard_tpu_torch.commands.test import Test
+
+    corpus = pathlib.Path(__file__).resolve().parent.parent / "corpus" / "rules"
+    seen = []
+
+    class Recording(Test):
+        def execute(self, writer, reader):
+            seen.append(self)
+            return super().execute(writer, reader)
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        K.reset_launches()
+        cli_test, cli.Test = cli.Test, Recording
+        try:
+            outs[device] = _port_cli(["test", "--device", device, "-d", str(corpus), "-o", fmt])
+        finally:
+            cli.Test = cli_test
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+    assert outs["cuda"] == outs["cpu"] and outs["cuda"][0] == 0
+    routes = seen[0].routes
+    assert sum(routes.values()) == 725 and routes["device"] >= 600
+    assert launches["gather_rows"] > 0 and launches["segment_sum_rows"] > 0
+    assert launches["rim_reduce"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_warm_run_launches_nothing(cuda_device, report_inputs, tmp_path, monkeypatch):
+    """A second run over unchanged documents replays every one from the
+    result cache: not one kernel launch, and the first run's bytes,
+    which are the bytes of a run without the cache."""
+    monkeypatch.setenv("GUARD_TPU_RESULT_CACHE_DIR", str(tmp_path / "results"))
+    args = ["validate", "--device", "cuda", "--statuses-only", "--delta-stats",
+            "-r", str(report_inputs / "security.guard"), "-d", str(report_inputs / "data")]
+    off = _port_cli([*args, "--no-result-cache"])
+    K.reset_launches()
+    cold = _port_cli(args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gather_rows"] > 0 and K.LAUNCHES["rim_reduce"] > 0
+    K.reset_launches()
+    warm = _port_cli(args)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in K.LAUNCHES.values()), K.LAUNCHES
+    assert (cold[0], cold[1]) == (warm[0], warm[1]) == (off[0], off[1])
+    assert warm[2].endswith("result-cache: 1024/1024 docs cached, 0 dispatched\n")
+
+
+@pytest.mark.cuda
+def test_cuda_no_vector_rim_launches_no_k3(cuda_device, report_inputs):
+    """--no-vector-rim on the card: no K3 launch, the vector run's bytes."""
+    args = ["validate", "--device", "cuda", "--no-result-cache", "-S", "all",
+            "-r", str(report_inputs / "security.guard"), "-d", str(report_inputs / "data")]
+    runs = {}
+    for label, extra in (("vector", []), ("scalar", ["--no-vector-rim"])):
+        K.reset_launches()
+        runs[label] = _port_cli([*args, *extra])
+        torch.cuda.synchronize()
+        runs[label] += (dict(K.LAUNCHES),)
+    assert runs["vector"][:3] == runs["scalar"][:3] and runs["vector"][0] == 19
+    assert runs["vector"][3]["rim_reduce"] > 0 and runs["scalar"][3]["rim_reduce"] == 0
+    assert runs["scalar"][3]["gather_rows"] == runs["vector"][3]["gather_rows"]

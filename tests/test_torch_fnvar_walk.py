@@ -166,7 +166,7 @@ def run_both(rules_path, data, show="all"):
     args = ["-r", str(rules_path), "-d", str(data), "--show-summary", show]
     rc_j, out_j, err_j = run_jax_err(args)
     cmd = Validate(rules=[str(rules_path)], data=[str(data)], show_summary=show.split(","),
-                   statuses_only=True, device="cpu")
+                   statuses_only=True, device="cpu", result_cache=False)
     tw = Writer.buffered()
     rc_p = cmd.execute(tw, Reader.from_string(""))
     return ((rc_j, out_j, _stable(err_j)),

@@ -393,7 +393,8 @@ def run_both(args):
     w = Writer.buffered()
     _Recording.last = None
     with mock.patch.object(port_cli, "Validate", _Recording):
-        rc = port_cli.run(["validate", "--backend", "tpu", "--device", "cpu", *args],
+        rc = port_cli.run(["validate", "--no-result-cache", "--backend", "tpu", "--device", "cpu",
+                           *args],
                           writer=w, reader=Reader.from_string(""))
     got = (rc, w.stripped(), w.err_to_stripped())
     assert got == want
@@ -498,7 +499,8 @@ def test_spawn_failure_falls_back_serially(monkeypatch, tmp_path, fresh_pools):
     monkeypatch.setattr(ingest, "_spawn_pool", boom)
     assert ingest.parallel_encode_documents(["a", "b"], ["{}", "{}"], 2) is None
     w = Writer.buffered()
-    rc = port_cli.run(["validate", "--device", "cpu", "--ingest-workers", "4", *args,
+    rc = port_cli.run(["validate", "--no-result-cache", "--device", "cpu", "--ingest-workers", "4",
+                       *args,
                        *OUTPUTS["structured_json"]], writer=w, reader=Reader.from_string(""))
     assert (rc, w.stripped(), w.err_to_stripped()) == (19, base_out, "")
 
@@ -527,7 +529,8 @@ def test_trees_built_only_for_what_walks_them(encoder_dirs, monkeypatch, tmp_pat
     w = Writer.buffered()
     _Recording.last = None
     with mock.patch.object(port_cli, "Validate", _Recording):
-        rc = port_cli.run(["validate", "--device", "cpu", *args, *extra], writer=w,
+        rc = port_cli.run(["validate", "--no-result-cache", "--device", "cpu", *args, *extra],
+                          writer=w,
                           reader=Reader.from_string(""))
     ev = _Recording.last.last_evaluation
     assert rc == 19 and ev.ingest["path"] == "native" and ev.seconds["load"] == 0.0
@@ -552,7 +555,8 @@ def test_no_jax_and_no_torch_in_workers_of_a_cli_run(encoder_dirs, tmp_path):
         "from guard_tpu_torch.parallel import ingest\n"
         "from guard_tpu_torch.ops.oracle_pool import worker_modules\n"
         "if __name__ == '__main__':\n"
-        f"    rc = cli.run(['validate', '--device', 'cpu', '--ingest-workers', '2', *{args!r}])\n"
+        f"    rc = cli.run(['validate', '--no-result-cache', '--device', 'cpu',\n"
+        f"                  '--ingest-workers', '2', *{args!r}])\n"
         "    held = ingest.shared_pool(2).submit(worker_modules, None).get(timeout=60)\n"
         "    ingest.close_shared_pools()\n"
         "    bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'guard_tpu')]\n"

@@ -382,7 +382,7 @@ import sys
 from guard_tpu_torch import cli
 from guard_tpu_torch.ops import plan
 from guard_tpu_torch.utils.io import Writer
-args = ["validate", "--device", "cpu", "--statuses-only", *sys.argv[1:]]
+args = ["validate", "--no-result-cache", "--device", "cpu", "--statuses-only", *sys.argv[1:]]
 rcs = [cli.run(args, writer=Writer.buffered())]
 plan.clear_plan_memo()
 rcs.append(cli.run(args, writer=Writer.buffered()))

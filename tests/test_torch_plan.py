@@ -168,6 +168,44 @@ def test_plan_key_sensitive_to_every_environment_axis():
         assert base != plan_mod.plan_key([rf], **other), other
 
 
+def test_plan_key_changes_with_the_ports_sources(monkeypatch):
+    """A change to any source of the port keys plans (and, through
+    plan_digest, results) anew: a warm cache never replays what older
+    code lowered or computed."""
+    rf = _rule_file(RULES_A)
+    base = plan_mod.plan_key([rf], device="cpu")
+    assert plan_mod.source_digest() == plan_mod.source_digest()
+    monkeypatch.setattr(plan_mod, "_SOURCE_DIGEST", None)
+    assert plan_mod.plan_key([rf], device="cpu") == base
+    monkeypatch.setattr(plan_mod, "_SOURCE_DIGEST", "0" * 64)
+    assert plan_mod.plan_key([rf], device="cpu") != base
+
+
+def test_source_digest_reads_every_source(monkeypatch, tmp_path):
+    """The digest covers each module and kernel source by path and
+    bytes: one changed byte or one more file changes it."""
+    pkg = tmp_path / "guard_tpu_torch"
+    (pkg / "ops").mkdir(parents=True)
+    (pkg / "csrc").mkdir()
+    (pkg / "ops" / "plan.py").write_text("x = 1\n")
+    (pkg / "csrc" / "k.cu").write_text("__global__ void k() {}\n")
+    (pkg / "notes.txt").write_text("not a source\n")
+    monkeypatch.setattr(plan_mod, "__file__", str(pkg / "ops" / "plan.py"))
+
+    def digest():
+        monkeypatch.setattr(plan_mod, "_SOURCE_DIGEST", None)
+        return plan_mod.source_digest()
+
+    base = digest()
+    (pkg / "notes.txt").write_text("still not a source\n")
+    assert digest() == base
+    (pkg / "csrc" / "k.cu").write_text("__global__ void k() { }\n")
+    changed = digest()
+    assert changed != base
+    (pkg / "csrc" / "k.cuh").write_text("\n")
+    assert digest() not in (base, changed)
+
+
 def test_plan_key_is_domain_separated_from_jax():
     """The same bytes under the same environment never give the JAX
     package's digest: neither package can load the other's artifact by
@@ -365,7 +403,8 @@ from guard_tpu_torch import cli
 from guard_tpu_torch.ops import plan
 from guard_tpu_torch.utils.io import Writer
 w = Writer.buffered()
-rc = cli.run(["validate", "--device", "cpu", "-S", "all", "-r", sys.argv[1], "-d", sys.argv[2]],
+rc = cli.run(["validate", "--no-result-cache", "--device", "cpu", "-S", "all",
+              "-r", sys.argv[1], "-d", sys.argv[2]],
              writer=w)
 print(json.dumps({"rc": rc, "out": w.stripped(), "stats": plan.plan_stats(),
                   "modules": sorted(m for m in sys.modules

@@ -119,7 +119,8 @@ def run_port(args, stdin=None):
     r = Reader.from_string(stdin) if stdin is not None else None
     _Recording.last = None
     with mock.patch.object(port_cli, "Validate", _Recording):
-        rc = port_cli.run(["validate", "--device", "cpu", *args], writer=w, reader=r)
+        rc = port_cli.run(["validate", "--no-result-cache", "--device", "cpu", *args],
+                          writer=w, reader=r)
     ev = _Recording.last.last_evaluation if _Recording.last is not None else None
     return (rc, w.stripped(), w.err_to_stripped()), ev
 
@@ -574,7 +575,8 @@ def test_full_report_process_imports_no_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["GUARD_TPU_TORCH_NATIVE_DIR"] = str(tmp_path / "not_built")
     proc = subprocess.run(
-        [sys.executable, str(script), "validate", "--device", "cpu", *args],
+        [sys.executable, str(script), "validate", "--no-result-cache", "--device", "cpu",
+         *args],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
         env=dict(env, PYTHONPATH=str(ROOT)),
     )
