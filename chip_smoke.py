@@ -122,7 +122,7 @@ no result line):
    one K3 launch per (pack, bucket) against one per (file, bucket), and
    per file equal statuses, unsure bits, rim blocks and oracle
    documents; the pack's columnarization and walk; the CLI over every
-   third of the 725 inputs (`-S all`, `-z -o json -S none`) packed, --no-pack,
+   twelfth of the 725 inputs (`-S all`, `-z -o json -S none`) packed, --no-pack,
    --no-plan-cache and in a process that loads the plan artifact, each
    in a process of its own, all with the same stdout, stderr and rc;
    --statuses-only over N_PACKING_STATUSES documents, packed; and the
@@ -130,6 +130,26 @@ no result line):
    unarmed run's bytes and count a fallback, the unarmed run none;
    oracle:nth=1 with the native oracle off exits 5 with the injected
    line).
+   Then `sweep` over the same registry (phase `sweep`): all 249 files
+   over the same N_PACKING documents written as files, in chunks of
+   1,024, ingest workers on auto: (a) a fresh run (new result-cache and
+   journal directories), traced, its K3 launches one per (chunk,
+   bucket); (b) --no-result-cache --no-journal --ingest-workers 0: (a)'s
+   stdout, stderr and manifest; (c) a warm run over a new manifest: the
+   same bytes, only the documents the cache never stores dispatched (an
+   oracle pass that raised, a document the card does not hold), and a
+   warm run over 1,024 stored documents launches nothing; (d)
+   GUARD_TPU_FAULT=journal:nth=9 stops a run (rc 5), --resume replays 8
+   chunks, launches K3 for the other 8 only and prints (a)'s bytes; (e)
+   SIGTERM to a CLI process after its first manifest row: rc 75, and
+   --resume prints (a)'s bytes; (f) --follow over 2,048 JSONL lines
+   (envelopes, bare documents, 8 malformed): one result line per input
+   line in order, and the counts and failures of the batch sweep over
+   the same documents. Over the first 64 documents the card's bytes
+   equal the plain kernels' (--device cpu) and its failing rules those
+   of `--backend cpu` on every document that raised on neither, and (a)'s
+   tallies equal those folded from --follow on the CPU over the 725
+   distinct inputs.
    Then the per-rule summary (phase `summary`): the security policy over
    65,536 seeded templates plus the volume template, built in memory,
    encoded per bucket and counted by DeviceBatchEvaluator.with_summary
@@ -155,7 +175,7 @@ registry pack's shape) on its main path
 (K1-K3 the security policy's, K4-K6
 the cross-reference policy's, K7 the summary's; every path's in
 `launches_by_path`, the report phase's run (a), the packed
-registry's, the cache's three runs, the scalar rim's, the mesh's and
+registry's, the sweep's run (a), the cache's three runs, the scalar rim's, the mesh's and
 the `test` command's among them, and
 for K1 the launches made by the StepFnVar arm), its error against the plain version, its
 time (`ms`, host cost included, and `device_ms`, the card's alone), the
@@ -226,10 +246,12 @@ QUARANTINE_DOC = 1234  # the template the quarantine runs make invalid JSON
 # document) from 8,192, and the CLI's plan-layer states from all 725
 # inputs to every third: with the first two uncut the whole smoke took
 # 1,344 s on a slow host, and 1,083 s with them cut, against the
-# 1,200 s limit (PERF.md §6, PR 12)
+# 1,200 s limit (PERF.md §6). Since phase `sweep` (140-195 s) joined
+# the smoke, the CLI's states take every twelfth input and the
+# statuses-only run 1,024 documents (PERF.md §4)
 N_PACKING = 16384
-N_PACKING_STATUSES = 2048
-N_PACKING_CLI_STRIDE = 3
+N_PACKING_STATUSES = 1024
+N_PACKING_CLI_STRIDE = 12
 N_PACKING_FAULT = 16  # registry documents of the fault legs (inline oracle reruns)
 # launches of the statuses-only runs on the tree encoder (the native
 # buckets must give the same)
@@ -2405,6 +2427,358 @@ def phase_packing(device, tmp: Path) -> dict:
     return out, info
 
 
+# the sweep phase: the registry's documents in chunks of N_SWEEP_CHUNK;
+# leg (d) stops the run at the checkpoint of chunk SWEEP_FAULT_NTH - 1;
+# leg (f) streams N_FOLLOW lines, N_FOLLOW_MALFORMED of them malformed;
+# the CPU holds the first N_SWEEP_PREFIX documents' bytes
+N_SWEEP_CHUNK = 1024
+SWEEP_FAULT_NTH = 9
+N_FOLLOW = 2048
+N_FOLLOW_MALFORMED = 8
+N_SWEEP_PREFIX = 64
+
+
+def run_sweep(argv, stdin: str = "") -> dict:
+    """`sweep ARGV` through the port's CLI in this process, every
+    counter set to 0 just before and read just after: rc, stdout,
+    stderr, wall, kernel launches, and the resume and pipeline
+    counters."""
+    from guard_tpu_torch import cli
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.utils import faults, telemetry
+    from guard_tpu_torch.utils.io import Reader, Writer
+
+    telemetry.reset_metrics()
+    faults.reset_faults()
+    K.reset_launches()
+    writer = Writer.buffered()
+    t0 = time.perf_counter()
+    rc = cli.run(["sweep", *argv], writer=writer, reader=Reader.from_string(stdin))
+    wall = time.perf_counter() - t0
+    return {"rc": rc, "out": writer.stripped(), "err": writer.err_to_stripped(),
+            "wall_s": wall, "launches": dict(K.LAUNCHES),
+            "resume": telemetry.REGISTRY.group_stats("resume"),
+            "pipeline": telemetry.REGISTRY.group_stats("pipeline"),
+            "admission": telemetry.REGISTRY.group_stats("admission"),
+            "faults": faults.fault_stats()}
+
+
+def sweep_stores(tmp: Path, label: str) -> None:
+    """Fresh journal and result-cache directories for one leg."""
+    os.environ["GUARD_TPU_JOURNAL_DIR"] = str(tmp / f"sweep_journal_{label}")
+    os.environ["GUARD_TPU_RESULT_CACHE_DIR"] = str(tmp / f"sweep_results_{label}")
+
+
+def follow_stream(texts: list) -> tuple:
+    """N_FOLLOW JSONL lines over the inputs in order: envelopes (even
+    lines) and bare documents, N_FOLLOW_MALFORMED lines malformed.
+    Returns (stdin, per line its input index or None, per line the name
+    its result line must carry)."""
+    bad = {k * (N_FOLLOW // N_FOLLOW_MALFORMED) + 7 for k in range(N_FOLLOW_MALFORMED)}
+    lines, index, names = [], [], []
+    j = 0
+    for k in range(N_FOLLOW):
+        if k in bad:
+            lines.append('{"malformed": ')
+            index.append(None)
+            names.append(f"stream[{k + 1}]")
+            continue
+        text = texts[j % len(texts)]
+        if k % 2 == 0:
+            lines.append(json.dumps({"name": f"f{j:05d}.json", "content": text}))
+            names.append(f"f{j:05d}.json")
+        else:
+            lines.append(text)
+            names.append(f"stream[{k + 1}]")
+        index.append(j)
+        j += 1
+    return "\n".join(lines) + "\n", index, names
+
+
+def phase_sweep(device, tmp: Path):
+    """`sweep` on the card over the registry (phase `packing`'s files):
+    all 249 corpus rule files over N_PACKING documents, the corpus's 725
+    test inputs replicated in order, in chunks of N_SWEEP_CHUNK, ingest
+    workers on auto. (a) a fresh run (new result-cache and journal
+    directories), traced; (b) --no-result-cache --no-journal
+    --ingest-workers 0: (a)'s stdout, stderr and manifest; (c) a warm
+    run over a new manifest: the same bytes, only the documents the
+    cache never stores (an oracle pass that raised, a document the card
+    does not hold) dispatched, and over N_SWEEP_CHUNK stored documents
+    no kernel launch; (d) the
+    `journal` fault at checkpoint SWEEP_FAULT_NTH stops a run (rc 5),
+    and --resume replays SWEEP_FAULT_NTH - 1 chunks, launches K3 for the
+    rest only and prints (a)'s bytes; (e) SIGTERM to a CLI process after
+    its first manifest row: rc 75, and --resume prints (a)'s bytes; (f)
+    --follow over N_FOLLOW lines: one result line per input line in
+    order, the counts and failures of the batch sweep over the same
+    documents. The CPU holds the card: over the first N_SWEEP_PREFIX
+    documents the card's stdout, stderr and manifest equal those of the
+    plain kernels (--device cpu), and its failing rules equal
+    `--backend cpu`'s on every document that raised on neither backend;
+    (a)'s counts and failed list equal those folded from a --follow run
+    on the CPU over the 725 distinct inputs. Every kernel counter is set to 0 just before each
+    run and read just after."""
+    import signal
+
+    import numpy as np
+
+    from guard_tpu_torch.ops.native_encoder import encode_json_bucketed
+
+    _paths, plain = corpus_inputs()
+    texts = [json.dumps(d) for d in plain]
+    n_in = len(texts)
+    rules_dir = tmp / "registry_rules"
+    check(len(list(rules_dir.glob("*.guard"))) == 249, "sweep: the registry's rules are missing")
+    data = tmp / "sweep_data"
+    data.mkdir()
+    for i in range(N_PACKING):
+        (data / f"d{i:05d}.json").write_text(texts[i % n_in])
+    # K3 launches once per (pack, bucket) of a chunk: the distinct
+    # buckets of the chunk's documents (the oversize ones have none)
+    groups, _over, _interner, err = encode_json_bucketed(texts)
+    check(err is None, f"sweep: the native encoder failed: {err}")
+    bucket_of = np.full(n_in, -1)
+    for sub, idx in groups:
+        bucket_of[idx] = sub.n_nodes
+    n_chunks = -(-N_PACKING // N_SWEEP_CHUNK)
+
+    def k3_for(chunks) -> int:
+        total = 0
+        for c in chunks:
+            ids = np.arange(c * N_SWEEP_CHUNK, min((c + 1) * N_SWEEP_CHUNK, N_PACKING)) % n_in
+            b = bucket_of[ids]
+            total += len(set(b[b >= 0].tolist()))
+        return total
+
+    manifest = tmp / "sweep_manifest.jsonl"
+    dev = str(device)
+    base = ["--device", dev, "-c", str(N_SWEEP_CHUNK), "-r", str(rules_dir), "-d", str(data),
+            "-M", str(manifest)]
+    out = {"docs": N_PACKING, "chunks": n_chunks, "chunk_size": N_SWEEP_CHUNK}
+
+    def note(label, run, **extra):
+        out[label] = {"rc": run["rc"], "wall_s": run["wall_s"], "launches": run["launches"],
+                      **extra}
+        log(f"sweep ({label}): rc {run['rc']} in {run['wall_s']:.2f}s, launches "
+            f"{json.dumps(run['launches'])}")
+
+    def same(run, label, manifest_bytes):
+        check((run["rc"], run["out"], run["err"]) == (a["rc"], a["out"], a["err"]),
+              f"sweep ({label}): stdout, stderr or rc differ from (a)")
+        check(manifest_bytes == a_manifest, f"sweep ({label}): the manifest differs from (a)")
+
+    # (a) a fresh run, traced
+    sweep_stores(tmp, "a")
+    trace_out, metrics_out = tmp / "sweep_trace.json", tmp / "sweep_metrics.json"
+    a = run_sweep([*base, "--trace-out", str(trace_out), "--metrics-out", str(metrics_out)])
+    a_manifest = manifest.read_bytes()
+    summary = json.loads(a["out"].splitlines()[-1])
+    check(a["rc"] in (19, 5) and summary["chunks"] == n_chunks == summary["evaluated"]
+          and summary["documents"] == N_PACKING, f"sweep (a): rc {a['rc']}, {summary}")
+    # the CPU launches no kernel (a rehearsal there skips these checks)
+    on_card = device.type == "cuda"
+    check(not on_card or a["launches"]["rim_reduce"] == k3_for(range(n_chunks)),
+          f"sweep (a): K3 launched {a['launches']['rim_reduce']} times, "
+          f"want {k3_for(range(n_chunks))}")
+    check(not on_card or (a["launches"]["gather_rows"] > 0
+                          and a["launches"]["segment_sum_rows"] > 0),
+          "sweep (a): K1 or K2 never launched")
+    events = json.loads(trace_out.read_text())["traceEvents"]
+    spans: dict = {}
+    for e in events:
+        if e["ph"] == "X":
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "check_metrics_schema.py"),
+                           str(metrics_out)], capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"sweep (a): metrics snapshot: {proc.stderr[-1000:]}")
+    check(a["pipeline"]["chunks_prefetched"] + a["pipeline"]["encode_seconds"] > 0,
+          f"sweep (a): no ingest in the pipeline counters: {a['pipeline']}")
+    note("a_fresh", a, span_s=spans, pipeline=a["pipeline"],
+         counts=summary["counts"], errors=summary["errors"], failed=len(summary["failed"]),
+         stdout_bytes=len(a["out"].encode()), stderr_lines=len(a["err"].splitlines()))
+
+    # (b) nothing on
+    manifest.unlink()
+    b = run_sweep([*base, "--no-result-cache", "--no-journal", "--ingest-workers", "0"])
+    same(b, "b", manifest.read_bytes())
+    note("b_nothing_on", b)
+
+    # (c) warm, over a new manifest. The cache never stores a document
+    # whose oracle pass raised or that the card does not hold (its
+    # stderr line must come again, its statuses are not the card's):
+    # those, and only those, dispatch again. Over the documents that
+    # stored, a warm run launches nothing.
+    raised = {line.split(" vs ", 1)[0] for line in a["err"].splitlines() if " vs " in line}
+    unstored = {i for i in range(N_PACKING)
+                if f"d{i:05d}.json" in raised or bucket_of[i % n_in] < 0}
+    manifest.unlink()
+    c = run_sweep([*base, "--delta-stats"])
+    want = (f"result-cache: {N_PACKING - len(unstored)}/{N_PACKING} docs cached, "
+            f"{len(unstored)} dispatched\n")
+    check(c["err"].endswith(want), f"sweep (c): {c['err'][-200:]!r}, want {want!r}")
+    c["err"] = c["err"][: -len(want)]
+    same(c, "c", manifest.read_bytes())
+    stored = tmp / "sweep_stored"
+    stored.mkdir()
+    for i in sorted(set(range(N_PACKING)) - unstored)[:N_SWEEP_CHUNK]:
+        (stored / f"d{i:05d}.json").write_text(texts[i % n_in])
+    stored_args = ["--device", dev, "-c", str(N_SWEEP_CHUNK), "-r", str(rules_dir),
+                   "-d", str(stored), "-M", str(tmp / "sweep_stored.jsonl")]
+    (tmp / "sweep_stored.jsonl").unlink(missing_ok=True)
+    c_off = run_sweep([*stored_args, "--no-result-cache"])
+    (tmp / "sweep_stored.jsonl").unlink()
+    c_all = run_sweep(stored_args)
+    check((c_all["rc"], c_all["out"]) == (c_off["rc"], c_off["out"]),
+          "sweep (c): the warm run over stored documents differs from the run without the cache")
+    check(all(v == 0 for v in c_all["launches"].values()),
+          f"sweep (c): a run over stored documents launched {c_all['launches']}")
+    note("c_warm", c, unstored=len(unstored), raised=len(raised),
+         stored_docs_wall_s=c_all["wall_s"], stored_docs_no_cache_wall_s=c_off["wall_s"],
+         stored_docs_launches=c_all["launches"])
+
+    # (d) a crash at a checkpoint, then --resume
+    sweep_stores(tmp, "d")
+    manifest.unlink()
+    os.environ["GUARD_TPU_FAULT"] = f"journal:nth={SWEEP_FAULT_NTH}"
+    try:
+        crash = run_sweep(base)
+    finally:
+        os.environ.pop("GUARD_TPU_FAULT", None)
+    check(crash["rc"] == 5 and crash["out"] == ""
+          and f"injected journal fault (chunk{SWEEP_FAULT_NTH - 1})" in crash["err"],
+          f"sweep (d): the armed run: rc {crash['rc']}: {crash['err'][-300:]}")
+    resumed = run_sweep([*base, "--resume"])
+    same(resumed, "d", manifest.read_bytes())
+    check(resumed["resume"]["chunks_replayed"] == SWEEP_FAULT_NTH - 1,
+          f"sweep (d): replayed {resumed['resume']}")
+    want_k3 = k3_for(range(SWEEP_FAULT_NTH - 1, n_chunks))
+    check(not on_card or resumed["launches"]["rim_reduce"] == want_k3,
+          f"sweep (d): K3 launched {resumed['launches']['rim_reduce']} times, want {want_k3}")
+    note("d_crash", crash)
+    note("d_resume", resumed, resume=resumed["resume"])
+
+    # (e) SIGTERM after the first manifest row, then --resume
+    sweep_stores(tmp, "e")
+    manifest.unlink()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "guard_tpu_torch", "sweep", *base,
+                             "--no-result-cache"], cwd=ROOT, env=dict(os.environ),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        while proc.poll() is None and not (
+                manifest.exists() and manifest.read_bytes().count(b"\n") >= 1):
+            check(time.perf_counter() - t0 < 600, "sweep (e): no manifest row in 600 s")
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGTERM)
+        _o, drain_err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rows = manifest.read_bytes().count(b"\n")
+    check(proc.returncode == 75 and 1 <= rows < n_chunks,
+          f"sweep (e): rc {proc.returncode} with {rows} rows: {drain_err[-300:]}")
+    drain_s = time.perf_counter() - t0
+    drained = run_sweep([*base, "--no-result-cache", "--resume"])
+    same(drained, "e", manifest.read_bytes())
+    check(drained["resume"]["chunks_replayed"] == rows, f"sweep (e): {drained['resume']}")
+    out["e_drain"] = {"rc": proc.returncode, "wall_s": drain_s, "rows": rows}
+    note("e_resume", drained, resume=drained["resume"])
+
+    # (f) --follow over N_FOLLOW lines, and the batch sweep over the
+    # same documents
+    sweep_stores(tmp, "f")
+    stdin, index, names = follow_stream(texts)
+    follow = run_sweep(["--follow", "--device", dev, "-r", str(rules_dir)], stdin=stdin)
+    lines = [json.loads(ln) for ln in follow["out"].splitlines()]
+    check(len(lines) == N_FOLLOW + 1 and lines[-1].get("follow") is True,
+          f"sweep (f): {len(lines)} lines for {N_FOLLOW} inputs")
+    check([ln["name"] for ln in lines[:-1]] == names, "sweep (f): result lines out of order")
+    check(sum("quarantined" in ln for ln in lines[:-1]) == N_FOLLOW_MALFORMED,
+          "sweep (f): malformed lines not quarantined")
+    follow_data = tmp / "follow_data"
+    follow_data.mkdir()
+    for j in sorted({j for j in index if j is not None}):
+        (follow_data / f"f{j:05d}.json").write_text(texts[j % n_in])
+    follow_manifest = tmp / "follow_manifest.jsonl"
+    batch = run_sweep(["--device", dev, "-c", str(N_SWEEP_CHUNK), "--no-result-cache",
+                       "-r", str(rules_dir), "-d", str(follow_data), "-M", str(follow_manifest)])
+    b_sum = json.loads(batch["out"].splitlines()[-1])
+    by_name = {name: j for name, j in zip(names, index)}
+    f_sum = lines[-1]
+    f_failed = [{"data": f"f{by_name[x['data']]:05d}.json", "rules": x["rules"]}
+                for x in f_sum["failed"]]
+    check(f_sum["counts"] == b_sum["counts"] and f_failed == b_sum["failed"],
+          "sweep (f): the stream's statuses differ from the batch sweep's")
+    note("f_follow", follow, batches=follow["admission"]["follow_batches"],
+         counts=f_sum["counts"], batch_wall_s=batch["wall_s"])
+
+    # the CPU: the first N_SWEEP_PREFIX documents' bytes, and the full
+    # run's tallies folded from the 725 distinct inputs' outcomes
+    prefix = tmp / "sweep_prefix"
+    prefix.mkdir()
+    for i in range(N_SWEEP_PREFIX):
+        (prefix / f"d{i:05d}.json").write_text(texts[i % n_in])
+    pre = {}
+    for label, extra in (("card", ["--device", dev]), ("plain", ["--device", "cpu"]),
+                         ("cpu", ["--backend", "cpu"])):
+        manifest.unlink(missing_ok=True)
+        pre[label] = run_sweep([*extra, "--no-result-cache", "-c", str(N_SWEEP_PREFIX),
+                                "-r", str(rules_dir), "-d", str(prefix), "-M", str(manifest)])
+        pre[label]["manifest"] = manifest.read_bytes()
+    check(all(pre["card"][k] == pre["plain"][k] for k in ("rc", "out", "err", "manifest")),
+          "sweep: the card's prefix differs from the plain kernels' on the CPU")
+    # `--backend cpu` evaluates every (document, rules file) pair on the
+    # CPU evaluator, where a few corpus inputs raise in other files'
+    # rules and lose those files' statuses; the card's path reruns only
+    # the documents it cannot settle. So stderr, the counts and the exit
+    # code differ between the backends (the JAX package's backends
+    # differ the same way); the failing rules of every document that
+    # raised on neither must not.
+    def failing(run, skip):
+        summary = json.loads(run["out"].splitlines()[-1])
+        return [f for f in summary["failed"] if f["data"] not in skip]
+
+    raised = {line.split(" vs ", 1)[0] for r in pre.values()
+              for line in r["err"].splitlines() if " vs " in line}
+    check(failing(pre["card"], raised) == failing(pre["cpu"], raised),
+          "sweep: the card's failing rules differ from --backend cpu's")
+    env_saved = {k: os.environ.get(k) for k in ("GUARD_TPU_FOLLOW_MAX_BATCH",
+                                                 "GUARD_TPU_FOLLOW_WAIT_MS")}
+    os.environ.update(GUARD_TPU_FOLLOW_MAX_BATCH=str(n_in), GUARD_TPU_FOLLOW_WAIT_MS="2000")
+    try:
+        fold = run_sweep(["--follow", "--device", "cpu", "--no-result-cache",
+                          "-r", str(rules_dir)],
+                         stdin="".join(json.dumps({"name": f"i{i}", "content": t}) + "\n"
+                                       for i, t in enumerate(texts)))
+    finally:
+        for k, v in env_saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    outcome = [json.loads(ln) for ln in fold["out"].splitlines()[:-1]]
+    check(len(outcome) == n_in and all("status" in o for o in outcome),
+          "sweep: the CPU fold lost an input")
+    counts = {k: 0 for k in ("pass", "fail", "skip")}
+    failed = []
+    for i in range(N_PACKING):
+        o = outcome[i % n_in]
+        counts[o["status"]] += 1
+        if o["fails"]:
+            failed.append({"data": f"d{i:05d}.json", "rules": o["fails"]})
+    check(counts == summary["counts"] and failed == summary["failed"],
+          "sweep (a): the card's tallies differ from the CPU's fold")
+    out["cpu"] = {"prefix_card_s": pre["card"]["wall_s"], "prefix_cpu_s": pre["cpu"]["wall_s"],
+                  "prefix_errors": {k: json.loads(r["out"].splitlines()[-1])["errors"]
+                                    for k, r in pre.items()},
+                  "prefix_raised_docs": len(raised),
+                  "fold_s": fold["wall_s"]}
+    info = {"launches": a["launches"]}
+    return out, info
+
+
 def main_shape(shapes: dict, name: str):
     """The launch shape of a kernel that moved the most elements on the
     main path."""
@@ -3231,6 +3605,8 @@ def main() -> int:
         log(f"phase 3 (test) ok in {took()}: {json.dumps(test_info)}")
         packing, packing_info = phase_packing(device, tmp)
         log(f"phase 3 (packing) ok in {took()}: {json.dumps(packing)}")
+        sweep_run, sweep_info = phase_sweep(device, tmp)
+        log(f"phase 3 (sweep) ok in {took()}: {json.dumps(sweep_run)}")
         summary_info = phase_summary(device)
         log(f"phase 3 (summary) ok in {took()}: "
             f"{json.dumps({k: v for k, v in summary_info.items() if k != 'shapes'})}")
@@ -3241,7 +3617,7 @@ def main() -> int:
     infos = {"security": slice_info, "xref": xref_info, "fnvar": fnvar_info,
              "summary": summary_info, "entry": entry_info, "report": report_info,
              "ingest_ii": ingest_info["ii_auto"], "xref_ingest": xref_ingest,
-             "packing": packing_info,
+             "packing": packing_info, "sweep": sweep_info,
              **{path: {"launches": launches}
                 for path, launches in flags_info["launches"].items()},
              "test_command": {"launches": test_info["launches"]}}
@@ -3266,7 +3642,7 @@ def main() -> int:
         "xref_breakdown": xref_breakdown,
         "fnvar": {k: v for k, v in fnvar_info.items() if k != "shapes"},
         "fnvar_breakdown": fnvar_breakdown,
-        "flagship": flagship, "corpus": corpus, "packing": packing,
+        "flagship": flagship, "corpus": corpus, "packing": packing, "sweep": sweep_run,
         "summary": {k: v for k, v in summary_info.items() if k != "shapes"},
         "report": report_info, "ingest": ingest_info, "xref_ingest": xref_ingest,
         "flags": {k: v for k, v in flags_info.items() if k != "launches"}, "test": test_info,

@@ -1,13 +1,24 @@
 """Parallel host ingest: the document encode over a pool of workers.
 
-The port of the validate half of guard_tpu/parallel/ingest.py. The
-document list splits into contiguous shards; each worker encodes its
-shard with a private interner into per-size-bucket groups (the native
-encoder when the whole corpus sniffs as JSON, else the tree loader and
-`encode_bucketed`), and the shards merge through an intern-id remap
-(`ops.encoder.remap_interned_ids`, `merge_bucket_groups`). Statuses and
-reports do not depend on intern-id labels, so the output equals the
-serial encode's.
+The port of guard_tpu/parallel/ingest.py, for the two commands that use
+it:
+
+* `validate`: the document list splits into contiguous shards; each
+  worker encodes its shard with a private interner into per-size-bucket
+  groups (the native encoder when the whole corpus sniffs as JSON, else
+  the tree loader and `encode_bucketed`), and the shards merge through
+  an intern-id remap (`ops.encoder.remap_interned_ids`,
+  `merge_bucket_groups`). Statuses and reports do not depend on
+  intern-id labels, so the output equals the serial encode's.
+* `sweep`: stage 1 of the chunk pipeline (commands/sweep.py). A worker
+  reads one chunk's files (`read_paths`, where the `read` fault point
+  fires) and encodes them (`ops.encoder.encode_chunk_texts`) into the
+  chunk's own bucket groups and interner (`_chunk_job`); the parent
+  keeps at most `pipeline_depth()` chunks queued ahead of the device
+  and restarts a pool whose worker died (`restart_shared_pool`).
+
+The JAX module's `ShardPrefetcher` feeds the doc shards of a sharded
+mesh, which one card does not run; it is not ported.
 
 Workers are spawned, never forked (a fork would inherit the parent's
 CUDA context), and import neither torch nor JAX: a job touches only
@@ -24,13 +35,27 @@ import atexit
 import logging
 import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 log = logging.getLogger("guard_tpu_torch.ingest")
 
 #: auto worker ceiling: ingest rarely scales past a few processes
 #: before the device stages are the bottleneck again
 DEFAULT_MAX_WORKERS = 4
+
+#: bounded prefetch depth: at most this many encoded chunks may exist
+#: ahead of the dispatch stage (backpressure bounds peak host memory at
+#: depth x chunk columns). Override with GUARD_TPU_INGEST_DEPTH.
+DEFAULT_DEPTH = 2
+
+
+def pipeline_depth() -> int:
+    raw = os.environ.get("GUARD_TPU_INGEST_DEPTH", "").strip()
+    try:
+        depth = int(raw) if raw else DEFAULT_DEPTH
+    except ValueError:
+        depth = DEFAULT_DEPTH
+    return max(2, depth)
 
 #: seconds a new pool has to answer its first ping (a worker that
 #: cannot bootstrap would otherwise be respawned forever)
@@ -52,6 +77,69 @@ def resolve_ingest_workers(flag: Optional[int] = None) -> int:
     if flag is None:
         flag = min((os.cpu_count() or 1) - 1, DEFAULT_MAX_WORKERS)
     return max(0, int(flag))
+
+
+def read_paths(paths: List[str]) -> Tuple[list, list, list, int, list]:
+    """Read chunk files; unreadable ones are skipped with one error
+    each (the sweep's `_read_chunk` contract, message-identical) and a
+    structured quarantine record. Returns (names, contents, messages,
+    errors, quarantine records)."""
+    from ..utils.faults import maybe_fail, quarantine_record
+
+    names, contents, msgs, errors, recs = [], [], [], 0, []
+    for p in paths:
+        base = os.path.basename(p)
+        try:
+            maybe_fail("read", key=base)
+            with open(p, "r") as f:
+                contents.append(f.read())
+        except Exception as e:  # any unreadable file quarantines
+            msgs.append(f"skipping {p}: {e}")
+            errors += 1
+            recs.append(quarantine_record(base, "read", e))
+            continue
+        names.append(base)
+    return names, contents, msgs, errors, recs
+
+
+def _chunk_job(args):
+    """Worker body for one sweep chunk: read, then encode into the
+    chunk's bucket groups (encoder.encode_chunk_texts), returning a
+    picklable payload: the groups' columns (batch_payload) with their
+    document indices, the oversize documents, the interner's strings,
+    the failed documents' marks, messages and quarantine records, and
+    the read and encode seconds."""
+    ci, paths = args
+    from ..ops.encoder import batch_payload, encode_chunk_texts
+    from ..utils.telemetry import worker_spans
+
+    t0 = time.perf_counter()
+    w0 = time.time()
+    names, contents, read_msgs, read_errs, read_recs = read_paths(paths)
+    t_read = time.perf_counter() - t0
+    groups, oversize, interner, pv_failed, enc_msgs, enc_errs, enc_recs, _pvs = (
+        encode_chunk_texts(names, contents)
+    )
+    t_enc = time.perf_counter() - t0 - t_read
+    return ci, {
+        "names": names,
+        "contents": contents,
+        "groups": [(batch_payload(b), idx) for b, idx in groups],
+        "oversize": oversize,
+        "strings": interner.strings,
+        "pv_failed": pv_failed,
+        "messages": read_msgs + enc_msgs,
+        "errors": read_errs + enc_errs,
+        "quarantined": read_recs + enc_recs,
+        "read_seconds": t_read,
+        "encode_seconds": t_enc,
+        # wall-anchored span records for the parent's trace (dropped
+        # there when tracing is off)
+        "spans": worker_spans([
+            ("read_parse", w0, t_read),
+            ("encode", w0 + t_read, t_enc),
+        ]),
+    }
 
 
 def _validate_shard_job(args):
@@ -193,6 +281,17 @@ def shared_pool(workers: int) -> Optional[IngestPool]:
         atexit.register(close_shared_pools)
     _POOL_CACHE[workers] = pool
     return pool
+
+
+def restart_shared_pool(workers: int) -> Optional[IngestPool]:
+    """Tear down the cached pool of `workers` (a worker died) and spawn
+    a fresh one; a remembered spawn failure is retried, since a restart
+    is an explicit recovery step."""
+    pool = _POOL_CACHE.pop(workers, None)
+    if pool is not None:
+        pool.close()
+    _SPAWN_FAILED.pop(workers, None)
+    return shared_pool(workers)
 
 
 def close_shared_pools() -> None:

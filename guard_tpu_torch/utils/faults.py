@@ -25,12 +25,16 @@ The grammar accepts every point the JAX package names. The port fires
 (the degradation ladder of the device path: ops/backend.collect_packs,
 parallel/device.evaluate_groups), `oracle` (the inline CPU rerun of
 ops/backend._report_files), `store_write` (ops/plan.save_plan,
-cache/results.store_entries, per entry) and `cache`
-(cache/results.load_entries and store_entries, per entry);
-`read` fires where the sweep reads its chunks, which the port does not
-have yet, and the JAX package's `validate` does not fire it either.
-Every firing counts in `FAULT_COUNTERS["injected_<point>"]`;
-`quarantined_docs` counts the documents a run quarantined,
+cache/results.store_entries, per entry, and utils/ledger.append_record),
+`cache` (cache/results.load_entries and store_entries, per entry),
+`read` (where `sweep` reads its chunks and its `--follow` lines:
+commands/sweep.py, parallel/ingest.read_paths), `worker_crash` (a
+sweep's ingest worker answer) and `journal` (utils/journal.py, before
+a chunk's checkpoint). Every firing counts in
+`FAULT_COUNTERS["injected_<point>"]`; `retries` counts chunks a
+sweep re-encoded in process after its ingest worker failed,
+`worker_restarts` the ingest pools it restarted, `quarantined_docs`
+the documents a run quarantined,
 `dispatch_fallbacks` the device dispatches and collects that failed
 and were retried lower on the ladder, `oracle_fallbacks` the injected
 faults that sent documents to the host oracle (no other failure does).
@@ -60,6 +64,8 @@ POINTS = (
 #: recorder's abnormal-exit dump
 FAULT_COUNTERS = _TELEMETRY.counter_group("fault", EventedCounters("fault", {
     **{f"injected_{p}": 0 for p in POINTS},
+    "retries": 0,
+    "worker_restarts": 0,
     "quarantined_docs": 0,
     "dispatch_fallbacks": 0,
     "oracle_fallbacks": 0,

@@ -305,8 +305,9 @@ REGISTRY = MetricsRegistry()
 #: The JAX package's serving, front-door, durability and store-hygiene
 #: groups (`serve`, `admission`, `resume`, `gc`) register here, as
 #: there, so every snapshot of the port carries the schema's groups with
-#: the same keys. The port's modules that would increment them (serve,
-#: sweep, gc) are not ported yet; their counters stay 0.
+#: the same keys. `sweep` (commands/sweep.py) counts `resume` and
+#: `admission.follow_*`, `gc` (commands/gc.py) counts `gc`; the port has
+#: no `serve` yet, so the other counters stay 0.
 SERVE_COUNTERS = REGISTRY.counter_group("serve", EventedCounters("serve", {
     "requests": 0,
     "coalesce_eligible": 0,
@@ -352,6 +353,24 @@ RESUME_COUNTERS = REGISTRY.counter_group("resume", EventedCounters(
         "drained_sessions": 0,
     }
 ))
+
+#: the sweep's chunk pipeline (commands/sweep.py), the JAX package's
+#: `pipeline` group (guard_tpu/parallel/mesh.py:162): chunks the ingest
+#: workers encoded, those encoded while the previous chunk's device work
+#: was in flight, the deepest prefetch queue, and the seconds the
+#: dispatch stage waited on ingest, read and encoded. The two
+#: shard-prefetch counters belong to the sharded mesh, which one card
+#: does not run; they stay 0.
+PIPELINE_COUNTERS = REGISTRY.counter_group("pipeline", {
+    "chunks_prefetched": 0,
+    "encode_dispatch_overlap": 0,
+    "max_inflight_chunks": 0,
+    "ingest_stall_seconds": 0.0,
+    "read_parse_seconds": 0.0,
+    "encode_seconds": 0.0,
+    "shards_prefetched": 0,
+    "shard_prefetch_stall_seconds": 0.0,
+})
 
 GC_COUNTERS = REGISTRY.counter_group("gc", EventedCounters("gc", {
     "runs": 0,
@@ -686,16 +705,20 @@ def flightrec_dump(reason: str, path: Optional[str] = None) -> Optional[str]:
 def flightrec_on_exit(exit_code: Optional[int]) -> Optional[str]:
     """Session epilogue hook (cli.run): dump when the run ended
     abnormally — exit code 5 (hard errors, --max-doc-failures trips),
-    an unhandled exception (exit_code None), or fault activity latched
-    during an otherwise-clean run (dispatch-ladder fallbacks). The JAX
-    package also dumps on a sweep's graceful drain; the port has no
-    sweep yet. Returns the dump path or None."""
+    an unhandled exception (exit_code None), a sweep's graceful drain
+    (the SIGTERM/SIGINT latch's exit code, utils/journal.DRAIN_EXIT_CODE)
+    or fault activity latched during an otherwise-clean run
+    (dispatch-ladder fallbacks). Returns the dump path or None."""
     if not _FR_ON:
         return None
     if exit_code == 5:
         return flightrec_dump("exit_code_5")
     if exit_code is None:
         return flightrec_dump("unhandled_exception")
+    from .journal import DRAIN_EXIT_CODE  # lazy: journal imports us
+
+    if exit_code == DRAIN_EXIT_CODE:
+        return flightrec_dump("drain")
     if _FLIGHTREC.fault_seen:
         return flightrec_dump("fault_activity")
     return None

@@ -27,7 +27,8 @@ templates on the card against the CPU, and statuses-only validate of
 over 2 ingest workers) against the tree encoder, launches included;
 the `test` command over corpus/rules on the card against the CPU (no
 K3), a warm result-cache run (no launch at all) and --no-vector-rim (no
-K3).
+K3); `sweep` over corpus rule files on the card against the CPU (K1, K2
+and K3 launch; a warm run launches nothing).
 """
 
 import numpy as np
@@ -1205,3 +1206,56 @@ def test_cuda_no_vector_rim_launches_no_k3(cuda_device, report_inputs):
     assert runs["vector"][:3] == runs["scalar"][:3] and runs["vector"][0] == 19
     assert runs["vector"][3]["rim_reduce"] > 0 and runs["scalar"][3]["rim_reduce"] == 0
     assert runs["scalar"][3]["gather_rows"] == runs["vector"][3]["gather_rows"]
+
+
+@pytest.fixture
+def sweep_registry(tmp_path):
+    """Eight corpus rule files (one pack) and their test inputs, one
+    document a file, twice over (chunks of more than one bucket)."""
+    import json
+    import pathlib
+
+    import yaml
+
+    corpus = pathlib.Path(__file__).resolve().parent.parent / "corpus" / "rules"
+    rules, data = tmp_path / "rules", tmp_path / "data"
+    rules.mkdir()
+    data.mkdir()
+    n = 0
+    for src in sorted(corpus.glob("*.guard"))[:8]:
+        (rules / src.name).write_text(src.read_text())
+        for case in yaml.safe_load((corpus / "tests" / f"{src.stem}_tests.yaml").read_text()):
+            for rep in range(2):
+                (data / f"d{n:03d}_{rep}.json").write_text(json.dumps(case["input"]))
+            n += 1
+    return rules, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers", ["0", "1"])
+def test_cuda_sweep_matches_cpu(cuda_device, sweep_registry, tmp_path, monkeypatch, workers):
+    """`sweep` on the card prints the CPU run's stdout, stderr and
+    manifest; its packed path launches K1, K2 and K3, and a warm run
+    over a new manifest launches nothing."""
+    rules, data = sweep_registry
+    monkeypatch.setenv("GUARD_TPU_JOURNAL_DIR", str(tmp_path / "journal"))
+    manifest = tmp_path / "m.jsonl"
+    base = ["sweep", "-c", "16", "--ingest-workers", workers, "-r", str(rules), "-d", str(data),
+            "-M", str(manifest)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setenv("GUARD_TPU_RESULT_CACHE_DIR", str(tmp_path / f"results_{dev}"))
+        manifest.unlink(missing_ok=True)
+        K.reset_launches()
+        got = _port_cli([*base, "--device", dev])
+        torch.cuda.synchronize()
+        runs[dev] = got + (manifest.read_bytes(), dict(K.LAUNCHES))
+    assert runs["cuda"][:4] == runs["cpu"][:4] and runs["cuda"][0] in (0, 19)
+    launched = runs["cuda"][4]
+    assert all(launched[k] > 0 for k in ("gather_rows", "segment_sum_rows", "rim_reduce"))
+    manifest.unlink()
+    K.reset_launches()
+    warm = _port_cli([*base, "--device", "cuda", "--delta-stats"])
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in K.LAUNCHES.values()), K.LAUNCHES
+    assert warm[1] == runs["cuda"][1] and manifest.read_bytes() == runs["cuda"][3]
