@@ -64,10 +64,10 @@ no result line):
    no-cache run's stdout and rc, and their walls beside the no-cache
    run's; (b) --no-vector-rim: the same stdout, no K3 launch, 65,537
    documents materialized; (c) --mesh-shape 2x1 over the security
-   policy and the flagship rules (one pack of two files): the stdout
-   and the launches of the same run without the flag (one card runs
-   every shape unsharded). Then full
-   reports of the first 16,384 of the same documents and the volume
+   policy and the flagship rules (one pack of two files), over the
+   first 16,384 texts: the stdout and the launches of the same run
+   without the flag (one card runs every shape unsharded). Then full
+   reports of the first 8,192 of the same documents and the volume
    template (phase `report`, their trees reused)
    through Validate on the card without --statuses-only: (a) the
    single-line report (on the tree encoder) and (b) the structured
@@ -131,18 +131,18 @@ no result line):
    oracle:nth=1 with the native oracle off exits 5 with the injected
    line).
    Then `sweep` over the same registry (phase `sweep`): all 249 files
-   over the same N_PACKING documents written as files, in chunks of
-   1,024, ingest workers on auto: (a) a fresh run (new result-cache and
+   over the first N_SWEEP (6,144) of the same documents written as
+   files, in chunks of 1,024, ingest workers on auto: (a) a fresh run (new result-cache and
    journal directories), traced, its K3 launches one per (chunk,
    bucket); (b) --no-result-cache --no-journal --ingest-workers 0: (a)'s
    stdout, stderr and manifest; (c) a warm run over a new manifest: the
    same bytes, only the documents the cache never stores dispatched (an
    oracle pass that raised, a document the card does not hold), and a
    warm run over 1,024 stored documents launches nothing; (d)
-   GUARD_TPU_FAULT=journal:nth=9 stops a run (rc 5), --resume replays 8
-   chunks, launches K3 for the other 8 only and prints (a)'s bytes; (e)
+   GUARD_TPU_FAULT=journal:nth=5 stops a run (rc 5), --resume replays 4
+   chunks, launches K3 for the other 2 only and prints (a)'s bytes; (e)
    SIGTERM to a CLI process after its first manifest row: rc 75, and
-   --resume prints (a)'s bytes; (f) --follow over 2,048 JSONL lines
+   --resume prints (a)'s bytes; (f) --follow over 1,024 JSONL lines
    (envelopes, bare documents, 8 malformed): one result line per input
    line in order, and the counts and failures of the batch sweep over
    the same documents. Over the first 64 documents the card's bytes
@@ -150,6 +150,28 @@ no result line):
    of `--backend cpu` on every document that raised on neither, and (a)'s
    tallies equal those folded from --follow on the CPU over the 725
    distinct inputs.
+   Then `serve` (phase `serve`, on the same registry files): (a) 256
+   tagged requests from 16 client threads through Serve.handle_line,
+   alternating the security policy and the cross-reference policy, two
+   templates each, with coalescing on (and off over the first 64): every
+   answer equals a fresh session's untagged one-at-a-time answer byte
+   for byte, with
+   fewer dispatches a request with coalescing on (p50/p99, dispatches a
+   request, coalesced batches and the launches of K1-K6 printed); (b)
+   the 249 files as the webhook registry of a `python -m
+   guard_tpu_torch serve --listen 127.0.0.1:0 --rules ...` process: 32
+   client threads POST 512 AdmissionReviews wrapping the corpus inputs
+   in order, every 8th answer equal to a `--no-coalesce` session's, the
+   metrics document read over HTTP, K3 once per dispatch; (c) a
+   poisoned request among 15 clean peers answers its own code-5
+   envelope and the peers are unchanged, and with
+   GUARD_TPU_FAULT=serve_batch:nth=1 the group re-fires solo with the
+   same bytes; (d) SIGTERM to (b)'s listener under load: exit 75, the
+   requests in flight finish, and a stdio session drained with 48
+   requests queued exits 75, the queued ones answering Draining;
+   (e) a Lambda "documents" event on the card answers the session's
+   bytes. Each leg prints one JSON line; no listener imports jax or
+   guard_tpu (`-X importtime`).
    Then the per-rule summary (phase `summary`): the security policy over
    65,536 seeded templates plus the volume template, built in memory,
    encoded per bucket and counted by DeviceBatchEvaluator.with_summary
@@ -175,8 +197,8 @@ registry pack's shape) on its main path
 (K1-K3 the security policy's, K4-K6
 the cross-reference policy's, K7 the summary's; every path's in
 `launches_by_path`, the report phase's run (a), the packed
-registry's, the sweep's run (a), the cache's three runs, the scalar rim's, the mesh's and
-the `test` command's among them, and
+registry's, the sweep's run (a), the cache's three runs, the scalar rim's, the mesh's,
+the `test` command's and serve's legs (a) and (b) among them, and
 for K1 the launches made by the StepFnVar arm), its error against the plain version, its
 time (`ms`, host cost included, and `device_ms`, the card's alone), the
 plain version's, the bound (bytes over the card's memory rate) and a
@@ -188,6 +210,7 @@ Two measurement modes print one JSON line and skip the phases above:
 
     python3 chip_smoke.py --design-sweep [CHECKOUT]
     python3 chip_smoke.py --compare-designs OTHER_CHECKOUT
+    python3 chip_smoke.py --phase serve
 
 `--design-sweep` times K2, K4, K5, K6, K3 and K7 at the main path's
 shapes (K3 and K7 also at their sweep shapes) through the public
@@ -197,7 +220,8 @@ K2 geometry and K3, K4, K5, K6 and K7 form at the shapes around the
 launchers' thresholds. `--compare-designs` runs the
 design sweep of OTHER_CHECKOUT (an older design, unpacked with `git
 archive`) and of this checkout in turns, other, this, this, other, one
-process each.
+process each. `--phase serve` builds, then runs phase `serve` alone on
+the registry's files (its legs' line, then the card).
 """
 
 from __future__ import annotations
@@ -234,11 +258,11 @@ N_SUMMARY_CHECK = 2048  # summary templates held against the CPU
 N_BACKEND = 2048  # templates of the backends phase
 # depths cut from 65,536 to keep the smoke in its time limit beside
 # phase `packing`: the fnvar and xref templates, and the slice
-# templates the report phase reports (each phase keeps the volume
-# template as well)
+# templates the report phase reports (16,384, then 8,192 beside phase
+# `serve`; each phase keeps the volume template as well)
 N_FNVAR_TEMPLATES = 16384
 N_XREF_TEMPLATES = 16384
-N_REPORT_DOCS = 16384
+N_REPORT_DOCS = 8192
 N_VERBOSE = 64  # templates printed with -v and -p
 QUARANTINE_DOC = 1234  # the template the quarantine runs make invalid JSON
 # registry documents: the corpus's test inputs replicated in order. Cut
@@ -248,10 +272,12 @@ QUARANTINE_DOC = 1234  # the template the quarantine runs make invalid JSON
 # 1,344 s on a slow host, and 1,083 s with them cut, against the
 # 1,200 s limit (PERF.md §6). Since phase `sweep` (140-195 s) joined
 # the smoke, the CLI's states take every twelfth input and the
-# statuses-only run 1,024 documents (PERF.md §4)
+# statuses-only run 1,024 documents, and since phase `serve` (140 s)
+# joined it (1,129 s in all, PERF.md §6) every forty-eighth input
+# (PERF.md §4)
 N_PACKING = 16384
 N_PACKING_STATUSES = 1024
-N_PACKING_CLI_STRIDE = 12
+N_PACKING_CLI_STRIDE = 48
 N_PACKING_FAULT = 16  # registry documents of the fault legs (inline oracle reruns)
 # launches of the statuses-only runs on the tree encoder (the native
 # buckets must give the same)
@@ -1153,6 +1179,7 @@ def check_trace(trace_out: Path, metrics_out: Path, ev) -> dict:
 
 
 CACHE_CHANGED_DOC = 7  # the template whose bytes the cache's third run changes
+N_MESH_TEXTS = 16384  # the mesh legs run over the first 16,384 of the slice's texts
 
 
 def run_flagged(device, rules, files, **flags) -> dict:
@@ -1284,7 +1311,7 @@ def phase_slice_flags(device, tmp: Path, slice_info: dict, texts) -> dict:
     flagship.write_text(FLAGSHIP_RULES)
     runs = {}
     for label, shape in (("mesh_off", "off"), ("mesh_2x1", "2x1")):
-        runs[label] = run_flagged(device, [rules, flagship], fresh_files(texts),
+        runs[label] = run_flagged(device, [rules, flagship], fresh_files(texts[:N_MESH_TEXTS]),
                                   mesh_shape=shape, result_cache=False)
     base, mesh = runs["mesh_off"], runs["mesh_2x1"]
     check((mesh["rc"], mesh["out"]) == (base["rc"], base["out"]) and mesh["err"] == "",
@@ -2431,9 +2458,10 @@ def phase_packing(device, tmp: Path) -> dict:
 # leg (d) stops the run at the checkpoint of chunk SWEEP_FAULT_NTH - 1;
 # leg (f) streams N_FOLLOW lines, N_FOLLOW_MALFORMED of them malformed;
 # the CPU holds the first N_SWEEP_PREFIX documents' bytes
+N_SWEEP = 6144  # the registry documents the sweep writes (6 chunks)
 N_SWEEP_CHUNK = 1024
-SWEEP_FAULT_NTH = 9
-N_FOLLOW = 2048
+SWEEP_FAULT_NTH = 5
+N_FOLLOW = 1024
 N_FOLLOW_MALFORMED = 8
 N_SWEEP_PREFIX = 64
 
@@ -2497,7 +2525,7 @@ def follow_stream(texts: list) -> tuple:
 
 def phase_sweep(device, tmp: Path):
     """`sweep` on the card over the registry (phase `packing`'s files):
-    all 249 corpus rule files over N_PACKING documents, the corpus's 725
+    all 249 corpus rule files over N_SWEEP documents, the corpus's 725
     test inputs replicated in order, in chunks of N_SWEEP_CHUNK, ingest
     workers on auto. (a) a fresh run (new result-cache and journal
     directories), traced; (b) --no-result-cache --no-journal
@@ -2532,7 +2560,7 @@ def phase_sweep(device, tmp: Path):
     check(len(list(rules_dir.glob("*.guard"))) == 249, "sweep: the registry's rules are missing")
     data = tmp / "sweep_data"
     data.mkdir()
-    for i in range(N_PACKING):
+    for i in range(N_SWEEP):
         (data / f"d{i:05d}.json").write_text(texts[i % n_in])
     # K3 launches once per (pack, bucket) of a chunk: the distinct
     # buckets of the chunk's documents (the oversize ones have none)
@@ -2541,12 +2569,12 @@ def phase_sweep(device, tmp: Path):
     bucket_of = np.full(n_in, -1)
     for sub, idx in groups:
         bucket_of[idx] = sub.n_nodes
-    n_chunks = -(-N_PACKING // N_SWEEP_CHUNK)
+    n_chunks = -(-N_SWEEP // N_SWEEP_CHUNK)
 
     def k3_for(chunks) -> int:
         total = 0
         for c in chunks:
-            ids = np.arange(c * N_SWEEP_CHUNK, min((c + 1) * N_SWEEP_CHUNK, N_PACKING)) % n_in
+            ids = np.arange(c * N_SWEEP_CHUNK, min((c + 1) * N_SWEEP_CHUNK, N_SWEEP)) % n_in
             b = bucket_of[ids]
             total += len(set(b[b >= 0].tolist()))
         return total
@@ -2555,7 +2583,7 @@ def phase_sweep(device, tmp: Path):
     dev = str(device)
     base = ["--device", dev, "-c", str(N_SWEEP_CHUNK), "-r", str(rules_dir), "-d", str(data),
             "-M", str(manifest)]
-    out = {"docs": N_PACKING, "chunks": n_chunks, "chunk_size": N_SWEEP_CHUNK}
+    out = {"docs": N_SWEEP, "chunks": n_chunks, "chunk_size": N_SWEEP_CHUNK}
 
     def note(label, run, **extra):
         out[label] = {"rc": run["rc"], "wall_s": run["wall_s"], "launches": run["launches"],
@@ -2575,7 +2603,7 @@ def phase_sweep(device, tmp: Path):
     a_manifest = manifest.read_bytes()
     summary = json.loads(a["out"].splitlines()[-1])
     check(a["rc"] in (19, 5) and summary["chunks"] == n_chunks == summary["evaluated"]
-          and summary["documents"] == N_PACKING, f"sweep (a): rc {a['rc']}, {summary}")
+          and summary["documents"] == N_SWEEP, f"sweep (a): rc {a['rc']}, {summary}")
     # the CPU launches no kernel (a rehearsal there skips these checks)
     on_card = device.type == "cuda"
     check(not on_card or a["launches"]["rim_reduce"] == k3_for(range(n_chunks)),
@@ -2610,18 +2638,18 @@ def phase_sweep(device, tmp: Path):
     # those, and only those, dispatch again. Over the documents that
     # stored, a warm run launches nothing.
     raised = {line.split(" vs ", 1)[0] for line in a["err"].splitlines() if " vs " in line}
-    unstored = {i for i in range(N_PACKING)
+    unstored = {i for i in range(N_SWEEP)
                 if f"d{i:05d}.json" in raised or bucket_of[i % n_in] < 0}
     manifest.unlink()
     c = run_sweep([*base, "--delta-stats"])
-    want = (f"result-cache: {N_PACKING - len(unstored)}/{N_PACKING} docs cached, "
+    want = (f"result-cache: {N_SWEEP - len(unstored)}/{N_SWEEP} docs cached, "
             f"{len(unstored)} dispatched\n")
     check(c["err"].endswith(want), f"sweep (c): {c['err'][-200:]!r}, want {want!r}")
     c["err"] = c["err"][: -len(want)]
     same(c, "c", manifest.read_bytes())
     stored = tmp / "sweep_stored"
     stored.mkdir()
-    for i in sorted(set(range(N_PACKING)) - unstored)[:N_SWEEP_CHUNK]:
+    for i in sorted(set(range(N_SWEEP)) - unstored)[:N_SWEEP_CHUNK]:
         (stored / f"d{i:05d}.json").write_text(texts[i % n_in])
     stored_args = ["--device", dev, "-c", str(N_SWEEP_CHUNK), "-r", str(rules_dir),
                    "-d", str(stored), "-M", str(tmp / "sweep_stored.jsonl")]
@@ -2763,7 +2791,7 @@ def phase_sweep(device, tmp: Path):
           "sweep: the CPU fold lost an input")
     counts = {k: 0 for k in ("pass", "fail", "skip")}
     failed = []
-    for i in range(N_PACKING):
+    for i in range(N_SWEEP):
         o = outcome[i % n_in]
         counts[o["status"]] += 1
         if o["fails"]:
@@ -2777,6 +2805,476 @@ def phase_sweep(device, tmp: Path):
                   "fold_s": fold["wall_s"]}
     info = {"launches": a["launches"]}
     return out, info
+
+
+# -- phase serve: the serving plane on the card ------------------------------
+
+N_SERVE_REQUESTS = 256  # leg (a): tagged requests, two documents each
+N_SERVE_OFF = 32  # leg (a) with coalescing off: the first 32 of them
+N_SERVE_CLIENTS = 16
+N_WEBHOOK = 512  # leg (b): AdmissionReviews over HTTP
+N_WEBHOOK_CLIENTS = 32
+WEBHOOK_CHECK_STRIDE = 8  # every 8th review is held against a --no-coalesce listener
+N_ISOLATION = 16  # leg (c): one poisoned request among 15 clean peers
+POISONED = 5
+N_DRAIN_CLIENTS = 32  # leg (d)
+DRAIN_AFTER_S = 1.0
+N_STDIO_DRAIN = 64  # leg (d): tagged lines read before the stdio session's latch trips
+SERVE_SEED = 20261018
+
+
+def pct(values, q: float) -> float:
+    """The q-quantile (nearest rank) of `values`, in milliseconds."""
+    s = sorted(values)
+    return s[min(len(s) - 1, max(0, int(round(q * len(s))) - 1))] * 1e3
+
+
+def serve_lines(n: int):
+    """n request lines alternating the slice's security policy and the
+    cross-reference policy, two templates each (ids tagged), and the
+    same lines untagged."""
+    import numpy as np
+
+    from guard_tpu_torch import workloads
+
+    rng = np.random.default_rng(SERVE_SEED)
+    tagged, untagged = [], []
+    for i in range(n):
+        xref = i % 2 == 1
+        make = workloads.make_xref_template if xref else workloads.make_template
+        body = {"rules": [workloads.XREF_RULES if xref else workloads.RULES],
+                "data": [json.dumps(make(rng, 2 * i + k)) for k in range(2)],
+                "backend": "tpu"}
+        untagged.append(json.dumps(body))
+        tagged.append(json.dumps({**body, "id": i}))
+    return tagged, untagged
+
+
+def drive_clients(answer, n: int, n_clients: int):
+    """`answer(i)` for i in range(n) from n_clients threads (client c
+    takes i = c, c + n_clients, ...), released together: the answers
+    and each one's wall in seconds."""
+    results = [None] * n
+    lat = [0.0] * n
+    barrier = threading.Barrier(n_clients)
+    errors = []
+
+    def client(c):
+        try:
+            barrier.wait(120)
+            for i in range(c, n, n_clients):
+                t0 = time.perf_counter()
+                results[i] = answer(i)
+                lat[i] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    check(not errors and all(not t.is_alive() for t in threads),
+          f"serve: a client failed or hung: {errors[:3]}")
+    return results, lat
+
+
+def http_call(port: int, method: str, path: str, body=None, timeout: float = 120):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"} if body else {})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def start_listener(device, tmp: Path, label: str, rules, *flags):
+    """`python -X importtime -m guard_tpu_torch serve --listen
+    127.0.0.1:0 --rules ...` in a process of its own (the card unless
+    the phase runs on the CPU): the process and the file its stderr goes
+    to (the announcement and every module it imports)."""
+    err_path = tmp / f"listener_{label}.err"
+    argv = [sys.executable, "-X", "importtime", "-m", "guard_tpu_torch", "serve",
+            "--listen", "127.0.0.1:0", *flags, "--rules", *[str(p) for p in rules]]
+    if device.type != "cuda":
+        argv[6:6] = ["--device", str(device)]
+    env = {k: v for k, v in os.environ.items() if k != "GUARD_TPU_FAULT"}
+    err = open(err_path, "w")
+    proc = subprocess.Popen(argv, cwd=str(ROOT), env=env, stdin=subprocess.DEVNULL,
+                            stdout=subprocess.DEVNULL, stderr=err)
+    err.close()
+    return proc, err_path
+
+
+def listener_port(proc, err_path: Path, label: str) -> int:
+    """The port a started listener announced on stderr."""
+    deadline = time.monotonic() + 300
+    prefix = "guard-tpu serve: listening on 127.0.0.1:"
+    while time.monotonic() < deadline:
+        for line in err_path.read_text().splitlines():
+            if line.startswith(prefix):
+                return int(line[len(prefix):])
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    proc.kill()
+    proc.wait(30)
+    check(False, f"serve ({label}): the listener did not announce itself: "
+                 f"{err_path.read_text()[-2000:]}")
+
+
+def imported_forbidden(err_path: Path) -> list:
+    """The jax and guard_tpu modules a `-X importtime` process imported."""
+    names = []
+    for line in err_path.read_text().splitlines():
+        if line.startswith("import time:") and "|" in line:
+            names.append(line.rsplit("|", 1)[1].strip())
+    return sorted(n for n in names if n == "jax" or n.startswith(("jax.", "jaxlib"))
+                  or n == "guard_tpu" or n.startswith("guard_tpu."))
+
+
+def stop_listener(proc) -> int:
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait(30)
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in after}
+
+
+def phase_serve(device, tmp: Path) -> tuple:
+    """`serve` on the card (after phase `sweep`, on its registry files):
+    (a) 256 tagged requests from 16 client threads through
+    Serve.handle_line, alternating the security and cross-reference
+    policies, two templates each, with coalescing on (and off over the
+    first 64): every answer the bytes of a fresh session's untagged
+    one-at-a-time run; fewer dispatches per request with coalescing on;
+    (b) the 249-file
+    registry as the webhook of a `serve --listen` process: 32 client
+    threads POST 512 AdmissionReviews wrapping the corpus's inputs in
+    order, every 8th held against a `--no-coalesce` session's answer
+    (in this process, while the listener starts), the listener's
+    metrics document read over HTTP (K3 once per dispatch);
+    (c) a poisoned request among 15 clean peers answers its own code-5
+    envelope and the peers are unchanged, and an injected serve_batch
+    fault re-fires the group solo with the same bytes; (d) SIGTERM to
+    (b)'s listener under load: exit 75, the requests in flight finish,
+    later connections are refused; then a stdio session drained with
+    requests queued: exit 75, the queued ones answer the Draining
+    envelope; (e) one Lambda "documents"
+    event on the card answers the session's bytes. One JSON line per
+    leg on stdout. No listener imports jax or guard_tpu."""
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch import lambda_handler, workloads
+    from guard_tpu_torch.commands.serve import Serve
+    from guard_tpu_torch.parallel.device import DISPATCH_COUNTERS
+    from guard_tpu_torch.utils import faults
+    from guard_tpu_torch.utils.telemetry import SERVE_COUNTERS
+
+    on_card = device.type == "cuda"
+    dev = None if on_card else str(device)
+    info: dict = {}
+    t_phase = time.perf_counter()
+
+    # (a) the stdio session's handler, two digests
+    t0 = time.perf_counter()
+    tagged, untagged = serve_lines(N_SERVE_REQUESTS)
+    ref_srv = Serve(stdio=False, coalesce=False, device=dev)
+    ref = [ref_srv.handle_line(line) for line in untagged]
+    ref_s = time.perf_counter() - t0
+    check(all(r["code"] in (0, 19) for r in ref),
+          f"serve (a): the sequential run answered {[r for r in ref if r['code'] == 5][:1]}")
+    runs = {}
+    for label, coalesce, n in (("on", True, N_SERVE_REQUESTS), ("off", False, N_SERVE_OFF)):
+        srv = Serve(stdio=False, coalesce=coalesce, device=dev)
+        srv.handle_line(untagged[0])  # the session warms before its clients
+        K.reset_launches()
+        d0, s0 = DISPATCH_COUNTERS["dispatches"], dict(SERVE_COUNTERS)
+        t1 = time.perf_counter()
+        got, lat = drive_clients(lambda i, srv=srv: srv.handle_line(tagged[i]), n,
+                                 N_SERVE_CLIENTS)
+        if on_card:
+            import torch
+
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        bad = [i for i in range(n) if got[i] != ref[i]]
+        check(not bad, f"serve (a, coalesce {label}): {len(bad)} answers differ from the "
+                       f"sequential session's, first {bad[:4]}")
+        runs[label] = {
+            "requests": n, "wall_s": wall, "p50_ms": pct(lat, 0.50), "p99_ms": pct(lat, 0.99),
+            "dispatches_per_request": (DISPATCH_COUNTERS["dispatches"] - d0) / n,
+            "coalesced_batches": SERVE_COUNTERS["coalesced_batches"] - s0["coalesced_batches"],
+            "coalesced_requests": SERVE_COUNTERS["coalesced_requests"]
+            - s0["coalesced_requests"],
+            "launches": dict(K.LAUNCHES),
+        }
+    check(runs["on"]["dispatches_per_request"] < runs["off"]["dispatches_per_request"],
+          f"serve (a): {runs['on']['dispatches_per_request']} dispatches a request with "
+          f"coalescing on, {runs['off']['dispatches_per_request']} off")
+    launches_a = runs["on"]["launches"]
+    check(not on_card or all(launches_a[k] > 0 for k in WALK_KERNELS),
+          f"serve (a): a kernel of the path never launched: {launches_a}")
+    info["a"] = {"requests": N_SERVE_REQUESTS, "clients": N_SERVE_CLIENTS,
+                 "sequential_s": ref_s, "wall_s": time.perf_counter() - t0, **runs}
+    print(json.dumps({"serve_leg": "a", **info["a"]}), flush=True)
+    log(f"serve (a): on {json.dumps({k: v for k, v in runs['on'].items() if k != 'launches'})}"
+        f", off {json.dumps({k: v for k, v in runs['off'].items() if k != 'launches'})}")
+
+    # (b) the registry's webhook over HTTP
+    t0 = time.perf_counter()
+    rules = sorted((tmp / "registry_rules").glob("*.guard"))
+    check(len(rules) == 249, "serve (b): the registry's rules are missing")
+    _paths, plain = corpus_inputs()
+    reviews = [json.dumps({"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+                           "request": {"uid": f"r{i}", "object": plain[i % len(plain)]}})
+               for i in range(N_WEBHOOK)]
+    proc, err_on = start_listener(device, tmp, "coalesce", rules)
+    try:
+        # while the listener starts, a --no-coalesce session in this
+        # process answers every 8th review (the reference of (b))
+        t1 = time.perf_counter()
+        off = Serve(stdio=False, coalesce=False, rules=[str(p) for p in rules], device=dev)
+        want_b = {i: off.handle_webhook(reviews[i])
+                  for i in range(0, N_WEBHOOK, WEBHOOK_CHECK_STRIDE)}
+        check_s = time.perf_counter() - t1
+        port = listener_port(proc, err_on, "coalesce")
+        warm_status, _ = http_call(port, "POST", "/webhook", reviews[0], timeout=600)
+        check(warm_status == 200, f"serve (b): the first review answered {warm_status}")
+        _s, m0 = http_call(port, "GET", "/metrics")
+        t1 = time.perf_counter()
+        answers, lat = drive_clients(lambda i: http_call(port, "POST", "/webhook", reviews[i]),
+                                     N_WEBHOOK, N_WEBHOOK_CLIENTS)
+        wall_b = time.perf_counter() - t1
+        _s, m1 = http_call(port, "GET", "/metrics")
+        check(all(st == 200 and doc["response"]["uid"] == f"r{i}"
+                  for i, (st, doc) in enumerate(answers)),
+              "serve (b): a review did not answer 200 with its uid")
+        check(not any("fail-open" in doc["response"]["status"].get("message", "")
+                      for _st, doc in answers), "serve (b): an evaluation error failed open")
+        for i, want in want_b.items():
+            check(answers[i] == want, f"serve (b): review {i} differs from --no-coalesce's")
+        c0, c1 = m0["metrics"]["counters"], m1["metrics"]["counters"]
+        launches_b = launch_delta(m0.get("launches", {}), m1.get("launches", {}))
+        dispatches = c1["dispatch"]["dispatches"] - c0["dispatch"]["dispatches"]
+        batches = c1["serve"]["coalesced_batches"] - c0["serve"]["coalesced_batches"]
+        singles = c1["serve"]["singleton_batches"] - c0["serve"]["singleton_batches"]
+        check(not on_card or launches_b.get("rim_reduce") == dispatches > 0,
+              f"serve (b): K3 launched {launches_b.get('rim_reduce')} times over "
+              f"{dispatches} dispatches")
+        allowed = sum(1 for _st, doc in answers if doc["response"]["allowed"])
+        info["b"] = {
+            "reviews": N_WEBHOOK, "clients": N_WEBHOOK_CLIENTS, "rule_files": len(rules),
+            "wall_s": wall_b, "p50_ms": pct(lat, 0.50), "p99_ms": pct(lat, 0.99),
+            "allowed": allowed, "denied": N_WEBHOOK - allowed,
+            "dispatches": dispatches, "coalesced_batches": batches,
+            "singleton_batches": singles,
+            "dispatches_per_evaluation": dispatches / max(1, batches + singles),
+            "launches": launches_b, "checked_against_no_coalesce": len(want_b),
+            "no_coalesce_s": check_s,
+            "metrics_histograms": {
+                k: m1["metrics"]["histograms"].get(k, {}).get("count")
+                for k in ("serve_request_seconds", "serve_queue_wait_seconds",
+                          "serve_dispatch_seconds")},
+        }
+        print(json.dumps({"serve_leg": "b", **info["b"]}), flush=True)
+        log(f"serve (b) in {time.perf_counter() - t0:.1f}s: "
+            f"{json.dumps({k: v for k, v in info['b'].items() if k != 'launches'})}")
+
+        # (d) SIGTERM to the listener of (b) while requests are in flight,
+        # then a stdio session whose latch trips with requests queued
+        info["d"] = drain_leg(proc, port, untagged[0], ref[0])
+        info["d"]["stdio"] = stdio_drain_leg(dev, tagged, ref)
+        print(json.dumps({"serve_leg": "d", **info["d"]}), flush=True)
+        log(f"serve (d): {json.dumps(info['d'])}")
+    finally:
+        stop_listener(proc)
+    leaked = imported_forbidden(err_on)
+    check(not leaked, f"serve: the listener imported {leaked[:5]}")
+
+    # (c) isolation on the card
+    t0 = time.perf_counter()
+    security = [i for i in range(N_SERVE_REQUESTS) if i % 2 == 0][:N_ISOLATION]
+    lines_c = [untagged[i] for i in security]
+    body = json.loads(lines_c[POISONED])
+    body["data"][0] = body["data"][0][: len(body["data"][0]) // 2]
+    lines_c[POISONED] = json.dumps(body)
+    want_c = [ref[i] for i in security]
+    want_c[POISONED] = Serve(stdio=False, coalesce=False, device=dev).handle_line(
+        lines_c[POISONED])
+    check(want_c[POISONED]["code"] == 5 and want_c[POISONED]["error_class"] == "ParseError",
+          f"serve (c): the poisoned request answered {want_c[POISONED]}")
+    srv = Serve(stdio=False, device=dev)
+    b0 = SERVE_COUNTERS["coalesced_batches"]
+    got, _lat = drive_clients(lambda i: srv.handle_line(lines_c[i]), N_ISOLATION, N_ISOLATION)
+    check(got == want_c, "serve (c): the poisoned group's answers differ from sequential")
+    poisoned_batches = SERVE_COUNTERS["coalesced_batches"] - b0
+    faults.reset_faults()
+    os.environ["GUARD_TPU_FAULT"] = "serve_batch:nth=1"
+    try:
+        r0 = SERVE_COUNTERS["isolation_refires"]
+        srv = Serve(stdio=False, device=dev)
+        clean = [untagged[i] for i in security]
+        got, _lat = drive_clients(lambda i: srv.handle_line(clean[i]), N_ISOLATION,
+                                  N_ISOLATION)
+        refires = SERVE_COUNTERS["isolation_refires"] - r0
+        injected = faults.FAULT_COUNTERS["injected_serve_batch"]
+    finally:
+        del os.environ["GUARD_TPU_FAULT"]
+        faults.reset_faults()
+    check(got == [ref[i] for i in security], "serve (c): the re-fired group's answers differ")
+    check(refires > 0 and injected == 1, f"serve (c): {refires} re-fires, {injected} faults")
+    info["c"] = {"requests": N_ISOLATION, "poisoned_index": POISONED,
+                 "poisoned_group_batches": poisoned_batches, "isolation_refires": refires,
+                 "wall_s": time.perf_counter() - t0}
+    print(json.dumps({"serve_leg": "c", **info["c"]}), flush=True)
+
+    # (e) the Lambda face on the card
+    t0 = time.perf_counter()
+    first = json.loads(untagged[0])
+    lambda_handler._SESSION = None
+    if not on_card:
+        lambda_handler._SESSION = Serve(stdio=False, device=dev)
+    got_e = lambda_handler.handler({"documents": first["data"], "rules": first["rules"]})
+    check(got_e == ref[0], "serve (e): the Lambda answer differs from the session's")
+    check(lambda_handler._SESSION.device == dev, "serve (e): the Lambda session left the card")
+    lambda_handler._SESSION = None
+    info["e"] = {"code": got_e["code"], "wall_s": time.perf_counter() - t0}
+    print(json.dumps({"serve_leg": "e", **info["e"]}), flush=True)
+    info["wall_s"] = time.perf_counter() - t_phase
+    all_launches = {"serve": {"launches": launches_a},
+                    "serve_webhook": {"launches": {k: launches_b.get(k, 0) for k in K.NAMES}}}
+    return info, all_launches
+
+
+def stdio_drain_leg(dev, tagged: list, ref: list) -> dict:
+    """(d), the stdio session: N_STDIO_DRAIN tagged lines are read (16
+    run on the pool, the rest queue behind them), then the drain latch
+    trips and one more line arrives. The session exits 75; the late
+    line and every request still queued answer the Draining envelope,
+    and every request that had started answers its own bytes."""
+    import io
+
+    from guard_tpu_torch.commands.serve import Serve
+    from guard_tpu_torch.utils.io import Reader, Writer
+    from guard_tpu_torch.utils.journal import DrainLatch
+
+    latch = DrainLatch()
+
+    class TrippingReader(Reader):
+        def stream(self):
+            for line in tagged[:N_STDIO_DRAIN]:
+                yield line + "\n"
+            latch.trip("smoke")
+            yield tagged[N_STDIO_DRAIN] + "\n"
+
+    w = Writer.buffered()
+    t0 = time.perf_counter()
+    rc = Serve(stdio=True, device=dev, drain_latch=latch).execute(
+        w, TrippingReader(io.StringIO("")))
+    wall = time.perf_counter() - t0
+    resps = [json.loads(line) for line in w.out.getvalue().splitlines()]
+    draining = [r for r in resps if r.get("error_class") == "Draining"]
+    answered = [r for r in resps if r.get("error_class") != "Draining"]
+    check(rc == 75, f"serve (d, stdio): the session exited {rc}, not 75")
+    check(sorted(r["id"] for r in resps) == list(range(N_STDIO_DRAIN + 1)),
+          "serve (d, stdio): a request got no answer, or two")
+    check(N_STDIO_DRAIN in {r["id"] for r in draining} and len(draining) > 1,
+          f"serve (d, stdio): {len(draining)} Draining answers")
+    check(all({k: v for k, v in r.items() if k != "id"} == ref[r["id"]] for r in answered),
+          "serve (d, stdio): a started request's answer differs from the sequential one")
+    return {"rc": rc, "requests": N_STDIO_DRAIN + 1, "answered": len(answered),
+            "draining": len(draining), "wall_s": wall}
+
+
+def drain_leg(proc, port: int, line: str, want: dict) -> dict:
+    """(d): N_DRAIN_CLIENTS clients POST `line` to /validate in a loop;
+    after DRAIN_AFTER_S the listener gets SIGTERM. It must exit 75, and
+    every request whose connection was made before the signal must come
+    back whole: its verdict, or the Draining envelope if it reached the
+    session after the latch tripped. After the stop, connections are
+    refused."""
+    import http.client
+    import signal
+
+    stop = threading.Event()
+    sig_at = [None]
+    outcomes = []
+    lock = threading.Lock()
+
+    def one():
+        """(kind, sent, connected or None, done, status, body or error)"""
+        t_send = time.monotonic()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            try:
+                conn.connect()
+            except OSError as e:
+                return ("refused", t_send, None, time.monotonic(), None, repr(e))
+            t_conn = time.monotonic()
+            try:
+                conn.request("POST", "/validate", body=line,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                return ("answer", t_send, t_conn, time.monotonic(), resp.status, body)
+            except (OSError, http.client.HTTPException, ValueError) as e:
+                return ("error", t_send, t_conn, time.monotonic(), None, repr(e))
+        finally:
+            conn.close()
+
+    def client(_c):
+        deadline = time.monotonic() + 120
+        while not stop.is_set() and time.monotonic() < deadline:
+            rec = one()
+            with lock:
+                outcomes.append(rec)
+            if rec[0] != "answer" and sig_at[0] is not None:
+                return
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(N_DRAIN_CLIENTS)]
+    for t in threads:
+        t.start()
+    time.sleep(DRAIN_AFTER_S)
+    sig_at[0] = time.monotonic()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(120)
+    except subprocess.TimeoutExpired:
+        rc = None
+    stop.set()
+    for t in threads:
+        t.join(120)
+    t_sig = sig_at[0]
+    answers = [o for o in outcomes if o[0] == "answer"]
+    verdicts = [o for o in answers if o[5].get("error_class") is None]
+    draining = [o for o in answers if o[5].get("error_class") == "Draining"]
+    other = [o for o in answers if o not in verdicts and o not in draining]
+    cut = [o for o in outcomes if o[0] != "answer" and o[2] is not None and o[2] < t_sig]
+    finished = [o for o in verdicts if o[2] < t_sig < o[3]]
+    check(rc == 75, f"serve (d): the listener exited {rc}, not 75")
+    check(not other and all(o[4] == 200 and {k: o[5][k] for k in want} == want
+                            for o in verdicts),
+          f"serve (d): answers other than the verdict or Draining: {other[:2]}")
+    check(not cut, f"serve (d): connections made before the signal got no answer: {cut[:2]}")
+    check(finished, "serve (d): no request was in flight at the signal")
+    return {"rc": rc, "requests": len(outcomes), "verdicts": len(verdicts),
+            "finished_after_signal": len(finished), "draining": len(draining),
+            "refused_after_stop": sum(o[0] == "refused" for o in outcomes),
+            "reset_after_signal": sum(o[0] == "error" for o in outcomes)}
 
 
 def main_shape(shapes: dict, name: str):
@@ -3498,6 +3996,64 @@ def ingest_worker_modules() -> list:
     return [pool.submit(worker_modules, None).get(timeout=120) for _ in range(4)]
 
 
+def build_all() -> tuple:
+    """Build the kernels (nvcc, one process a source) while g++ builds
+    the native oracle and encoder; a failed build raises. Returns each
+    build's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from guard_tpu_torch.kernels.build import load
+    from guard_tpu_torch.ops import native_encoder, native_oracle
+
+    def build_host(module):
+        t1 = time.perf_counter()
+        path = module.build_native()
+        return path, time.perf_counter() - t1
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        oracle_build = pool.submit(build_host, native_oracle)
+        encoder_build = pool.submit(build_host, native_encoder)
+        load()
+        build_s = time.perf_counter() - t0
+        oracle_path, oracle_build_s = oracle_build.result()
+        encoder_path, encoder_build_s = encoder_build.result()
+    check(native_oracle.native_available(), f"the native oracle at {oracle_path} does not load")
+    check(native_encoder.native_available(), f"the native encoder at {encoder_path} does not load")
+    log(f"kernels built in {build_s:.1f}s, the native oracle in {oracle_build_s:.1f}s, "
+        f"the native encoder in {encoder_build_s:.1f}s")
+    return build_s, oracle_build_s, encoder_build_s
+
+
+def serve_main() -> int:
+    """`--phase serve`: the build and phase `serve` alone, on the
+    registry's files; one JSON line of the legs, then the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+        return 2
+    sys.path.insert(0, str(ROOT))
+    card = card_line()
+    build_s = build_all()[0]
+    with tempfile.TemporaryDirectory(prefix="guard_smoke_") as td:
+        tmp = Path(td)
+        os.environ["GUARD_TPU_PLAN_CACHE_DIR"] = str(tmp / "plans")
+        os.environ["GUARD_TPU_RESULT_CACHE_DIR"] = str(tmp / "results_default")
+        os.environ["GUARD_TPU_FLIGHTREC_DIR"] = str(tmp / "flightrec")
+        registry_files(tmp)
+        t0 = time.perf_counter()
+        info, launches = phase_serve(torch.device("cuda"), tmp)
+        wall = time.perf_counter() - t0
+    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                    or m == "guard_tpu" or m.startswith("guard_tpu."))
+    check(not leaked, f"imported {leaked}")
+    print(json.dumps({"serve": info, "launches_by_path": launches, "phase_s": wall,
+                      "build_s": build_s, "card": card}))
+    print(card)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -3517,31 +4073,9 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_line()
     log(f"card: {card}")
-    from concurrent.futures import ThreadPoolExecutor
-
-    from guard_tpu_torch.kernels.build import load
-    from guard_tpu_torch.ops import native_encoder, native_oracle
     from guard_tpu_torch.parallel import ingest
 
-    def build_host(module):
-        t1 = time.perf_counter()
-        path = module.build_native()
-        return path, time.perf_counter() - t1
-
-    # the native oracle's and the native encoder's g++ run while nvcc
-    # builds the kernels; a failed build raises here
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        oracle_build = pool.submit(build_host, native_oracle)
-        encoder_build = pool.submit(build_host, native_encoder)
-        load()
-        build_s = time.perf_counter() - t0
-        oracle_path, oracle_build_s = oracle_build.result()
-        encoder_path, encoder_build_s = encoder_build.result()
-    check(native_oracle.native_available(), f"the native oracle at {oracle_path} does not load")
-    check(native_encoder.native_available(), f"the native encoder at {encoder_path} does not load")
-    log(f"kernels built in {build_s:.1f}s, the native oracle in {oracle_build_s:.1f}s, "
-        f"the native encoder in {encoder_build_s:.1f}s")
+    build_s, oracle_build_s, encoder_build_s = build_all()
 
     clock = [time.perf_counter()]
 
@@ -3607,6 +4141,8 @@ def main() -> int:
         log(f"phase 3 (packing) ok in {took()}: {json.dumps(packing)}")
         sweep_run, sweep_info = phase_sweep(device, tmp)
         log(f"phase 3 (sweep) ok in {took()}: {json.dumps(sweep_run)}")
+        serve_run, serve_launches = phase_serve(device, tmp)
+        log(f"phase 3 (serve) ok in {took()}")
         summary_info = phase_summary(device)
         log(f"phase 3 (summary) ok in {took()}: "
             f"{json.dumps({k: v for k, v in summary_info.items() if k != 'shapes'})}")
@@ -3617,7 +4153,7 @@ def main() -> int:
     infos = {"security": slice_info, "xref": xref_info, "fnvar": fnvar_info,
              "summary": summary_info, "entry": entry_info, "report": report_info,
              "ingest_ii": ingest_info["ii_auto"], "xref_ingest": xref_ingest,
-             "packing": packing_info, "sweep": sweep_info,
+             "packing": packing_info, "sweep": sweep_info, **serve_launches,
              **{path: {"launches": launches}
                 for path, launches in flags_info["launches"].items()},
              "test_command": {"launches": test_info["launches"]}}
@@ -3643,6 +4179,7 @@ def main() -> int:
         "fnvar": {k: v for k, v in fnvar_info.items() if k != "shapes"},
         "fnvar_breakdown": fnvar_breakdown,
         "flagship": flagship, "corpus": corpus, "packing": packing, "sweep": sweep_run,
+        "serve": serve_run,
         "summary": {k: v for k, v in summary_info.items() if k != "shapes"},
         "report": report_info, "ingest": ingest_info, "xref_ingest": xref_ingest,
         "flags": {k: v for k, v in flags_info.items() if k != "launches"}, "test": test_info,
@@ -3666,6 +4203,8 @@ if __name__ == "__main__":
             code = design_main(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
         elif sys.argv[1:2] == ["--compare-designs"] and len(sys.argv) == 3:
             code = compare_main(Path(sys.argv[2]))
+        elif sys.argv[1:] == ["--phase", "serve"]:
+            code = serve_main()
         else:
             code = main()
     except Exception:

@@ -24,7 +24,12 @@ one walk and one rim reduction per (pack, bucket). Unchanged documents
 replay from a content-addressed result cache (`cache/results.py`), every
 host stage runs in a span of the telemetry plane (`utils/telemetry.py`,
 `--trace-out`, `--metrics-out`), and `test` (`commands/test.py`) runs a
-rule registry's expectation suites on the card.
+rule registry's expectation suites on the card. `sweep`
+(`commands/sweep.py`) evaluates a corpus in journaled chunks, and
+`serve` (`commands/serve.py`, `serve/`) is the persistent session
+(stdio, TCP/HTTP, the Kubernetes webhook, `lambda_handler.py`) whose
+concurrent requests coalesce into packed batches on the card;
+`api.py` is the library face.
 """
 
 #: the port's own version: it keys the plan artifacts (ops/plan.py)

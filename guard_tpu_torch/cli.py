@@ -21,12 +21,18 @@
     python -m guard_tpu_torch report [--ledger FILE] [--baseline FILE] \
         [--efficiency] [--check METRIC [--tolerance F] [--window N]]
     python -m guard_tpu_torch gc [--max-bytes N] [--dry-run]
+    python -m guard_tpu_torch serve (--stdio | --listen HOST:PORT) \
+        [--no-coalesce] [--rules FILE ...] [--tenant ID] \
+        [--trace-out FILE] [--metrics-out FILE] [--device cpu]
+    python -m guard_tpu_torch parse-tree [-r RULES] [-o OUT] [-p] [-y]
+    python -m guard_tpu_torch rulegen -t TEMPLATE [-o OUT]
 
 Same flags, stdout, stderr and exit codes as `python -m guard_tpu.cli`
 with the same flags and the same `--backend` (`validate` and `sweep`: 0
 pass / 19 fail / 5 error, and 75 for a drained `sweep`; `test`: 0 / 7
 failing expectations / 1 error; `report`: 0 / 19 regression / 5 unusable
-ledger; `gc`: always 0). The differences:
+ledger; `gc`: always 0; `serve`: 0, or 75 when drained;
+`parse-tree` and `rulegen`: 0 / 5). The differences:
 
 * the default backend of both commands is `tpu` here (the port's entry
   points run on the card), `auto` in the JAX package;
@@ -43,7 +49,11 @@ ledger; `gc`: always 0). The differences:
   run's `evaluated` (the JAX package drops the replayed chunks there);
   the journal's run key holds the port's source digest and the device
   census; and the sweep has no GUARD_TPU_SWEEP_JOURNAL,
-  GUARD_TPU_SWEEP_RESUME or GUARD_TPU_CACHE_MAX_BYTES twin.
+  GUARD_TPU_SWEEP_RESUME or GUARD_TPU_CACHE_MAX_BYTES twin;
+* a `serve` request's backend defaults to `tpu` (the JAX package's to
+  `auto`), coalescing is read on the resolved backend, and `serve` has
+  no GUARD_TPU_COALESCE twin of `--no-coalesce`; with no card and no
+  `--device` a `tpu` request answers code 5 and the session goes on.
 
 On `tpu` the walk and the rim run on the device, and the reports of the
 documents that need one are built on the host by the native oracle
@@ -297,6 +307,63 @@ def _add_ops_parsers(sub) -> None:
     )
 
 
+def _add_serve_parsers(sub) -> None:
+    sv = sub.add_parser(
+        "serve",
+        help="Persistent validate session: newline-delimited JSON "
+        "payload requests on stdin, one JSON response line each",
+    )
+    # the transport is chosen explicitly: --stdio for a piped session,
+    # --listen for the threaded TCP/HTTP listener, or both
+    sv.add_argument("--stdio", action="store_true")
+    sv.add_argument(
+        "--listen",
+        default=None,
+        metavar="HOST:PORT",
+        help="serve the same protocol to TCP/HTTP clients (port 0 = "
+        "OS-assigned, announced on stderr); shares the session's "
+        "prepared-rules cache, plan memo and coalescing batcher "
+        "across connections",
+    )
+    sv.add_argument(
+        "--no-coalesce",
+        action="store_true",
+        help="disable cross-request batch coalescing: every request "
+        "dispatches alone",
+    )
+    sv.add_argument(
+        "--rules",
+        "-r",
+        nargs="*",
+        default=None,
+        metavar="FILE",
+        help="rule files preloaded as the session registry for the "
+        "POST /webhook face (without it the webhook answers allowed "
+        "with a 'no rules configured' message)",
+    )
+    sv.add_argument(
+        "--tenant",
+        default=None,
+        metavar="ID",
+        help="connection-default tenant id for the front door's "
+        "per-tenant admission quotas (requests may override via their "
+        "\"tenant\" field or the X-Guard-Tenant header; also "
+        "GUARD_TPU_TENANT_DEFAULT)",
+    )
+    _add_telemetry_flags(sv)
+    _add_device_flags(sv, backend=False)
+
+    pt = sub.add_parser("parse-tree", help="Prints the parse tree for a rules file")
+    pt.add_argument("--rules", "-r", default=None)
+    pt.add_argument("--output", "-o", default=None)
+    pt.add_argument("--print-json", "-p", action="store_true")
+    pt.add_argument("--print-yaml", "-y", action="store_true")
+
+    rg = sub.add_parser("rulegen", help="Autogenerate rules from a CFN template")
+    rg.add_argument("--template", "-t", required=True)
+    rg.add_argument("--output", "-o", default=None)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog=PROG,
@@ -407,6 +474,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device_flags(t)
     _add_sweep_parser(sub)
     _add_ops_parsers(sub)
+    _add_serve_parsers(sub)
     return p
 
 
@@ -457,12 +525,12 @@ def run(argv: Optional[List[str]] = None, writer: Optional[Writer] = None,
 
 def _session_epilogue(args, rc: Optional[int], dt: float) -> None:
     """Exit hooks of the commands that drive the engine (validate,
-    sweep): the flight recorder dumps on exit code 5, on an unhandled
-    exception (rc None), on a drain (75) and after latched fault
+    sweep, serve): the flight recorder dumps on exit code 5, on an
+    unhandled exception (rc None), on a drain (75) and after latched fault
     activity, and the run ledger (utils/ledger.py) appends one session
     record when GUARD_TPU_LEDGER_DIR is set. Both are best-effort and
     never change the exit code."""
-    if args.command not in ("validate", "sweep"):
+    if args.command not in ("validate", "sweep", "serve"):
         return
     from .utils import telemetry
 
@@ -521,7 +589,7 @@ def _session_epilogue(args, rc: Optional[int], dt: float) -> None:
 
 
 def _dispatch(args, writer: Writer, reader: Reader) -> int:
-    if args.command in ("report", "gc"):
+    if args.command in ("report", "gc", "serve", "parse-tree", "rulegen"):
         return _dispatch_ops(args, writer, reader)
     if args.command == "sweep":
         from .commands.sweep import Sweep
@@ -614,9 +682,25 @@ def _dispatch(args, writer: Writer, reader: Reader) -> int:
 
 
 def _dispatch_ops(args, writer: Writer, reader: Reader) -> int:
-    """`report` (the run ledger's diff, check and efficiency views) and
-    `gc` (store hygiene, always 0)."""
+    """`report` (the run ledger's diff, check and efficiency views),
+    `gc` (store hygiene, always 0), `serve` and the host-only
+    `parse-tree` and `rulegen`."""
     try:
+        if args.command == "serve":
+            return _dispatch_serve(args, writer, reader)
+        if args.command == "parse-tree":
+            from .commands.parse_tree import ParseTree
+
+            return ParseTree(
+                rules=args.rules,
+                output=args.output,
+                print_json=args.print_json,
+                print_yaml=args.print_yaml,
+            ).execute(writer, reader)
+        if args.command == "rulegen":
+            from .commands.rulegen import Rulegen
+
+            return Rulegen(template=args.template, output=args.output).execute(writer, reader)
         if args.command == "gc":
             from .commands.gc import Gc
 
@@ -632,6 +716,28 @@ def _dispatch_ops(args, writer: Writer, reader: Reader) -> int:
             window=args.window,
         ).execute(writer, reader)
     except (GuardError, OSError) as e:
+        writer.writeln_err(f"Error: {e}")
+        return ERROR_STATUS_CODE
+
+
+def _dispatch_serve(args, writer: Writer, reader: Reader) -> int:
+    """The `serve` session (commands/serve.py); a card whose kernels do
+    not build ends it with code 5 before the first request."""
+    if not args.stdio and not args.listen:
+        writer.writeln_err("serve requires a transport: --stdio and/or --listen HOST:PORT")
+        return ERROR_STATUS_CODE
+    from .commands.serve import Serve
+
+    try:
+        return Serve(
+            stdio=args.stdio,
+            listen=args.listen,
+            coalesce=not args.no_coalesce,
+            rules=args.rules,
+            default_tenant=args.tenant,
+            device=args.device,
+        ).execute(writer, reader)
+    except RuntimeError as e:
         writer.writeln_err(f"Error: {e}")
         return ERROR_STATUS_CODE
 

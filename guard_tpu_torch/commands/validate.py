@@ -182,6 +182,9 @@ class Validate:
     # data files loaded by an earlier run, reused in place of `data`
     # (their trees are built once for all runs over them)
     prepared_data: Optional[List[DataFile]] = None
+    # serve sessions: the payload's rule files, parsed once by the
+    # session (commands/serve.py) and reused across its requests
+    prepared_rules: Optional[List[RuleFile]] = None
     # the Evaluation of the last execute (ops/backend.Evaluation)
     last_evaluation: object = None
 
@@ -364,7 +367,9 @@ class Validate:
                 raise GuardError(err)
 
         if self.payload:
-            rule_files, data_files, errors = payload_inputs(reader.read(), writer)
+            rule_files, data_files, errors = payload_inputs(
+                reader.read(), writer, self.prepared_rules
+            )
         else:
             try:
                 data_files = self._load_data_files(reader)
@@ -534,9 +539,13 @@ class Validate:
         return SUCCESS_STATUS_CODE
 
 
-def payload_inputs(payload_content, writer: Writer):
+def payload_inputs(payload_content, writer: Writer, prepared_rules=None):
     """`(rule_files, data_files, parse_errors)` from a payload document
-    (`{"rules": [...], "data": [...]}`)."""
+    (`{"rules": [...], "data": [...]}`). Shared by Validate.execute and
+    the serve batcher (serve/batcher.py), which must build a request's
+    inputs as the sequential path does. `prepared_rules` are the rule
+    files a serve session already parsed (all clean: a payload whose
+    rules do not parse never has them, so its errors print here)."""
     rules_strs, data_strs = load_payload(payload_content)
     data_files = [
         DataFile(
@@ -546,6 +555,8 @@ def payload_inputs(payload_content, writer: Writer):
         )
         for i, d in enumerate(data_strs)
     ]
+    if prepared_rules is not None:
+        return list(prepared_rules), data_files, 0
     rule_files = []
     errors = 0
     for i, content in enumerate(rules_strs):

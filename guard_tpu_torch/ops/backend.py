@@ -1371,3 +1371,121 @@ def tpu_validate(validate, rule_files, data_files, writer: Writer) -> int:
         secs["report"] = (
             time.perf_counter() - t0 - secs["native"] - secs["pool"] - secs["inline"]
         )
+
+
+def _segment_view(evaluation: Evaluation, start: int, end: int) -> Evaluation:
+    """One request's slice of a shared multi-request evaluation: every
+    FileResult's statuses, unsure bits and six rim blocks sliced on the
+    document axis, its host documents shifted to indices local to the
+    segment, and report counters of its own (reruns, seconds,
+    oracle_docs). Raises when a block does not lead with the batch's
+    document count: a block laid out otherwise cannot be sliced."""
+    from ..parallel.device import _RIM_DTYPES
+
+    d = evaluation.n_docs
+    files = []
+    for fr in evaluation.files:
+        rim = None
+        if fr.rim is not None:
+            if len(fr.rim) != len(_RIM_DTYPES) or any(b.shape[0] != d for b in fr.rim):
+                raise GuardError(
+                    f"rim blocks of {fr.rule_file.name} do not lead with the "
+                    f"{d} documents of the batch: "
+                    f"{[tuple(b.shape) for b in fr.rim]}"
+                )
+            rim = tuple(b[start:end] for b in fr.rim)
+        files.append(FileResult(
+            fr.rule_file, fr.compiled, fr.statuses[start:end],
+            None if fr.unsure is None else fr.unsure[start:end], rim, fr.names,
+            {hd - start for hd in fr.host_docs if start <= hd < end}, fr.groups, fr.pack,
+        ))
+    return Evaluation(evaluation.groups, end - start, evaluation.interner, files,
+                      evaluation.device, ingest=evaluation.ingest, packs=evaluation.packs)
+
+
+def tpu_validate_multi(requests) -> list:
+    """The serve batcher's coalesced path (JAX package:
+    guard_tpu/ops/backend.py:1819): several payload requests whose rule
+    files share one plan digest evaluate as ONE (documents x rules)
+    batch, then each request's report pass runs over its own segment of
+    the shared Evaluation (`_segment_view`).
+
+    `requests` is a list of (validate, rule_files, data_files, writer)
+    whose rule files have one plan digest and whose evaluation flags are
+    equal (serve/batcher.py guarantees both). The shared phase, the
+    encode and `evaluate`, runs once under the first request's flags;
+    statuses do not depend on the batch a document rides in (the plan
+    layer's relocation contract), so each segment's report is the bytes
+    of that request run alone. Payload requests never touch the result
+    cache (`_result_cache_setup` returns None for them).
+
+    Returns one entry per request: its exit code, or the exception its
+    report phase raised (caught so that one request cannot fail its
+    peers). An exception of the shared phase propagates: the batcher
+    then re-fires every member on its own."""
+    from ..commands.validate import ERROR_STATUS_CODE, SUCCESS_STATUS_CODE
+
+    t_dispatch = time.perf_counter()
+    base, rule_files, _data, base_writer = requests[0]
+    all_data = []
+    segments = []
+    for _v, _rf, data_files, _w in requests:
+        start = len(all_data)
+        all_data.extend(data_files)
+        segments.append((start, len(all_data)))
+    if not all_data or not rule_files:
+        # the sequential early return: no report pass, no output
+        return [SUCCESS_STATUS_CODE] * len(requests)
+
+    dev = resolve_device(base.device)
+    seconds = {"load": 0.0}
+    shared, quarantined, ingest = None, {}, {"path": None}
+    if any(uses_shared_encode(rf) for rf in rule_files):
+        shared, quarantined, ingest = _encode_docs(base, all_data, base_writer, seconds)
+    else:
+        t0 = time.perf_counter()
+        for df in all_data:
+            df.path_value
+        seconds["load"] = time.perf_counter() - t0
+    evaluation = evaluate(
+        rule_files, _docs_for(all_data, quarantined), dev, shared=shared,
+        pack_rules=base.pack_rules, plan_cache=base.plan_cache,
+        verify_plans=base.verify_plans, vector_rim=base.vector_rim,
+        mesh_shape=base.mesh_shape,
+    )
+    evaluation.seconds["encode"] += seconds.pop("encode", 0.0)
+    evaluation.seconds.update(seconds)
+    evaluation.ingest = ingest
+    # the shared phase's wall per coalesced batch (persistent, as the
+    # request and queue-wait histograms are)
+    _TELEMETRY.histogram("serve_dispatch_seconds", persistent=True).observe(
+        time.perf_counter() - t_dispatch
+    )
+
+    outcomes: list = []
+    for (validate, _rf, data_files, writer), (start, end) in zip(requests, segments):
+        validate.last_evaluation = None
+        if not data_files:
+            outcomes.append(SUCCESS_STATUS_CODE)
+            continue
+        view = _segment_view(evaluation, start, end)
+        validate.last_evaluation = view
+        t0 = time.perf_counter()
+        try:
+            acc = _ReportAcc(data_files, {})
+            _report_files(validate, view, data_files, {}, writer, acc)
+            outcomes.append(_finish_report(validate, acc, writer, {}, None))
+        except GuardError as exc:
+            # as Validate.execute words a GuardError of the device path,
+            # for this request alone
+            writer.writeln_err(str(exc))
+            outcomes.append(ERROR_STATUS_CODE)
+        except Exception as exc:  # noqa: BLE001 - one request's fault stays its own
+            outcomes.append(exc)
+        finally:
+            secs = view.seconds
+            secs["report"] = (
+                time.perf_counter() - t0 - secs.get("native", 0.0)
+                - secs.get("pool", 0.0) - secs.get("inline", 0.0)
+            )
+    return outcomes

@@ -82,8 +82,8 @@ def journal_dir() -> Path:
 
 def drain_timeout_s() -> float:
     """Bound on a drain's wait for in-flight work
-    (GUARD_TPU_DRAIN_TIMEOUT_MS, default 5000; kept for the port's
-    serve, which is not ported yet)."""
+    (GUARD_TPU_DRAIN_TIMEOUT_MS, default 5000): the serve session's
+    listener and coalescing batcher (commands/serve.py)."""
     raw = os.environ.get("GUARD_TPU_DRAIN_TIMEOUT_MS", "").strip()
     try:
         return max(0.0, float(raw) if raw else 5000.0) / 1000.0

@@ -305,9 +305,9 @@ REGISTRY = MetricsRegistry()
 #: The JAX package's serving, front-door, durability and store-hygiene
 #: groups (`serve`, `admission`, `resume`, `gc`) register here, as
 #: there, so every snapshot of the port carries the schema's groups with
-#: the same keys. `sweep` (commands/sweep.py) counts `resume` and
-#: `admission.follow_*`, `gc` (commands/gc.py) counts `gc`; the port has
-#: no `serve` yet, so the other counters stay 0.
+#: the same keys. `serve` (commands/serve.py, serve/) counts `serve` and
+#: `admission`, `sweep` (commands/sweep.py) counts `resume` and
+#: `admission.follow_*`, and `gc` (commands/gc.py) counts `gc`.
 SERVE_COUNTERS = REGISTRY.counter_group("serve", EventedCounters("serve", {
     "requests": 0,
     "coalesce_eligible": 0,

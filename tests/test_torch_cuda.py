@@ -1259,3 +1259,52 @@ def test_cuda_sweep_matches_cpu(cuda_device, sweep_registry, tmp_path, monkeypat
     torch.cuda.synchronize()
     assert all(v == 0 for v in K.LAUNCHES.values()), K.LAUNCHES
     assert warm[1] == runs["cuda"][1] and manifest.read_bytes() == runs["cuda"][3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_fmt", ["sarif", "json"])
+def test_cuda_coalesced_serve_matches_cpu(cuda_device, sweep_registry, tmp_path, monkeypatch,
+                                          out_fmt):
+    """A coalesced group of eight requests over eight registry files
+    answers on the card, request by request, exactly what a `--device
+    cpu` session answers; the group shares its dispatches (fewer than
+    requests) and launches K1, K2 and K3."""
+    import json
+    import threading
+
+    from guard_tpu_torch.commands.serve import Serve
+    from guard_tpu_torch.parallel.device import DISPATCH_COUNTERS
+    from guard_tpu_torch.utils.telemetry import SERVE_COUNTERS
+
+    rules_dir, data_dir = sweep_registry
+    monkeypatch.setenv("GUARD_TPU_COALESCE_WAIT_MS", "200")
+    monkeypatch.setenv("GUARD_TPU_PLAN_CACHE_DIR", str(tmp_path / "plans"))
+    monkeypatch.delenv("GUARD_TPU_FAULT", raising=False)
+    rules = [p.read_text() for p in sorted(rules_dir.glob("*.guard"))]
+    docs = [p.read_text() for p in sorted(data_dir.glob("*.json"))]
+    lines = [json.dumps({"rules": rules, "data": docs[i::8], "backend": "tpu",
+                         "output_format": out_fmt}) for i in range(8)]
+    cpu = Serve(stdio=False, coalesce=False, device="cpu")
+    want = [cpu.handle_line(line) for line in lines]
+    card = Serve(stdio=False, coalesce=True)
+    card.handle_line(lines[0])  # the kernels build and the plan lowers before the group
+    got = [None] * 8
+    barrier = threading.Barrier(8)
+
+    def one(i):
+        barrier.wait(120)
+        got[i] = card.handle_line(lines[i])
+
+    K.reset_launches()
+    d0, b0 = DISPATCH_COUNTERS["dispatches"], SERVE_COUNTERS["coalesced_batches"]
+    threads = [threading.Thread(target=one, args=(i,), daemon=True) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        assert not t.is_alive()
+    torch.cuda.synchronize()
+    assert got == want and {r["code"] for r in got} <= {0, 19}
+    assert SERVE_COUNTERS["coalesced_batches"] > b0
+    assert DISPATCH_COUNTERS["dispatches"] - d0 < 8
+    assert all(K.LAUNCHES[k] > 0 for k in ("gather_rows", "segment_sum_rows", "rim_reduce"))
