@@ -160,7 +160,7 @@ no result line):
    request, coalesced batches and the launches of K1-K6 printed); (b)
    the 249 files as the webhook registry of a `python -m
    guard_tpu_torch serve --listen 127.0.0.1:0 --rules ...` process: 32
-   client threads POST 512 AdmissionReviews wrapping the corpus inputs
+   client threads POST 256 AdmissionReviews wrapping the corpus inputs
    in order, every 8th answer equal to a `--no-coalesce` session's, the
    metrics document read over HTTP, K3 once per dispatch; (c) a
    poisoned request among 15 clean peers answers its own code-5
@@ -172,6 +172,19 @@ no result line):
    (e) a Lambda "documents" event on the card answers the session's
    bytes. Each leg prints one JSON line; no listener imports jax or
    guard_tpu (`-X importtime`).
+   Then the multi-card half (phase `multicard`) over every visible card,
+   or with one card over a list naming it twice (the slicing, the
+   per-entry streams, the concatenation and the summed K7 counts still
+   run; `cards_visible` and the list are printed on a line of their
+   own): the registry's 249 files over 4,096 of its documents through
+   backend.evaluate under --mesh-shape auto, RxC with a column per entry
+   and the report path's rim profile, 2,048 slice templates through
+   the sharded with_summary, `sweep --rule-shards 2` and `sweep
+   --mesh-shape auto` over 1,024 registry documents, and
+   dryrun_multichip, each equal to the unsharded run on one card
+   (statuses, unsure bits, rim blocks, counts, stdout, stderr,
+   manifest, rc); then `lint` over corpus/rules and `completions
+   bash`.
    Then the per-rule summary (phase `summary`): the security policy over
    65,536 seeded templates plus the volume template, built in memory,
    encoded per bucket and counted by DeviceBatchEvaluator.with_summary
@@ -206,11 +219,12 @@ library call's time where one computes the same function (also both
 ways). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Two measurement modes print one JSON line and skip the phases above:
+These modes print one JSON line and skip the phases above:
 
     python3 chip_smoke.py --design-sweep [CHECKOUT]
     python3 chip_smoke.py --compare-designs OTHER_CHECKOUT
     python3 chip_smoke.py --phase serve
+    python3 chip_smoke.py --phase multicard
 
 `--design-sweep` times K2, K4, K5, K6, K3 and K7 at the main path's
 shapes (K3 and K7 also at their sweep shapes) through the public
@@ -221,7 +235,8 @@ launchers' thresholds. `--compare-designs` runs the
 design sweep of OTHER_CHECKOUT (an older design, unpacked with `git
 archive`) and of this checkout in turns, other, this, this, other, one
 process each. `--phase serve` builds, then runs phase `serve` alone on
-the registry's files (its legs' line, then the card).
+the registry's files (its legs' line, then the card); `--phase
+multicard` does the same for phase `multicard`.
 """
 
 from __future__ import annotations
@@ -273,9 +288,10 @@ QUARANTINE_DOC = 1234  # the template the quarantine runs make invalid JSON
 # 1,200 s limit (PERF.md §6). Since phase `sweep` (140-195 s) joined
 # the smoke, the CLI's states take every twelfth input and the
 # statuses-only run 1,024 documents, and since phase `serve` (140 s)
-# joined it (1,129 s in all, PERF.md §6) every forty-eighth input
-# (PERF.md §4)
-N_PACKING = 16384
+# joined it (1,129 s in all, PERF.md §6) every forty-eighth input; and
+# since phase `multicard` (25 s) joined it (1,079 s in all, PERF.md §6)
+# 8,192 documents (PERF.md §4)
+N_PACKING = 8192
 N_PACKING_STATUSES = 1024
 N_PACKING_CLI_STRIDE = 48
 N_PACKING_FAULT = 16  # registry documents of the fault legs (inline oracle reruns)
@@ -2812,7 +2828,9 @@ def phase_sweep(device, tmp: Path):
 N_SERVE_REQUESTS = 256  # leg (a): tagged requests, two documents each
 N_SERVE_OFF = 32  # leg (a) with coalescing off: the first 32 of them
 N_SERVE_CLIENTS = 16
-N_WEBHOOK = 512  # leg (b): AdmissionReviews over HTTP
+# leg (b): AdmissionReviews over HTTP (cut from 512 when phase
+# `multicard` joined the smoke: 1,079 s in all, PERF.md §4)
+N_WEBHOOK = 256
 N_WEBHOOK_CLIENTS = 32
 WEBHOOK_CHECK_STRIDE = 8  # every 8th review is held against a --no-coalesce listener
 N_ISOLATION = 16  # leg (c): one poisoned request among 15 clean peers
@@ -2963,7 +2981,7 @@ def phase_serve(device, tmp: Path) -> tuple:
     one-at-a-time run; fewer dispatches per request with coalescing on;
     (b) the 249-file
     registry as the webhook of a `serve --listen` process: 32 client
-    threads POST 512 AdmissionReviews wrapping the corpus's inputs in
+    threads POST 256 AdmissionReviews wrapping the corpus's inputs in
     order, every 8th held against a `--no-coalesce` session's answer
     (in this process, while the listener starts), the listener's
     metrics document read over HTTP (K3 once per dispatch);
@@ -3348,6 +3366,370 @@ def k3_packed_row(device, gen, pk: dict, rate: float) -> dict:
         "bound_ms": k3_bytes(d, r, g, f) / rate * 1e3,
         "library_ms": None,
     }
+
+
+# phase `multicard`: the registry's documents through the packed mesh,
+# the slice's templates through the sharded with_summary, and the
+# registry documents of the --rule-shards sweep (depth cut, full width)
+N_MULTICARD_DOCS = 4096
+N_MULTICARD_SUMMARY = 2048
+N_MULTICARD_SWEEP = 1024
+
+
+def multicard_devices() -> tuple:
+    """(cards visible, the mesh's device list): every card when two or
+    more are visible, else the one card named twice, so the slicing,
+    the per-entry streams, the concatenation and the summed K7 counts
+    still run."""
+    import torch
+
+    k = torch.cuda.device_count()
+    if k >= 2:
+        return k, [torch.device("cuda", i) for i in range(k)]
+    return k, [torch.device("cuda", 0)] * 2
+
+
+@contextlib.contextmanager
+def walk_tally():
+    """Count every DeviceBatchEvaluator walk by card while the block
+    runs, with its host seconds: columnarize (CompiledRules.
+    device_arrays), the copy to the card (arrays_from_numpy), the rest
+    of the walk's enqueue, and the collects (the wait for the card and
+    the copies back). Yields {card: {...}}, which the caller may clear."""
+    from guard_tpu_torch.ops.ir import CompiledRules
+    from guard_tpu_torch.parallel import device as device_mod
+
+    tally: dict = {}
+    here = threading.local()
+    saved = (device_mod.DeviceBatchEvaluator._walk, device_mod.DeviceBatchEvaluator.collect,
+             device_mod.DeviceBatchEvaluator.summary_collect, device_mod.arrays_from_numpy,
+             CompiledRules.device_arrays)
+    walk0, collect0, summary0, h2d0, columns0 = saved
+
+    def card(ev):
+        return tally.setdefault(str(ev.device), dict.fromkeys(
+            ("walks", "walk_s", "columnarize_s", "h2d_s", "collect_s"), 0))
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t = getattr(here, "card", None)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if t is not None:
+                    t[key] += time.perf_counter() - t0
+        return run
+
+    def walk(self, batch):
+        here.card = t = card(self)
+        t0 = time.perf_counter()
+        try:
+            return walk0(self, batch)
+        finally:
+            here.card = None
+            t["walks"] += 1
+            t["walk_s"] += time.perf_counter() - t0
+
+    def collected(fn):
+        def run(self, handle):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, handle)
+            finally:
+                card(self)["collect_s"] += time.perf_counter() - t0
+        return run
+
+    device_mod.DeviceBatchEvaluator._walk = walk
+    device_mod.DeviceBatchEvaluator.collect = collected(collect0)
+    device_mod.DeviceBatchEvaluator.summary_collect = collected(summary0)
+    device_mod.arrays_from_numpy = timed(h2d0, "h2d_s")
+    CompiledRules.device_arrays = timed(columns0, "columnarize_s")
+    try:
+        yield tally
+    finally:
+        (device_mod.DeviceBatchEvaluator._walk, device_mod.DeviceBatchEvaluator.collect,
+         device_mod.DeviceBatchEvaluator.summary_collect, device_mod.arrays_from_numpy,
+         CompiledRules.device_arrays) = saved
+
+
+def phase_multicard(device, tmp: Path, devices=None) -> tuple:
+    """The multi-card half (parallel/mesh.py, mesh2d.py, rules.py) over
+    a device list (multicard_devices(), or `devices`), each result held
+    equal to the unsharded run on one device: (a) the registry (249
+    files, one pack of 253 rules over 245 files) over N_MULTICARD_DOCS
+    of its documents through backend.evaluate, unsharded and under
+    --mesh-shape auto (2x1; twice, the first run being the first use of
+    the list's cards) and RxC with a column per entry: statuses,
+    unsure bits, rim blocks and oracle documents per file; (b)
+    N_MULTICARD_SUMMARY slice templates through the sharded
+    with_summary, bucket by bucket: statuses and summed K7 counts; (c)
+    `sweep --rule-shards 2` and `sweep --mesh-shape auto` over
+    N_MULTICARD_SWEEP registry documents: the stdout, stderr, manifest
+    and rc of the one-device run with one group; (d) dryrun_multichip
+    over the list; (e) `lint` over corpus/rules and `completions bash`,
+    host commands. The mesh sees the list through
+    mesh.visible_devices.
+
+    Every run is a leg of its own: every kernel counter, the walk tally
+    (walk_tally) and the shard prefetcher's counters are set to 0 just
+    before it and read just after. The sharded legs' launches add up to
+    the phase's; the one-device references (the unsharded registry run,
+    the one-card with_summary, the one-group sweep, dryrun_multichip's
+    single-device pass) are counted apart and printed beside them. Each
+    sharded leg must have walked on every card of the list, more often
+    than its reference, and launched its kernels: K1 and K2, and K3
+    once per walk, on the registry; K7 once per walk in with_summary.
+    The registry legs print each card's host seconds (walk_tally).
+    Returns (info, launches)."""
+    import numpy as np
+    import torch
+
+    from guard_tpu_torch import cli
+    from guard_tpu_torch import entry as port_entry
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops.backend import evaluate
+    from guard_tpu_torch.ops.encoder import encode_bucketed
+    from guard_tpu_torch.ops.ir import compile_rules_file
+    from guard_tpu_torch.ops.native_encoder import encode_json_bucketed
+    from guard_tpu_torch.parallel import mesh
+    from guard_tpu_torch.parallel.device import DeviceBatchEvaluator
+    from guard_tpu_torch.utils import faults
+    from guard_tpu_torch.utils.io import Reader, Writer
+    from guard_tpu_torch.utils.telemetry import PIPELINE_COUNTERS
+    from guard_tpu_torch.workloads import RULES, make_template
+
+    if devices is None:
+        cards, devices = multicard_devices()
+    else:
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    one = [devices[0]]
+    cards_of_list = {str(d) for d in devices}
+    print(json.dumps({"cards_visible": cards, "devices": [str(d) for d in devices]}),
+          flush=True)
+    real_visible = mesh.visible_devices
+    out = {"cards_visible": cards, "devices": [str(d) for d in devices]}
+    legs, refs = {}, {}
+    launches = dict.fromkeys(K.LAUNCHES, 0)
+
+    def sync_all():
+        if device.type == "cuda":
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+
+    def run_leg(label, fn, devs, reference=False, breakdown=False):
+        """One leg over `devs`, its counts read from 0: a reference's
+        go to `refs`, a sharded leg's to `legs` and the phase's launches."""
+        mesh.visible_devices = lambda device=None, devs=devs: list(devs)
+        faults.reset_faults()
+        sync_all()
+        K.reset_launches()
+        tally.clear()
+        PIPELINE_COUNTERS["shards_prefetched"] = 0
+        PIPELINE_COUNTERS["shard_prefetch_stall_seconds"] = 0.0
+        t0 = time.perf_counter()
+        result = fn()
+        sync_all()
+        rec = {"s": time.perf_counter() - t0,
+               "launches": {k: v for k, v in K.LAUNCHES.items() if v},
+               "walks": {c: t["walks"] for c, t in tally.items()}}
+        if breakdown:
+            rec["host_s"] = {c: {"walks": t["walks"],
+                                 "columnarize": t["columnarize_s"], "h2d": t["h2d_s"],
+                                 "enqueue": t["walk_s"] - t["columnarize_s"] - t["h2d_s"],
+                                 "collect": t["collect_s"]}
+                             for c, t in tally.items()}
+            rec["host_sum_s"] = sum(t["walk_s"] + t["collect_s"] for t in tally.values())
+            rec["shards_prefetched"] = PIPELINE_COUNTERS["shards_prefetched"]
+            rec["shard_prefetch_stall_s"] = PIPELINE_COUNTERS["shard_prefetch_stall_seconds"]
+        check(faults.FAULT_COUNTERS["dispatch_fallbacks"] == 0,
+              f"multicard ({label}): an unarmed run fell back")
+        if reference:
+            refs[label] = rec
+        else:
+            legs[label] = rec
+            for k, v in K.LAUNCHES.items():
+                launches[k] += v
+        return result
+
+    def held(label, ref, *kernels, per_walk=None):
+        """A sharded leg walked on every card of the list, more often
+        than its one-device reference, and launched `kernels`;
+        `per_walk` launched once per walk."""
+        if device.type != "cuda":
+            return
+        rec, walks = legs[label], sum(legs[label]["walks"].values())
+        check(set(rec["walks"]) == cards_of_list,
+              f"multicard ({label}): walks by card {rec['walks']}, want every card of the list")
+        check(walks > sum(refs[ref]["walks"].values()),
+              f"multicard ({label}): {walks} walks, no more than the one-device run")
+        for name in kernels:
+            check(rec["launches"].get(name, 0) > 0, f"multicard ({label}): {name} never launched")
+        if per_walk is not None:
+            check(rec["launches"].get(per_walk, 0) == walks,
+                  f"multicard ({label}): {per_walk} {rec['launches'].get(per_walk, 0)} "
+                  f"launches for {walks} walks")
+
+    t_phase = time.perf_counter()
+    with walk_tally() as tally:
+        try:
+            # (a) the registry through the packed mesh
+            rules_dir = tmp / "registry_rules"
+            paths = sorted(rules_dir.glob("*.guard"))
+            check(len(paths) == 249, "multicard: the registry's rules are missing")
+            from guard_tpu_torch.commands.validate import RuleFile
+
+            rule_files = [RuleFile(p.name, str(p), p.read_text(),
+                                   parse_rules_file(p.read_text(), p.name)) for p in paths]
+            _paths, plain = corpus_inputs()
+            texts = [json.dumps(plain[i % len(plain)]) for i in range(N_MULTICARD_DOCS)]
+            pvs = [from_plain(d) for d in plain]
+            docs = [pvs[i % len(pvs)] for i in range(N_MULTICARD_DOCS)]
+            runs = {}
+            for label, devs, shape, profile in (
+                    ("one", one, "off", None), ("auto", devices, "auto", None),
+                    ("auto_warm", devices, "auto", None),
+                    ("columns", devices, f"2x{len(devices)}", None),
+                    ("validate_profile", devices, "auto", "validate")):
+                groups, oversize, interner, err = encode_json_bucketed(texts)
+                check(err is None, f"multicard: the native encoder failed: {err}")
+                runs[label] = run_leg(
+                    f"registry_{label}",
+                    lambda: evaluate(rule_files, docs, device,
+                                     shared=(groups, oversize, interner),
+                                     mesh_shape=shape, profile=profile),
+                    devs, reference=label == "one", breakdown=True)
+            base = runs["one"]
+            check([len(p) for p in base.packs] == [245], f"multicard: packs {base.packs}")
+            for label in ("auto", "auto_warm", "columns", "validate_profile"):
+                held(f"registry_{label}", "registry_one", "gather_rows", "segment_sum_rows",
+                     per_walk="rim_reduce")
+                ev = runs[label]
+                check(ev.packs == base.packs, f"multicard ({label}): the packs differ")
+                rim_only = label == "validate_profile"
+                for a, b in zip(base.files, ev.files):
+                    name = a.rule_file.name
+                    narrowed = rim_only and b.pack is not None
+                    if narrowed:
+                        # the report path's profile: the statuses stay on the
+                        # cards, rim blocks 0-4 come back
+                        check(b.statuses is None and b.rim[5] is None,
+                              f"multicard ({label}) {name}: more than the profile came back")
+                    else:
+                        check(np.array_equal(a.statuses, b.statuses),
+                              f"multicard ({label}) {name}: statuses")
+                        check(np.array_equal(a.unsure, b.unsure),
+                              f"multicard ({label}) {name}: unsure")
+                    check(a.host_docs == b.host_docs, f"multicard ({label}) {name}: oracle documents")
+                    check((a.rim is None) == (b.rim is None)
+                          and (a.rim is None or all(y is None or np.array_equal(x, y)
+                                                    for x, y in zip(a.rim, b.rim))),
+                          f"multicard ({label}) {name}: rim blocks")
+            out["registry_docs"] = N_MULTICARD_DOCS
+
+            # (b) the slice's templates through the sharded with_summary
+            rng = np.random.default_rng(SEED)
+            tdocs = [from_plain(make_template(rng, i)) for i in range(N_MULTICARD_SUMMARY)]
+            groups, _over, interner = encode_bucketed(tdocs)
+            compiled = compile_rules_file(parse_rules_file(RULES, "security.guard"), interner)
+            sharded = mesh.ShardedBatchEvaluator(compiled, devices)
+            single = DeviceBatchEvaluator(compiled, devices[0])
+            got = run_leg("summary", lambda: [sharded.with_summary(sub) for sub, _i in groups],
+                          devices)
+            want = run_leg("summary_one", lambda: [single.with_summary(sub) for sub, _i in groups],
+                           one, reference=True)
+            held("summary", "summary_one", per_walk="rule_summary")
+            totals = np.zeros((3, len(compiled.rules)), np.int64)
+            for (sub, _idx), (st, counts), (st1, counts1) in zip(groups, got, want):
+                check(np.array_equal(st, st1) and np.array_equal(counts, counts1),
+                      f"multicard: with_summary differs over a {sub.n_docs}-document bucket")
+                totals += counts
+            check(int(totals.sum()) == N_MULTICARD_SUMMARY * len(compiled.rules),
+                  "multicard: the summed counts miss documents")
+            out["summary_counts"] = totals.sum(axis=1).tolist()
+
+            # (c) sweep --rule-shards 2 over the registry's documents
+            data = tmp / "multicard_data"
+            data.mkdir()
+            for i in range(N_MULTICARD_SWEEP):
+                (data / f"d{i:05d}.json").write_text(texts[i])
+            manifest = tmp / "multicard_manifest.jsonl"
+
+            def sweep(flags):
+                if manifest.exists():
+                    manifest.unlink()
+                w = Writer.buffered()
+                rc = cli.run(["sweep", "--device", str(device), "-r", str(rules_dir),
+                              "-d", str(data), "-M", str(manifest), "--no-result-cache",
+                              "--no-journal", "--ingest-workers", "0", *flags],
+                             writer=w, reader=Reader.from_string(""))
+                return rc, w.stripped(), w.err_to_stripped(), manifest.read_bytes()
+
+            sweeps = {}
+            for label, devs, flags in (("one", one, ["--rule-shards", "1"]),
+                                       ("rule_shards_2", devices, ["--rule-shards", "2"]),
+                                       ("mesh_auto", devices, ["--mesh-shape", "auto"])):
+                sweeps[label] = run_leg(f"sweep_{label}", lambda: sweep(flags), devs,
+                                        reference=label == "one")
+            for label in ("rule_shards_2", "mesh_auto"):
+                held(f"sweep_{label}", "sweep_one", "gather_rows", "rim_reduce")
+                check(sweeps[label] == sweeps["one"],
+                      f"multicard: sweep ({label}) differs from the one-device run")
+            check(sweeps["one"][0] in (19, 5), f"multicard: sweep rc {sweeps['one'][0]}")
+            out["sweep_rc"] = sweeps["one"][0]
+
+            # (d) the multichip dry run over the list; its single-device
+            # parity pass is a reference, counted apart
+            class Reference(DeviceBatchEvaluator):
+                def evaluate_bucketed(self, batch):
+                    before, walked = dict(K.LAUNCHES), {c: dict(t) for c, t in tally.items()}
+                    try:
+                        return super().evaluate_bucketed(batch)
+                    finally:
+                        refs["dryrun_single"] = {
+                            "launches": {k: v - before[k] for k, v in K.LAUNCHES.items()
+                                         if v - before[k]},
+                            "walks": {c: t["walks"] - walked.get(c, {}).get("walks", 0)
+                                      for c, t in tally.items()}}
+                        K.LAUNCHES.update(before)
+                        tally.clear()
+                        tally.update(walked)
+
+            port_entry.DeviceBatchEvaluator = Reference
+            try:
+                _st, counts = run_leg(
+                    "dryrun", lambda: port_entry.dryrun_multichip(len(devices), devices),
+                    real_visible(device))
+            finally:
+                port_entry.DeviceBatchEvaluator = DeviceBatchEvaluator
+            held("dryrun", "dryrun_single", "rule_summary")
+            out["dryrun_counts"] = counts.sum(axis=1).tolist()
+        finally:
+            mesh.visible_devices = real_visible
+    if device.type == "cuda":
+        for name in ("gather_rows", "segment_sum_rows", "rim_reduce", "rule_summary"):
+            check(launches[name] > 0, f"multicard: {name} never launched")
+    out["legs"] = legs
+    out["references"] = refs
+
+    # (e) the host commands
+    w = Writer.buffered()
+    rc = cli.run(["lint", "-r", str(ROOT / "corpus" / "rules")], writer=w, reader=Reader())
+    check(rc == 0 and w.err_to_stripped().startswith("lint: 249 file(s), 0 error(s), 0 warning(s)"),
+          f"multicard: lint rc {rc}: {w.err_to_stripped()[:200]}")
+    out["lint_findings"] = len(w.stripped().splitlines())
+    w = Writer.buffered()
+    rc = cli.run(["completions", "--shell", "bash"], writer=w, reader=Reader())
+    script = w.out.getvalue()
+    check(rc == 0 and "complete -F _guard_tpu guard-tpu-torch" in script
+          and " lint)" in script and "--rule-shards" in script,
+          f"multicard: completions rc {rc}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    log(f"multicard: {json.dumps(out)}")
+    return out, launches
 
 
 def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
@@ -4054,6 +4436,33 @@ def serve_main() -> int:
     return 0
 
 
+def multicard_main() -> int:
+    """`--phase multicard`: the build and phase `multicard` alone, on
+    the registry's files; one JSON line of the phase, then the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+        return 2
+    sys.path.insert(0, str(ROOT))
+    card = card_line()
+    build_s = build_all()[0]
+    with tempfile.TemporaryDirectory(prefix="guard_smoke_") as td:
+        tmp = Path(td)
+        os.environ["GUARD_TPU_PLAN_CACHE_DIR"] = str(tmp / "plans")
+        os.environ["GUARD_TPU_RESULT_CACHE_DIR"] = str(tmp / "results_default")
+        os.environ["GUARD_TPU_FLIGHTREC_DIR"] = str(tmp / "flightrec")
+        registry_files(tmp)
+        info, launches = phase_multicard(torch.device("cuda"), tmp)
+    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                    or m == "guard_tpu" or m.startswith("guard_tpu."))
+    check(not leaked, f"imported {leaked}")
+    print(json.dumps({"multicard": info, "launches": launches, "build_s": build_s,
+                      "card": card}))
+    print(card)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -4143,6 +4552,8 @@ def main() -> int:
         log(f"phase 3 (sweep) ok in {took()}: {json.dumps(sweep_run)}")
         serve_run, serve_launches = phase_serve(device, tmp)
         log(f"phase 3 (serve) ok in {took()}")
+        multicard, multicard_launches = phase_multicard(device, tmp)
+        log(f"phase 3 (multicard) ok in {took()}")
         summary_info = phase_summary(device)
         log(f"phase 3 (summary) ok in {took()}: "
             f"{json.dumps({k: v for k, v in summary_info.items() if k != 'shapes'})}")
@@ -4156,7 +4567,8 @@ def main() -> int:
              "packing": packing_info, "sweep": sweep_info, **serve_launches,
              **{path: {"launches": launches}
                 for path, launches in flags_info["launches"].items()},
-             "test_command": {"launches": test_info["launches"]}}
+             "test_command": {"launches": test_info["launches"]},
+             "multicard": {"launches": multicard_launches}}
     kernels = contract_kernels(device, infos, sweep, card)
     log(f"kernels line in {took()}")
     leaked = sorted(
@@ -4179,7 +4591,7 @@ def main() -> int:
         "fnvar": {k: v for k, v in fnvar_info.items() if k != "shapes"},
         "fnvar_breakdown": fnvar_breakdown,
         "flagship": flagship, "corpus": corpus, "packing": packing, "sweep": sweep_run,
-        "serve": serve_run,
+        "serve": serve_run, "multicard": multicard,
         "summary": {k: v for k, v in summary_info.items() if k != "shapes"},
         "report": report_info, "ingest": ingest_info, "xref_ingest": xref_ingest,
         "flags": {k: v for k, v in flags_info.items() if k != "launches"}, "test": test_info,
@@ -4205,6 +4617,8 @@ if __name__ == "__main__":
             code = compare_main(Path(sys.argv[2]))
         elif sys.argv[1:] == ["--phase", "serve"]:
             code = serve_main()
+        elif sys.argv[1:] == ["--phase", "multicard"]:
+            code = multicard_main()
         else:
             code = main()
     except Exception:

@@ -1,7 +1,7 @@
-"""The static analysis plane of the port: the plan/IR verifier and the
-anchor signatures.
+"""The static analysis plane of the port: the plan/IR verifier, the
+anchor signatures and the rule linter.
 
-Copies of the JAX package's guard_tpu/analysis/{verify,signatures}.py,
+Copies of the JAX package's guard_tpu/analysis/{verify,signatures,lint}.py,
 reasoning about rules and compiled plans without touching a document or
 a device:
 
@@ -10,9 +10,10 @@ a device:
                      tables, anchor chains, rim coverage), hooked into
                      plan build / artifact load / per-bucket relocation;
   * ``signatures`` — per rule-file anchor key-chains and type
-                     equalities, persisted with the plan artifact.
+                     equalities, persisted with the plan artifact;
+  * ``lint``       — abstract-domain checks over parsed rules (the
+                     `lint` command).
 
-The rule linter (guard_tpu/analysis/lint.py) is not ported yet.
 The per-run `--no-verify-plans` flag (`verify=False`) disables the
 verifier hooks; validation output stays byte-identical
 either way — the verifier can only *reject* a plan (hard diagnostic on
@@ -28,7 +29,7 @@ from ..utils.telemetry import REGISTRY as _TELEMETRY
 #: JAX package's names:
 #: `invariants_checked` counts individual invariant evaluations across
 #: verify_plan/verify_relocation calls, `violations` the failures,
-#: `lint_findings` the linter's findings (no linter in the port yet),
+#: `lint_findings` the linter's findings,
 #: `signatures_extracted` per-file anchor signatures derived during
 #: plan builds.
 ANALYSIS_COUNTERS = _TELEMETRY.counter_group("analysis", {

@@ -26,13 +26,17 @@
         [--trace-out FILE] [--metrics-out FILE] [--device cpu]
     python -m guard_tpu_torch parse-tree [-r RULES] [-o OUT] [-p] [-y]
     python -m guard_tpu_torch rulegen -t TEMPLATE [-o OUT]
+    python -m guard_tpu_torch lint -r RULES [-z] \
+        [--fail-on error|warning|info|never] [-m]
+    python -m guard_tpu_torch completions [-s bash|zsh|fish]
 
 Same flags, stdout, stderr and exit codes as `python -m guard_tpu.cli`
 with the same flags and the same `--backend` (`validate` and `sweep`: 0
 pass / 19 fail / 5 error, and 75 for a drained `sweep`; `test`: 0 / 7
 failing expectations / 1 error; `report`: 0 / 19 regression / 5 unusable
 ledger; `gc`: always 0; `serve`: 0, or 75 when drained;
-`parse-tree` and `rulegen`: 0 / 5). The differences:
+`parse-tree` and `rulegen`: 0 / 5; `lint`: 0 / 19 findings at
+`--fail-on` / 5 a parse error; `completions`: 0). The differences:
 
 * the default backend of both commands is `tpu` here (the port's entry
   points run on the card), `auto` in the JAX package;
@@ -53,7 +57,12 @@ ledger; `gc`: always 0; `serve`: 0, or 75 when drained;
 * a `serve` request's backend defaults to `tpu` (the JAX package's to
   `auto`), coalescing is read on the resolved backend, and `serve` has
   no GUARD_TPU_COALESCE twin of `--no-coalesce`; with no card and no
-  `--device` a `tpu` request answers code 5 and the session goes on.
+  `--device` a `tpu` request answers code 5 and the session goes on;
+* the evaluators run over every visible card (`--device cuda:k` names
+  one). With one visible card every `--mesh-shape` runs unsharded; the
+  JAX package cuts doc shards on one device too. The port pads no
+  document to a multiple of the cards (parallel/mesh.py);
+* the completion scripts name this program and its `--device` flag.
 
 On `tpu` the walk and the rim run on the device, and the reports of the
 documents that need one are built on the host by the native oracle
@@ -93,16 +102,20 @@ from .utils.io import Reader, Writer
 PROG = "guard-tpu-torch"
 
 
+def _add_backend_flag(sp: argparse.ArgumentParser) -> None:
+    sp.add_argument(
+        "--backend",
+        default="tpu",
+        choices=list(BACKENDS),
+        help="tpu (default) = the device path on the CUDA card; auto = "
+        "compiled C++ engine when built, else pure-Python; native/cpu "
+        "force one",
+    )
+
+
 def _add_device_flags(sp: argparse.ArgumentParser, backend: bool = True) -> None:
     if backend:
-        sp.add_argument(
-            "--backend",
-            default="tpu",
-            choices=list(BACKENDS),
-            help="tpu (default) = the device path on the CUDA card; auto = "
-            "compiled C++ engine when built, else pure-Python; native/cpu "
-            "force one",
-        )
+        _add_backend_flag(sp)
     sp.add_argument(
         "--device", default=None,
         help="torch device to run on (default: cuda; `cpu` runs the "
@@ -194,7 +207,7 @@ def _add_sweep_parser(sub) -> None:
         metavar="RxC",
         help="tpu backend: (doc shards x pack columns) mesh shape, e.g. "
         "2x1; 'auto' (the default) picks 2x1 when >1 card is visible, "
-        "'off' runs unsharded; one card runs every shape unsharded",
+        "'off' runs unsharded; one visible card runs every shape unsharded",
     )
     s.add_argument(
         "--no-result-cache",
@@ -353,6 +366,45 @@ def _add_serve_parsers(sub) -> None:
     _add_telemetry_flags(sv)
     _add_device_flags(sv, backend=False)
 
+
+def _add_host_parsers(sub) -> None:
+    """The commands that read rule files and touch no device: lint,
+    parse-tree, rulegen and completions."""
+    from .commands.lint import FAIL_ON_CHOICES
+
+    li = sub.add_parser(
+        "lint",
+        help="Statically analyze Guard rule files: unsatisfiable "
+        "conjunctions, type conflicts, dead `when` guards, shadowed "
+        "and duplicate rules, unreferenced variables — no data files "
+        "needed (exit 0 clean / 19 findings at --fail-on / 5 parse "
+        "error)",
+    )
+    li.add_argument(
+        "--rules",
+        "-r",
+        nargs="*",
+        default=[],
+        help="rule files or directories to lint (directories are "
+        "walked for .guard/.ruleset files)",
+    )
+    li.add_argument(
+        "--structured",
+        "-z",
+        action="store_true",
+        help="emit machine-readable JSON ({findings: [...], summary: "
+        "{...}}) on stdout instead of file:line:col text",
+    )
+    li.add_argument(
+        "--fail-on",
+        default="error",
+        choices=list(FAIL_ON_CHOICES),
+        help="weakest finding severity that makes lint exit 19 "
+        "(default error; never = report only, always exit 0 unless a "
+        "file fails to parse)",
+    )
+    li.add_argument("--last-modified", "-m", action="store_true")
+
     pt = sub.add_parser("parse-tree", help="Prints the parse tree for a rules file")
     pt.add_argument("--rules", "-r", default=None)
     pt.add_argument("--output", "-o", default=None)
@@ -362,6 +414,9 @@ def _add_serve_parsers(sub) -> None:
     rg = sub.add_parser("rulegen", help="Autogenerate rules from a CFN template")
     rg.add_argument("--template", "-t", required=True)
     rg.add_argument("--output", "-o", default=None)
+
+    c = sub.add_parser("completions", help="Generate shell completions")
+    c.add_argument("--shell", "-s", default="bash", choices=["bash", "zsh", "fish"])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -387,6 +442,7 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--print-json", "-p", action="store_true")
     v.add_argument("--payload", "-P", action="store_true")
     v.add_argument("--structured", "-z", action="store_true")
+    _add_backend_flag(v)
     v.add_argument(
         "--statuses-only", action="store_true",
         help="report rule-level statuses without per-clause detail "
@@ -436,7 +492,7 @@ def build_parser() -> argparse.ArgumentParser:
         metavar="RxC",
         help="tpu backend: (doc shards x pack columns) mesh shape, e.g. "
         "2x1; 'auto' (the default) picks 2x1 when >1 card is visible, "
-        "'off' runs unsharded; one card runs every shape unsharded",
+        "'off' runs unsharded; one visible card runs every shape unsharded",
     )
     v.add_argument(
         "--no-result-cache",
@@ -459,7 +515,7 @@ def build_parser() -> argparse.ArgumentParser:
         "(advisory escape hatch)",
     )
     _add_telemetry_flags(v)
-    _add_device_flags(v)
+    _add_device_flags(v, backend=False)
 
     t = sub.add_parser("test", help="Test rules against expectations")
     t.add_argument("--rules-file", "-r", dest="rules", default=None)
@@ -472,9 +528,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--output-format", "-o", default="single-line-summary", choices=TEST_FORMATS,
     )
     _add_device_flags(t)
+    # the JAX CLI's order, so completion scripts list the commands alike
     _add_sweep_parser(sub)
-    _add_ops_parsers(sub)
+    _add_host_parsers(sub)
     _add_serve_parsers(sub)
+    _add_ops_parsers(sub)
     return p
 
 
@@ -589,7 +647,8 @@ def _session_epilogue(args, rc: Optional[int], dt: float) -> None:
 
 
 def _dispatch(args, writer: Writer, reader: Reader) -> int:
-    if args.command in ("report", "gc", "serve", "parse-tree", "rulegen"):
+    if args.command in ("report", "gc", "serve", "parse-tree", "rulegen", "lint",
+                        "completions"):
         return _dispatch_ops(args, writer, reader)
     if args.command == "sweep":
         from .commands.sweep import Sweep
@@ -697,6 +756,19 @@ def _dispatch_ops(args, writer: Writer, reader: Reader) -> int:
                 print_json=args.print_json,
                 print_yaml=args.print_yaml,
             ).execute(writer, reader)
+        if args.command == "lint":
+            from .commands.lint import Lint
+
+            return Lint(
+                rules=args.rules,
+                structured=args.structured,
+                fail_on=args.fail_on,
+                last_modified=args.last_modified,
+            ).execute(writer, reader)
+        if args.command == "completions":
+            from .commands.completions import Completions
+
+            return Completions(shell=args.shell).execute(writer, reader)
         if args.command == "rulegen":
             from .commands.rulegen import Rulegen
 

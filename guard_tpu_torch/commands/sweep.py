@@ -33,9 +33,18 @@ The planes, in the JAX package's names and order:
   falls back to per-file dispatch, which would hide a kernel that does
   not build or launch. `--mesh-shape` is resolved with the JAX
   grammar: a malformed shape falls back to per-file dispatch with the
-  JAX package's warning, and every shape runs unsharded on one card;
-  `--rule-shards N` runs unsharded too (the JAX package clamps its rule
-  groups to the device count, so one device runs one group);
+  JAX package's warning; with two or more visible cards the packs run
+  over doc shards and columns of cards and only the tally's rim blocks
+  (any-unsure, last-rule-wins) come back (parallel/mesh2d.py), with one
+  every shape runs unsharded. `--rule-shards N` splits the packable
+  files into up to N groups of cards, one packed program each
+  (parallel/rules.PackShardedEvaluator), and every other file's rules
+  into dependency-closed groups (RuleShardedEvaluator); the groups are
+  clamped to the cards. One card clamps the packs to one group, the
+  walks of the packed path, so the packable files take that path (the
+  JAX package runs its one group on the sharded path). On the sharded
+  path an injected dispatch or collect fault sends the bucket's
+  documents to the host oracle (collect_packs' `oracle_on_fault`);
 * **the result cache** (`_cache_lookup`, `_cache_subset`, the store in
   `_tally_chunk`): unchanged documents replay their outcome; a chunk's
   keys are read in one batch and its entries written in one transaction
@@ -92,7 +101,12 @@ from ..core.loader import load_document
 from ..core.parser import parse_rules_file
 from ..core.qresult import Status
 from ..core.scopes import RootScope
-from ..utils.faults import FAULT_COUNTERS, maybe_fail, quarantine_record
+from ..utils.faults import (
+    FAULT_COUNTERS,
+    InjectedFault,
+    maybe_fail,
+    quarantine_record,
+)
 from ..utils.io import Reader, Writer
 from ..utils.telemetry import ADMISSION_COUNTERS, PIPELINE_COUNTERS
 from ..utils.telemetry import ingest_worker_spans as _ingest_worker_spans
@@ -229,7 +243,8 @@ class Sweep:
     manifest: str = "sweep-manifest.jsonl"
     chunk_size: int = 1024
     backend: str = "tpu"  # tpu (the card) | cpu (the CPU evaluator)
-    # accepted with the JAX package's meaning; one card runs one group
+    # rule-axis groups of cards (parallel/rules.py), clamped to the
+    # cards: one card runs one group
     rule_shards: int = 1
     last_modified: bool = False
     # fuse the files that share the shared encode's program into packs:
@@ -268,7 +283,8 @@ class Sweep:
     # tripped latch lets the in-flight chunk finish, syncs the journal
     # and exits DRAIN_EXIT_CODE.
     drain_latch: Optional[object] = None
-    # --mesh-shape (the JAX grammar; every shape runs unsharded)
+    # --mesh-shape (the JAX grammar; one visible card runs every shape
+    # unsharded)
     mesh_shape: Optional[str] = None
     # the torch device of the tpu backend: CUDA unless named
     device: Optional[str] = None
@@ -1232,7 +1248,7 @@ class Sweep:
         from ..ops.fnvars import precomputable_fn_vars
         from ..ops.ir import compile_rules_file, pack_compatible
         from ..ops.plan import get_plan, relocate_batch
-        from ..parallel import mesh2d
+        from ..parallel import mesh, mesh2d
 
         state = {"vec_box": vec_box, "data_files": data_files}
         if not data_files:
@@ -1283,12 +1299,20 @@ class Sweep:
             (fi, c) for fi, (_rf, g, _h, c) in enumerate(prep)
             if g is groups and pack_compatible(c) is None
         ]
+        if (self.rule_shards > 1 and len(items) >= 2
+                and len(mesh.visible_devices(self._dev)) >= 2):
+            # rule-axis parallelism with packs as the unit: the files
+            # split across up to rule_shards groups of cards (one card
+            # clamps to one group: the packed path below)
+            with _span("dispatch", {"files": len(items), "mode": "sharded"}):
+                state["pack_pending"] = self._dispatch_pack_sharded(
+                    items, groups, oversize, vec_on, len(data_files))
+            return state
         prepacked = plan.prepacked_items() if plan is not None else None
         if not (prepacked if prepacked is not None else len(items) >= 2):
             return state
         try:
-            # the JAX grammar; every shape runs unsharded on one card
-            mesh2d.resolve_mesh_shape(self.mesh_shape, mesh2d.device_count(self._dev))
+            mesh2d.parse_mesh_shape(self.mesh_shape)
         except ValueError as e:
             # a malformed --mesh-shape: the JAX package's warning and
             # its per-file fallback for the chunk
@@ -1296,11 +1320,49 @@ class Sweep:
                         "falling back to per-file dispatch", e)
             FAULT_COUNTERS["dispatch_fallbacks"] += 1
             return state
+        # the tally reads only any-unsure and last-rule-wins: on the
+        # mesh only those blocks leave the cards
         state["pack_pending"] = dispatch_packs(
             items, groups, len(data_files), oversize, self._dev,
-            prepacked=prepacked, with_rim=vec_on, mesh_shape="off",
+            prepacked=prepacked, with_rim=vec_on, mesh_shape=self.mesh_shape,
+            profile="sweep",
         )
         return state
+
+    def _dispatch_pack_sharded(self, items, groups, oversize, with_rim, n_docs: int):
+        """Dispatch half of rule-axis parallelism with PACKS as the unit
+        (parallel/rules.PackShardedEvaluator): the packable files split
+        across `rule_shards` groups of cards, each group one packed
+        program; every (group, bucket) dispatches before anything
+        collects. A bucket whose dispatch raises an injected fault goes
+        to the host oracle; any other error propagates. Returns the
+        in-flight state for collect_packs (the evaluator stands as one
+        pack over `items`, an injected collect fault goes to the
+        oracle), or None when the files cannot pack (the per-file path
+        takes every file)."""
+        from ..ops.backend import PackPending
+        from ..ops.ir import PackIncompatible
+        from ..parallel.rules import PackShardedEvaluator
+
+        try:
+            ev = PackShardedEvaluator([c for _, c in items], rule_shards=self.rule_shards,
+                                      with_rim=with_rim, device=self._dev)
+        except PackIncompatible:
+            return None
+        host_docs = {int(i) for i in oversize}
+        handles = []
+        for sub, idx in groups:
+            try:
+                maybe_fail("dispatch")
+                handles.append((idx, sub, ev.dispatch(sub)))
+            except InjectedFault as e:
+                log.warning("sharded pack dispatch failed for a %d-doc bucket (%s); "
+                            "docs fall back to the host oracle", len(idx), e)
+                FAULT_COUNTERS["dispatch_fallbacks"] += 1
+                FAULT_COUNTERS["oracle_fallbacks"] += 1
+                host_docs.update(int(i) for i in idx)
+        return PackPending([(items, ev, ev.rim_spec, ev, handles)], host_docs, n_docs,
+                           with_rim, oracle_on_fault=True)
 
     def _collect_tpu(self, state, per_doc, writer, err_box) -> int:
         """Stage 3, the collect half: wait for the dispatched packs (the
@@ -1308,8 +1370,11 @@ class Sweep:
         files that are not in a pack, run the oracle reruns and fill
         per_doc or the vec_box records."""
         from ..ops.backend import collect_packs
+        import numpy as np
+
         from ..ops.ir import FAIL, PASS, SKIP, build_rim_spec
-        from ..parallel.device import DeviceBatchEvaluator, evaluate_groups
+        from ..parallel.device import evaluate_groups
+        from ..parallel.mesh import ShardedBatchEvaluator
 
         data_files = state["data_files"]
         if not data_files:
@@ -1318,10 +1383,10 @@ class Sweep:
         vec_box = state["vec_box"]
         vec_on = state["vec_on"]
         pending = state["pack_pending"]
-        packed_results = collect_packs(pending) if pending is not None else {}
         # the group names of a packed file come from its pack's RimSpec
         pack_names = {}
-        if pending is not None:
+        packed_results = collect_packs(pending) if pending is not None else {}
+        if pending is not None and pending.with_rim:
             for pack, _packed, spec, _ev, _handles in pending.pending:
                 for k, (fi, _c) in enumerate(pack):
                     pack_names[fi] = spec.file_group_names[k]
@@ -1340,7 +1405,13 @@ class Sweep:
             if fi in packed_results:
                 statuses, unsure, host_docs, rim = packed_results[fi]
             elif compiled.rules:
-                ev = DeviceBatchEvaluator(compiled, self._dev)
+                if self.rule_shards > 1:
+                    from ..parallel.rules import RuleShardedEvaluator
+
+                    ev = RuleShardedEvaluator(compiled, rule_shards=self.rule_shards,
+                                              device=self._dev)
+                else:
+                    ev = ShardedBatchEvaluator(compiled, device=self._dev)
                 with _span("dispatch", {"mode": "per_file", "file": fi}):
                     statuses, unsure, host, _rim = evaluate_groups(
                         ev, len(compiled.rules), f_groups, (), D
@@ -1348,7 +1419,9 @@ class Sweep:
                 host_docs = set(f_host) | host
             names: list = []
             name_last = None
-            has_device = statuses is not None
+            # the device's answer: the statuses, or on the mesh's
+            # rim-only collect the blocks of the sweep's profile
+            has_device = statuses is not None or rim is not None
             if has_device and vec_on:
                 if rim is not None:
                     # K3's last-rule-wins block, by meaning (the sixth
@@ -1386,8 +1459,14 @@ class Sweep:
                          "only_docs": rest},
                         target, writer, err_box, bad_docs=nostore,
                     )
+            unsure_any = None
             if unsure is not None:
-                oracle_docs = {int(di) for di in unsure.any(axis=1).nonzero()[0]}
+                unsure_any = unsure.any(axis=1)
+            elif rim is not None and rim[4] is not None:
+                # the rim-only collect: block 4 is this file's any-unsure
+                unsure_any = np.asarray(rim[4]).any(axis=1)
+            if unsure_any is not None:
+                oracle_docs = {int(di) for di in unsure_any.nonzero()[0]}
                 if oracle_docs:
                     # unsure reruns are the designed precision ladder,
                     # deterministic, so their outcomes store; only

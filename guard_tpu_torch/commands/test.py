@@ -8,12 +8,12 @@ test failures / 1 error. The output is the JAX package's byte for byte
 with the same `--backend`.
 
 On `tpu` (the port's default) every spec input of a rules file is
-evaluated in one batch on the card (`_device_by_rules`:
-DeviceBatchEvaluator.evaluate_bucketed, with the function-variable
-precompute), and a spec goes to the host oracle only when the device
-cannot answer it: host-fallback rules or no device rules, an oversized
-document or exotic numbers, a function error or an unsure bit, or a
-batch that fails to encode. The JAX package also hands every spec to
+evaluated in one batch on the visible cards (`_device_by_rules`:
+parallel/mesh.ShardedBatchEvaluator.evaluate_bucketed, with the
+function-variable precompute), and a spec goes to the host oracle only
+when the device cannot answer it: host-fallback rules or no device
+rules, an oversized document or exotic numbers, a function error or an
+unsure bit, or a batch that fails to encode. The JAX package also hands every spec to
 its oracle when anything else fails (a catch-all); the port does not:
 a kernel that does not build or launch, or a CUDA error, ends the run
 with code 1 (cli.py).
@@ -236,7 +236,7 @@ class Test:
         from ..ops.encoder import encode_batch
         from ..ops.fnvars import precompute_fn_values, precomputable_fn_vars
         from ..ops.ir import compile_rules_file
-        from ..parallel.device import DeviceBatchEvaluator
+        from ..parallel.mesh import ShardedBatchEvaluator
 
         # the tpu_validate contract: function-let precompute before the
         # encode, bucketed evaluation with oversized documents left to
@@ -256,7 +256,7 @@ class Test:
         compiled = compile_rules_file(rf, interner)
         if compiled.host_rules or not compiled.rules:
             return [None] * len(specs)
-        evaluator = DeviceBatchEvaluator(compiled, self.device)
+        evaluator = ShardedBatchEvaluator(compiled, device=self.device)
         statuses, unsure, host_docs, _rim = evaluator.evaluate_bucketed(batch)
         out = []
         for di in range(len(specs)):

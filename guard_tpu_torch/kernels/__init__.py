@@ -2,8 +2,11 @@
 csrc/guard_kernels.cu, K4-K6 in csrc/guard_joins.cu.
 
 Each wrapper takes batched row-major tensors. For a CUDA tensor it
-checks dtype, shape and contiguity, launches its kernel on PyTorch's
-current stream and adds one to its entry in `LAUNCHES` (one a call,
+checks dtype, shape and contiguity, makes the tensors' card the
+thread's current device for the call (the launchers read the current
+device for their per-card occupancy, shared-memory and cluster
+settings), launches its kernel on PyTorch's current stream of that card
+and adds one to its entry in `LAUNCHES` (one a call,
 also where the launcher issues a memset and several grids, as K2 and K4-K6
 do for one-document buckets); a refused launch raises. For a CPU tensor it returns the plain PyTorch version
 (`kernels/plain.py`) and counts nothing. There is no other path.
@@ -14,6 +17,7 @@ can time each kernel at the shapes the evaluation actually gave it.
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
 from typing import Optional
 
@@ -54,6 +58,22 @@ def _on_cuda(*tensors) -> bool:
     return True
 
 
+def _on_its_card(wrapper):
+    """Run a wrapper whose first argument lies on a CUDA card with that
+    card as the thread's current device, whatever the caller's current
+    device is: a launch then pairs the card with its own stream."""
+
+    @functools.wraps(wrapper)
+    def call(first, *args, **kwargs):
+        dev = first.device
+        if dev.type == "cuda" and dev.index != torch.cuda.current_device():
+            with torch.cuda.device(dev):
+                return wrapper(first, *args, **kwargs)
+        return wrapper(first, *args, **kwargs)
+
+    return call
+
+
 def _check(t: torch.Tensor, dtype, ndim: int, what: str) -> None:
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(
@@ -71,6 +91,7 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
 
 
+@_on_its_card
 def gather_rows(vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K1: out[d, i] = vec[d, idx[d, i]] where 0 <= idx < S, else 0.
     vec (D, S), idx and out (D, N), int32 each."""
@@ -96,6 +117,7 @@ def gather_rows(vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@_on_its_card
 def segment_sum_rows(val: torch.Tensor, seg: torch.Tensor, s: int) -> torch.Tensor:
     """K2: out[d, b] = sum of val[d, i] over i with seg[d, i] == b, for
     b in [0, s). (D, N) int32 in, (D, s) int32 out."""
@@ -123,6 +145,7 @@ def segment_sum_rows(val: torch.Tensor, seg: torch.Tensor, s: int) -> torch.Tens
     return out
 
 
+@_on_its_card
 def rim_reduce(statuses: torch.Tensor, unsure: Optional[torch.Tensor],
                group_ids: torch.Tensor, file_ids: torch.Tensor,
                last_ids: torch.Tensor, n_groups: int, n_files: int):
@@ -185,6 +208,7 @@ def _rim_blocks(d: int, g: int, f: int, device):
     return tuple(out)
 
 
+@_on_its_card
 def set_count_rows(q_org: torch.Tensor, q_key: torch.Tensor, q_mask: torch.Tensor,
                    s_org: torch.Tensor, s_key: torch.Tensor,
                    s_mask: torch.Tensor) -> torch.Tensor:
@@ -229,6 +253,7 @@ def set_count_rows(q_org: torch.Tensor, q_key: torch.Tensor, q_mask: torch.Tenso
     return out
 
 
+@_on_its_card
 def distinct_first_rows(org: torch.Tensor, key: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
     """K5: (D, N) bool, True exactly at the lowest index of each distinct
@@ -263,6 +288,7 @@ def distinct_first_rows(org: torch.Tensor, key: torch.Tensor,
     return out
 
 
+@_on_its_card
 def seg_min_max_rows(seg: torch.Tensor, mask: torch.Tensor, hi: torch.Tensor,
                      lo: torch.Tensor, s: int):
     """K6: (min_hi, min_lo, max_hi, max_lo), (D, s) int32 each: the
@@ -303,6 +329,7 @@ def seg_min_max_rows(seg: torch.Tensor, mask: torch.Tensor, hi: torch.Tensor,
     return out
 
 
+@_on_its_card
 def rule_summary(statuses: torch.Tensor, n_valid: int) -> torch.Tensor:
     """K7: (3, R) int32 per-rule counts of PASS (0), FAIL (1) and SKIP
     (2) over the rows d < n_valid of (D, R) int8 statuses; any other

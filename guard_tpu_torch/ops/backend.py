@@ -23,13 +23,15 @@ The port of the JAX package's `tpu_validate` (guard_tpu/ops/backend.py:
      encode's program are fused into packs (`plan_packs`, one walk and
      one rim reduction (K3) per (pack, bucket); every (pack, bucket) is
      dispatched before any is collected; --mesh-shape is resolved as the
-     JAX package resolves it and runs unsharded on one card,
-     parallel/mesh2d.py), and each pack's statuses,
+     JAX package resolves it: with two or more visible cards the packs
+     run over R doc shards x C columns of cards, parallel/mesh2d.py,
+     with one every shape runs unsharded), and each pack's statuses,
      unsure bits and rim blocks are sliced back per file; the other
      files (function variables, no device rule, a singleton pack,
-     --no-pack) evaluate bucket by bucket on their own, K3 behind each
-     walk. A packed dispatch or collect that raises a GuardError (an
-     injected `dispatch`/`collect` fault, a GUARD_TPU_DISPATCH_TIMEOUT
+     --no-pack) evaluate bucket by bucket on their own, each bucket cut
+     over the visible cards (parallel/mesh.py), K3 behind each walk. A
+     packed dispatch or collect that raises a GuardError (an injected
+     `dispatch`/`collect` fault, a GUARD_TPU_DISPATCH_TIMEOUT
      timeout) reruns per file for that bucket on the device, and a
      failed rerun ends the run. On the per-file path an injected fault
      sends its bucket to the host oracle, as in the JAX package; a
@@ -78,7 +80,7 @@ from ..core.qresult import Status
 from ..core.scopes import RootScope
 from ..core.values import PV
 from ..core.values import Path as VPath
-from ..utils.faults import FAULT_COUNTERS, bounded_call, maybe_fail
+from ..utils.faults import FAULT_COUNTERS, InjectedFault, bounded_call, maybe_fail
 from ..utils.io import Writer
 from ..utils.telemetry import REGISTRY as _TELEMETRY
 from ..utils.telemetry import span as _span
@@ -100,10 +102,10 @@ from .ir import (
 )
 from ..parallel.device import (
     EFFICIENCY_COUNTERS,
-    DeviceBatchEvaluator,
     evaluate_groups,
     resolve_device,
 )
+from ..parallel.mesh import ShardedBatchEvaluator
 
 log = logging.getLogger("guard_tpu_torch.backend")
 
@@ -142,9 +144,13 @@ class FileResult:
 
     rule_file: object  # commands.validate.RuleFile
     compiled: CompiledRules
+    # None (both) for a pack whose collect the mesh narrowed to a rim
+    # profile (mesh2d.RIM_PROFILES): the statuses stayed on the cards
     statuses: np.ndarray  # (D, R) int8
     unsure: np.ndarray  # (D, R) bool
-    rim: tuple  # six (D, ...) blocks, kernels.rim_reduce order
+    # six (D, ...) blocks, kernels.rim_reduce order; a block the rim
+    # profile did not ship is None
+    rim: tuple
     names: List[str]  # name groups, declaration order
     # documents the device did not evaluate: beyond the last bucket,
     # exotic numbers, a raising function, a lost per-origin result
@@ -253,48 +259,67 @@ class PackPending:
     """In-flight state between `dispatch_packs` and `collect_packs`:
     per pack (pack, PackedRules, RimSpec, evaluator, handles), each
     handle (doc indices, bucket batch, dispatch handle or None when the
-    dispatch failed), the documents no bucket holds and whether K3 rode
-    the dispatches (`with_rim`)."""
+    dispatch failed), the documents no bucket holds, whether K3 rode
+    the dispatches (`with_rim`) and, on the 2-D mesh with a consumer
+    profile, the rim blocks that left the cards (`rim_blocks`; None is
+    the full protocol: statuses, unsure bits and all six blocks).
+    `oracle_on_fault` is the ladder of sweep's --rule-shards path: a
+    bucket whose collect raises an injected fault goes to the host
+    oracle instead of rerunning per file."""
 
-    __slots__ = ("pending", "host_docs", "n_docs", "with_rim")
+    __slots__ = ("pending", "host_docs", "n_docs", "with_rim", "rim_blocks",
+                 "oracle_on_fault")
 
-    def __init__(self, pending, host_docs, n_docs, with_rim=True):
+    def __init__(self, pending, host_docs, n_docs, with_rim=True, rim_blocks=None,
+                 oracle_on_fault=False):
         self.pending = pending
         self.host_docs = host_docs
         self.n_docs = n_docs
         self.with_rim = with_rim
+        self.rim_blocks = rim_blocks
+        self.oracle_on_fault = oracle_on_fault
 
 
 def dispatch_packs(items, groups, n_docs: int, oversize=(), device=None,
                    prepacked=None, with_rim: bool = True,
-                   mesh_shape=None) -> PackPending:
+                   mesh_shape=None, profile=None) -> PackPending:
     """Dispatch half of the fused multi-rule-file path: pack the
     compatible compiled files (plan_packs; or `prepacked`, the plan
     layer's [(pack, PackedRules, RimSpec)], which skips planning and
-    packing) and dispatch EVERY (pack, bucket) of the shared encode
-    `groups` without collecting. `oversize` are the documents no
+    packing) and dispatch EVERY (doc shard, pack, bucket) of the shared
+    encode `groups` without collecting. `oversize` are the documents no
     bucket holds. A dispatch that raises a GuardError keeps its bucket
     (handle None) for collect_packs' ladder.
 
     `with_rim` False is the scalar rim (--no-vector-rim): no K3 rides
     the walks. `mesh_shape` is the --mesh-shape value (None = auto),
-    resolved here as the JAX package resolves it
-    (parallel/mesh2d.resolve_mesh_shape: a malformed value raises, a
-    shape wider than the cards warns); every shape runs unsharded on
-    one card."""
+    resolved as the JAX package resolves it (parallel/mesh2d.
+    resolve_mesh_shape: a malformed value raises, a shape wider than
+    the cards warns) against the cards visible for `device`. With one
+    visible card every shape runs unsharded; with more, R contiguous
+    doc shards (shards outer, packs inner, shard s+1 cut on the
+    ShardPrefetcher thread while shard s runs) over C columns of cards.
+    `profile` ("validate" | "sweep", mesh2d.RIM_PROFILES) makes the
+    sharded collect copy back only the blocks that consumer reads."""
     if (not prepacked) if prepacked is not None else (len(items) < 2):
         return PackPending([], set(), n_docs, with_rim)
     with _span("dispatch", {"files": len(items)}):
         return _dispatch_packs_inner(items, groups, n_docs, oversize, device,
-                                     prepacked, with_rim, mesh_shape)
+                                     prepacked, with_rim, mesh_shape, profile)
 
 
 def _dispatch_packs_inner(items, groups, n_docs, oversize, device, prepacked,
-                          with_rim, mesh_shape) -> PackPending:
-    from ..parallel import mesh2d
+                          with_rim, mesh_shape, profile) -> PackPending:
+    from ..parallel import mesh, mesh2d
 
     dev = resolve_device(device)
-    mesh2d.resolve_mesh_shape(mesh_shape, mesh2d.device_count(dev))
+    visible = mesh.visible_devices(dev)
+    shape = mesh2d.resolve_mesh_shape(mesh_shape, len(visible))
+    if len(visible) < 2:
+        shape = None  # the one-card rule: every shape runs unsharded
+    rim_blocks = (
+        mesh2d.RIM_PROFILES.get(profile) if (with_rim and shape is not None) else None
+    )
     if prepacked is not None:
         planned = prepacked
     else:
@@ -311,30 +336,58 @@ def _dispatch_packs_inner(items, groups, n_docs, oversize, device, prepacked,
                 continue
             planned.append((pack, packed, spec))
     if not planned:
-        return PackPending([], set(), n_docs, with_rim)
+        return PackPending([], set(), n_docs, with_rim, rim_blocks)
+    columns = (
+        mesh2d.assign_columns([len(p.compiled.rules) for _pk, p, _sp in planned], shape[1])
+        if shape is not None else None
+    )
     pending = []
-    # every pack's evaluator is built before the first dispatch
-    for pack, packed, spec in planned:
+    # every pack's evaluator is built before the first dispatch, so the
+    # shard loop below is pure dispatch
+    for pi, (pack, packed, spec) in enumerate(planned):
         EFFICIENCY_COUNTERS["pack_rule_slots_used"] += len(packed.compiled.rules)
         EFFICIENCY_COUNTERS["pack_rule_slots_capacity"] += PACK_MAX_RULES
-        ev = DeviceBatchEvaluator(packed.compiled, dev,
-                                  rim_spec=spec if with_rim else None)
+        if shape is not None:
+            ev = mesh2d.MeshSweepEvaluator(
+                packed.compiled, rim_spec=spec if with_rim else None,
+                shape=shape, column=columns[pi], rim_blocks=rim_blocks,
+                ship_statuses=rim_blocks is None, devices=visible,
+            )
+        else:
+            ev = ShardedBatchEvaluator(packed.compiled, visible,
+                                       rim_spec=spec if with_rim else None)
         pending.append((pack, packed, spec, ev, []))
-    for _pack, _packed, _spec, ev, handles in pending:
-        for sub, idx in groups:
-            try:
-                maybe_fail("dispatch")
-                handles.append((idx, sub, ev.dispatch(sub)))
-            except GuardError as e:
-                log.warning("packed dispatch failed for a %d-doc bucket (%s); "
-                            "will retry per-file at collect", len(idx), e)
-                FAULT_COUNTERS["dispatch_fallbacks"] += 1
-                handles.append((idx, sub, None))
+    host_docs = {int(i) for i in oversize}
+    if shape is None:
+        shard_iter = [(0, 0, groups, ())]
+    else:
+        bounds = mesh2d.doc_shard_bounds(n_docs, shape[0])
+        if len(bounds) > 1:
+            from ..parallel.ingest import ShardPrefetcher
+
+            shard_iter = ShardPrefetcher(groups, oversize, bounds)
+        else:
+            shard_iter = [(0, 0, groups, ())]
+    # shards outer, packs inner: a failed bucket dispatch keeps its
+    # sub-batch (handle None) for collect_packs' ladder, scoped to that
+    # shard's documents
+    for s, _lo, sub_groups, _over in shard_iter:
+        for _pack, _packed, _spec, ev, handles in pending:
+            for sub, idx in sub_groups:
+                try:
+                    maybe_fail("dispatch")
+                    handle = ev.dispatch(sub, shard=s) if shape is not None else ev.dispatch(sub)
+                    handles.append((idx, sub, handle))
+                except GuardError as e:
+                    log.warning("packed dispatch failed for a %d-doc bucket of shard %d "
+                                "(%s); will retry per-file at collect", len(idx), s, e)
+                    FAULT_COUNTERS["dispatch_fallbacks"] += 1
+                    handles.append((idx, sub, None))
     used = EFFICIENCY_COUNTERS["pack_rule_slots_used"]
     cap = EFFICIENCY_COUNTERS["pack_rule_slots_capacity"]
     if cap:
         _TELEMETRY.set_gauge("efficiency.pack_slot_utilization", used / cap)
-    return PackPending(pending, {int(i) for i in oversize}, n_docs, with_rim)
+    return PackPending(pending, host_docs, n_docs, with_rim, rim_blocks)
 
 
 def collect_packs(pp: PackPending) -> dict:
@@ -342,17 +395,19 @@ def collect_packs(pp: PackPending) -> dict:
     back per file. Returns {file_idx: (statuses (D, R_f) int8, unsure
     (D, R_f) bool, host_docs set, rim)}, `rim` the file's six blocks in
     FileResult's shapes (doc status, any-fail and any-unsure as (D, 1)
-    columns), or None when no K3 rode the dispatches.
+    columns), or None when no K3 rode the dispatches. Under a rim
+    profile on the mesh (pp.rim_blocks) statuses and unsure bits are
+    None and only the profile's blocks are set; the others are None.
 
     The degradation ladder: a bucket whose dispatch or collect raised a
     GuardError (an injected fault or a timeout) reruns per file for that
-    bucket on the device, and the rim blocks of the recovered bucket are
-    recomputed from its recovered status rows by the pack's K3. Nothing
-    goes to the host oracle: a per-file rerun that fails (a timeout, a
-    kernel that does not build or launch, a CUDA error) ends the run.
-    The JAX package sends such a file's documents to its host oracle;
-    the port keeps every document it put on the device there. The span
-    closes after the last copy to the host."""
+    bucket on the pack's cards, and the rim blocks of the recovered
+    bucket are recomputed from its recovered status rows by the pack's
+    K3. Nothing goes to the host oracle: a per-file rerun that fails (a
+    timeout, a kernel that does not build or launch, a CUDA error) ends
+    the run. The JAX package sends such a file's documents to its host
+    oracle; the port keeps every document it put on the device there.
+    The span closes after the last copy to the host."""
     if not pp.pending:
         return {}
     with _span("collect", {"packs": len(pp.pending)}):
@@ -362,8 +417,9 @@ def collect_packs(pp: PackPending) -> dict:
 def _collect_packs_inner(pp: PackPending) -> dict:
     results: dict = {}
     d = pp.n_docs
+    rim_only = pp.rim_blocks is not None
     for pack, packed, spec, ev, handles in pp.pending:
-        n_rules = len(packed.compiled.rules)
+        n_rules = sum(len(c.rules) for _fi, c in pack)
         statuses = np.full((d, n_rules), SKIP, np.int8)
         unsure = np.zeros((d, n_rules), bool)
         rim = None
@@ -381,22 +437,35 @@ def _collect_packs_inner(pp: PackPending) -> dict:
                     maybe_fail("collect")
                     got = bounded_call(ev.collect, handle)
                 except GuardError as e:
+                    if pp.oracle_on_fault:
+                        if not isinstance(e, InjectedFault):
+                            raise
+                        log.warning("sharded pack collect failed for a %d-doc bucket "
+                                    "(%s); docs fall back to the host oracle", len(idx), e)
+                        FAULT_COUNTERS["dispatch_fallbacks"] += 1
+                        FAULT_COUNTERS["oracle_fallbacks"] += 1
+                        pp.host_docs.update(int(i) for i in idx)
+                        continue
                     log.warning("packed collect failed for a %d-doc bucket (%s); "
                                 "retrying per-file", len(idx), e)
                     FAULT_COUNTERS["dispatch_fallbacks"] += 1
                 else:
-                    statuses[idx] = got[0]
+                    if got[0] is not None:
+                        statuses[idx] = got[0]
                     if got[1] is not None:
                         unsure[idx] = got[1]
                     if rim is not None:
                         for b, block in enumerate(got[2]):
-                            rim[b][idx] = block
+                            # None: a block the profile did not ship; its
+                            # rows stay fill and are never exposed below
+                            if block is not None:
+                                rim[b][idx] = block
                     continue
-            # rung 2: per file for just this bucket, on the same device;
-            # a failure here (a timeout among them) ends the run
+            # rung 2: per file for just this bucket, on the pack's
+            # cards; a failure here (a timeout among them) ends the run
             for k, (_fi, c) in enumerate(pack):
                 seg = packed.segment(k)
-                ev2 = DeviceBatchEvaluator(c, ev.device)
+                ev2 = ShardedBatchEvaluator(c, ev.devices)
                 st, un = bounded_call(lambda: ev2.collect(ev2.dispatch(sub)))
                 statuses[idx, seg] = st
                 if un is not None:
@@ -412,21 +481,28 @@ def _collect_packs_inner(pp: PackPending) -> dict:
                 fsl = slice(k, k + 1)
                 blocks_f = (rim[0][:, gsl], rim[1][:, gsl], rim[2][:, fsl],
                             rim[3][:, fsl], rim[4][:, fsl], rim[5][:, gsl])
-            results[fi] = (statuses[:, seg], unsure[:, seg], set(pp.host_docs), blocks_f)
+                if rim_only:
+                    blocks_f = tuple(b if i in pp.rim_blocks else None
+                                     for i, b in enumerate(blocks_f))
+            results[fi] = (None if rim_only else statuses[:, seg],
+                           None if rim_only else unsure[:, seg],
+                           set(pp.host_docs), blocks_f)
     return results
 
 
 def _evaluate_packs(items, groups, n_docs: int, oversize=(), device=None,
-                    prepacked=None, with_rim: bool = True, mesh_shape=None) -> dict:
+                    prepacked=None, with_rim: bool = True, mesh_shape=None,
+                    profile=None) -> dict:
     """dispatch_packs + collect_packs: every (pack, bucket) dispatches
     before anything collects."""
     return collect_packs(dispatch_packs(items, groups, n_docs, oversize, device, prepacked,
-                                        with_rim, mesh_shape))
+                                        with_rim, mesh_shape, profile))
 
 
 def evaluate(rule_files, docs, device=None, shared=None, pack_rules: bool = True,
              plan_cache: bool = True, verify_plans: bool = True,
-             vector_rim: bool = True, mesh_shape: Optional[str] = None) -> Evaluation:
+             vector_rim: bool = True, mesh_shape: Optional[str] = None,
+             profile: Optional[str] = None) -> Evaluation:
     """Lower every rules file and evaluate it on `device` (CUDA unless
     given). `docs` are the documents' PV trees (a sequence that may
     build them on access). `shared` is the shared encode, (groups,
@@ -440,7 +516,12 @@ def evaluate(rule_files, docs, device=None, shared=None, pack_rules: bool = True
     analysis plane's invariants there); otherwise each file is lowered
     against the shared encode's interner. With packing on (`pack_rules`)
     the files on the shared encode evaluate as packs (`mesh_shape`,
-    --mesh-shape, is resolved there and runs unsharded on one card).
+    --mesh-shape, is resolved there: unsharded with one visible card,
+    doc shards and pack columns with more; `profile`, a
+    mesh2d.RIM_PROFILES name, narrows a sharded pack's collect to the
+    blocks its consumer reads, leaving that pack's FileResult.statuses
+    and unsure None). Every other file runs over the visible cards
+    (parallel/mesh.ShardedBatchEvaluator).
     Files with function variables get their function values precomputed
     and are encoded on their own, into the same interner. `vector_rim`
     False (--no-vector-rim) launches no K3: every FileResult.rim is
@@ -514,7 +595,7 @@ def evaluate(rule_files, docs, device=None, shared=None, pack_rules: bool = True
         pending = dispatch_packs(
             items, shared[0], d, shared[1], dev,
             prepacked=plan.prepacked_items() if plan is not None else None,
-            with_rim=vector_rim, mesh_shape=mesh_shape,
+            with_rim=vector_rim, mesh_shape=mesh_shape, profile=profile,
         )
         pack_members = [tuple(fi for fi, _c in pack) for pack, *_ in pending.pending]
         packed_results = collect_packs(pending)
@@ -535,7 +616,7 @@ def evaluate(rule_files, docs, device=None, shared=None, pack_rules: bool = True
                                     f_host, f_groups))
             continue
         spec = build_rim_spec([compiled.rules]) if vector_rim else None
-        ev = DeviceBatchEvaluator(compiled, dev, rim_spec=spec)
+        ev = ShardedBatchEvaluator(compiled, rim_spec=spec, device=dev)
         # documents outside f_groups are left SKIP by evaluate_groups
         with _span("dispatch", {"mode": "per_file", "file": fi}):
             statuses, unsure, host, rim = evaluate_groups(
@@ -1346,7 +1427,7 @@ def tpu_validate(validate, rule_files, data_files, writer: Writer) -> int:
         rule_files, _docs_for(delta_files, quarantined), dev, shared=shared,
         pack_rules=validate.pack_rules, plan_cache=validate.plan_cache,
         verify_plans=validate.verify_plans, vector_rim=validate.vector_rim,
-        mesh_shape=validate.mesh_shape,
+        mesh_shape=validate.mesh_shape, profile="validate",
     )
     evaluation.seconds["encode"] += seconds.pop("encode", 0.0)
     evaluation.seconds.update(seconds)
@@ -1387,15 +1468,18 @@ def _segment_view(evaluation: Evaluation, start: int, end: int) -> Evaluation:
     for fr in evaluation.files:
         rim = None
         if fr.rim is not None:
-            if len(fr.rim) != len(_RIM_DTYPES) or any(b.shape[0] != d for b in fr.rim):
+            # a block the mesh's rim profile left on the cards is None
+            if len(fr.rim) != len(_RIM_DTYPES) or any(
+                    b is not None and b.shape[0] != d for b in fr.rim):
                 raise GuardError(
                     f"rim blocks of {fr.rule_file.name} do not lead with the "
                     f"{d} documents of the batch: "
-                    f"{[tuple(b.shape) for b in fr.rim]}"
+                    f"{[None if b is None else tuple(b.shape) for b in fr.rim]}"
                 )
-            rim = tuple(b[start:end] for b in fr.rim)
+            rim = tuple(None if b is None else b[start:end] for b in fr.rim)
         files.append(FileResult(
-            fr.rule_file, fr.compiled, fr.statuses[start:end],
+            fr.rule_file, fr.compiled,
+            None if fr.statuses is None else fr.statuses[start:end],
             None if fr.unsure is None else fr.unsure[start:end], rim, fr.names,
             {hd - start for hd in fr.host_docs if start <= hd < end}, fr.groups, fr.pack,
         ))
@@ -1451,7 +1535,7 @@ def tpu_validate_multi(requests) -> list:
         rule_files, _docs_for(all_data, quarantined), dev, shared=shared,
         pack_rules=base.pack_rules, plan_cache=base.plan_cache,
         verify_plans=base.verify_plans, vector_rim=base.vector_rim,
-        mesh_shape=base.mesh_shape,
+        mesh_shape=base.mesh_shape, profile="validate",
     )
     evaluation.seconds["encode"] += seconds.pop("encode", 0.0)
     evaluation.seconds.update(seconds)

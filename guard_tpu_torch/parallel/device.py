@@ -24,7 +24,7 @@ run: no real device failure moves a bucket to the CPU.
 from __future__ import annotations
 
 import logging
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -39,9 +39,10 @@ from ..utils.telemetry import REGISTRY as _TELEMETRY
 
 log = logging.getLogger("guard_tpu_torch.device")
 
-#: walks enqueued on a device (one per (program, bucket) dispatch),
-#: the telemetry group "dispatch" as in the JAX package; a pack of k
-#: files issues one where the files alone issue k
+#: walks enqueued on a device (one per (program, bucket) dispatch on
+#: each card of a mesh that gets documents of the bucket), the
+#: telemetry group "dispatch" as in the JAX package; a pack of k files
+#: issues one where the files alone issue k
 DISPATCH_COUNTERS = _TELEMETRY.counter_group("dispatch", {"dispatches": 0})
 
 #: the telemetry group "efficiency", under the JAX package's names:
@@ -49,14 +50,24 @@ DISPATCH_COUNTERS = _TELEMETRY.counter_group("dispatch", {"dispatches": 0})
 #: and literals copied to the device per dispatch and of the statuses,
 #: unsure bits and rim blocks copied back per collect, and the rule
 #: slots the packs of a run fill against the PACK_MAX_RULES ceiling
-#: they close at (ops/backend.dispatch_packs).
+#: they close at (ops/backend.dispatch_packs). The mesh's per-shard
+#: totals (parallel/mesh2d.py) clear with the group through
+#: `_EFFICIENCY_RESET_HOOKS`.
+_EFFICIENCY_RESET_HOOKS: list = []
+
+
+def _run_efficiency_reset_hooks() -> None:
+    for hook in list(_EFFICIENCY_RESET_HOOKS):
+        hook()
+
+
 EFFICIENCY_COUNTERS = _TELEMETRY.counter_group("efficiency", {
     "docs_real": 0,
     "host_to_device_bytes": 0,
     "device_to_host_bytes": 0,
     "pack_rule_slots_used": 0,
     "pack_rule_slots_capacity": 0,
-})
+}, extra_reset=_run_efficiency_reset_hooks)
 
 # dtypes of the rim blocks, in kernels.rim_reduce order: name status,
 # name unsure, doc status, any fail, any unsure, name last
@@ -81,20 +92,40 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+@contextmanager
+def _stream_on(device: torch.device, stream):
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        yield
+
+
 class DeviceBatchEvaluator:
     """Per-bucket dispatch/collect over one device. `rim_spec`
     (ir.RimSpec) turns on the rim protocol: K3 runs on the device right
     behind each walk and `collect` returns its six blocks as a third
-    element. `last_unsure` holds the (D, R) unsure bits of the last
+    element. `rim_blocks` (indices 0..5) narrows what `collect` copies
+    back to those blocks (the others come back as None), and
+    `ship_statuses=False` leaves the (D, R) statuses and unsure bits on
+    the card (both None): the rim-only collect of the mesh
+    (parallel/mesh2d.RIM_PROFILES). `fn` is the walk of `compiled`
+    when the caller already built it (the mesh shares one walk across
+    its cards). `last_unsure` holds the (D, R) unsure bits of the last
     __call__ when the program can emit them."""
 
     def __init__(self, compiled: CompiledRules, device=None,
-                 rim_spec: Optional[RimSpec] = None):
+                 rim_spec: Optional[RimSpec] = None, rim_blocks=None,
+                 ship_statuses: bool = True, fn=None):
         self.compiled = compiled
-        self.device = resolve_device(device)
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            # an unindexed `cuda` is the thread's current card
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
         self._with_unsure = compiled.needs_unsure
-        self._fn = build_doc_evaluator(compiled)
+        self._fn = fn if fn is not None else build_doc_evaluator(compiled)
         self.rim_spec = rim_spec
+        self.rim_blocks = None if rim_blocks is None else tuple(rim_blocks)
+        # without a rim there is nothing else to return: statuses ship
+        self.ship_statuses = bool(ship_statuses) or rim_spec is None
         self._rim_ids = None
         if rim_spec is not None:
             self._rim_ids = tuple(
@@ -107,7 +138,11 @@ class DeviceBatchEvaluator:
         self.last_unsure: Optional[np.ndarray] = None
 
     def _on_stream(self):
-        return torch.cuda.stream(self._stream) if self._stream is not None else nullcontext()
+        """This evaluator's card as the current device and its stream as
+        the current stream (nothing on the CPU)."""
+        if self._stream is None:
+            return nullcontext()
+        return _stream_on(self.device, self._stream)
 
     def _walk(self, batch: DocBatch):
         """Columnarize one batch on the host, copy it to the device and
@@ -148,14 +183,22 @@ class DeviceBatchEvaluator:
         (statuses, unsure, done), _d, rim = handle
         if done is not None:
             done.synchronize()
-        st = statuses.cpu().numpy()
-        un = unsure.cpu().numpy() if self._with_unsure else None
-        d2h = st.nbytes + (0 if un is None else un.nbytes)
+        st = un = None
+        d2h = 0
+        if self.ship_statuses:
+            st = statuses.cpu().numpy()
+            un = unsure.cpu().numpy() if self._with_unsure else None
+            d2h = st.nbytes + (0 if un is None else un.nbytes)
         if self.rim_spec is None:
             EFFICIENCY_COUNTERS["device_to_host_bytes"] += d2h
             return st, un
-        blocks = tuple(b.cpu().numpy() for b in rim)
-        EFFICIENCY_COUNTERS["device_to_host_bytes"] += d2h + sum(b.nbytes for b in blocks)
+        blocks = tuple(
+            None if self.rim_blocks is not None and i not in self.rim_blocks
+            else b.cpu().numpy()
+            for i, b in enumerate(rim)
+        )
+        EFFICIENCY_COUNTERS["device_to_host_bytes"] += d2h + sum(
+            b.nbytes for b in blocks if b is not None)
         return st, un, blocks
 
     def rim_of(self, statuses: np.ndarray, unsure: Optional[np.ndarray]) -> tuple:
@@ -181,6 +224,20 @@ class DeviceBatchEvaluator:
     def evaluate_bucketed(self, batch: DocBatch):
         return evaluate_bucketed(self, len(self.compiled.rules), batch)
 
+    def summary_enqueue(self, batch: DocBatch):
+        """Enqueue the walk and kernel K7's per-rule PASS, FAIL and SKIP
+        counts over the batch's documents, without waiting."""
+        with self._on_stream():
+            statuses, _unsure = self._walk(batch)
+            counts = K.rule_summary(statuses, batch.n_docs)
+        return statuses, counts
+
+    def summary_collect(self, handle):
+        statuses, counts = handle
+        if self._stream is not None:
+            self._stream.synchronize()
+        return statuses.cpu().numpy(), counts.cpu().numpy()
+
     def with_summary(self, batch: DocBatch):
         """(statuses (d, R) int8, counts (3, R) int32) of one batch at
         its own shape: the walk, then kernel K7's per-rule PASS, FAIL and
@@ -188,12 +245,7 @@ class DeviceBatchEvaluator:
         ShardedBatchEvaluator.with_summary (guard_tpu/parallel/mesh.py:540)
         counts the unpadded ones; one card pads nothing. Waits once, for
         both; does not set `last_unsure`."""
-        with self._on_stream():
-            statuses, _unsure = self._walk(batch)
-            counts = K.rule_summary(statuses, batch.n_docs)
-        if self._stream is not None:
-            self._stream.synchronize()
-        return statuses.cpu().numpy(), counts.cpu().numpy()
+        return self.summary_collect(self.summary_enqueue(batch))
 
 
 def evaluate_bucketed(evaluator: DeviceBatchEvaluator, n_rules: int,

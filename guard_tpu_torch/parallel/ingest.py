@@ -17,8 +17,9 @@ it:
   keeps at most `pipeline_depth()` chunks queued ahead of the device
   and restarts a pool whose worker died (`restart_shared_pool`).
 
-The JAX module's `ShardPrefetcher` feeds the doc shards of a sharded
-mesh, which one card does not run; it is not ported.
+* the 2-D mesh (parallel/mesh2d.py): `ShardPrefetcher`, a thread that
+  cuts doc shard s+1 out of the bucketed encode while shard s runs on
+  the cards.
 
 Workers are spawned, never forked (a fork would inherit the parent's
 CUDA context), and import neither torch nor JAX: a job touches only
@@ -370,3 +371,61 @@ def parallel_encode_documents(names: List[str], contents: List[str], workers: in
         "merge_s": time.perf_counter() - t0,
     }
     return groups, oversize, merged, stats
+
+
+class ShardPrefetcher:
+    """Bounded host-side prefetch of the per-doc-shard dispatch inputs
+    of the 2-D mesh (parallel/mesh2d.py).
+
+    The mesh's dispatch loop (ops/backend.dispatch_packs) consumes one
+    `(shard, lo, bucket_groups, oversize)` tuple per contiguous doc
+    shard `(lo, hi)` of `bounds`. Producing it is host work: cutting
+    the shard's rows out of each bucket of the encode
+    (mesh2d.shard_groups). The dispatch is asynchronous on the cards'
+    streams, so a producer thread prepares shard s+1 while shard s's
+    walks run. The queue holds at most `pipeline_depth()` shards, and
+    the `pipeline.shards_prefetched` / `shard_prefetch_stall_seconds`
+    counters report how much overlap the thread bought. A batch of one
+    shard never builds this class: the caller cuts it inline. The JAX
+    package's prefetcher takes one batch and buckets each shard
+    (split_batch_by_size); the port's encode is bucketed already, so it
+    takes the groups and the oversize documents.
+    """
+
+    def __init__(self, groups, oversize, bounds, depth: Optional[int] = None):
+        import queue
+        import threading
+
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth if depth else pipeline_depth())
+        self._thread = threading.Thread(
+            target=self._produce, args=(groups, oversize, list(bounds)),
+            daemon=True, name="guard-tpu-shard-prefetch",
+        )
+        self._thread.start()
+
+    def _produce(self, groups, oversize, bounds) -> None:
+        from ..utils.telemetry import PIPELINE_COUNTERS
+        from . import mesh2d
+
+        try:
+            for s, (lo, hi) in enumerate(bounds):
+                sub_groups, over = mesh2d.shard_groups(groups, oversize, lo, hi)
+                PIPELINE_COUNTERS["shards_prefetched"] += 1
+                self._q.put(("ok", (s, lo, sub_groups, over)))
+        except Exception as e:  # raised at the consumer's next get
+            self._q.put(("error", e))
+        else:
+            self._q.put(("done", None))
+
+    def __iter__(self):
+        from ..utils.telemetry import PIPELINE_COUNTERS
+
+        while True:
+            t0 = time.perf_counter()
+            kind, payload = self._q.get()
+            PIPELINE_COUNTERS["shard_prefetch_stall_seconds"] += time.perf_counter() - t0
+            if kind == "done":
+                return
+            if kind == "error":
+                raise payload
+            yield payload

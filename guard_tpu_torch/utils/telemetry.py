@@ -209,20 +209,24 @@ class MetricsRegistry:
         self._lock = threading.RLock()
         self._groups: "OrderedDict[str, dict]" = OrderedDict()
         self._group_zeros: Dict[str, dict] = {}
+        self._group_resets: Dict[str, object] = {}
         self._gauges: "OrderedDict[str, float]" = OrderedDict()
         self._hists: "OrderedDict[str, Histogram]" = OrderedDict()
         # span roll-ups: name -> [count, total_seconds]
         self._spans: "OrderedDict[str, list]" = OrderedDict()
 
     # -- counter groups (the absorbed module dicts) -------------------
-    def counter_group(self, name: str, counters: dict) -> dict:
+    def counter_group(self, name: str, counters: dict, extra_reset=None) -> dict:
         """Adopt `counters` as group `name` and return it. The dict
         object remains the owning module's mutation surface; initial
         values are snapshotted so reset restores them bit-compatibly
-        (ints stay ints, float accumulators stay floats)."""
+        (ints stay ints, float accumulators stay floats). `extra_reset`
+        runs after each reset of the group (state kept beside it)."""
         with self._lock:
             self._groups[name] = counters
             self._group_zeros[name] = dict(counters)
+            if extra_reset is not None:
+                self._group_resets[name] = extra_reset
         return counters
 
     def group_stats(self, name: str) -> dict:
@@ -233,6 +237,9 @@ class MetricsRegistry:
             g = self._groups[name]
             for k, v in self._group_zeros[name].items():
                 g[k] = v
+            extra = self._group_resets.get(name)
+            if extra is not None:
+                extra()
 
     # -- gauges / histograms ------------------------------------------
     def set_gauge(self, name: str, value) -> None:
@@ -358,9 +365,10 @@ RESUME_COUNTERS = REGISTRY.counter_group("resume", EventedCounters(
 #: `pipeline` group (guard_tpu/parallel/mesh.py:162): chunks the ingest
 #: workers encoded, those encoded while the previous chunk's device work
 #: was in flight, the deepest prefetch queue, and the seconds the
-#: dispatch stage waited on ingest, read and encoded. The two
-#: shard-prefetch counters belong to the sharded mesh, which one card
-#: does not run; they stay 0.
+#: dispatch stage waited on ingest, read and encoded, and the doc shards
+#: the 2-D mesh's prefetch thread cut ahead of the dispatch loop with
+#: the seconds that loop waited on it (parallel/ingest.ShardPrefetcher;
+#: 0 with one card or one shard).
 PIPELINE_COUNTERS = REGISTRY.counter_group("pipeline", {
     "chunks_prefetched": 0,
     "encode_dispatch_overlap": 0,

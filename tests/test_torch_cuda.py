@@ -1308,3 +1308,110 @@ def test_cuda_coalesced_serve_matches_cpu(cuda_device, sweep_registry, tmp_path,
     assert SERVE_COUNTERS["coalesced_batches"] > b0
     assert DISPATCH_COUNTERS["dispatches"] - d0 < 8
     assert all(K.LAUNCHES[k] > 0 for k in ("gather_rows", "segment_sum_rows", "rim_reduce"))
+
+
+def _all_kernels_on(device, rng):
+    """Each of K1-K7 once on seeded tensors on `device`: (name, wrapper
+    output, plain output on the CPU) triples."""
+    d, n, s = 8, 64, 65
+    parents = _batch(rng, d, n)
+    vec = rng.integers(0, n + 1, size=(d, n)).astype(np.int32)
+    val = rng.integers(0, 4, size=(d, n)).astype(np.int32)
+    seg = rng.integers(-2, s + 2, size=(d, n)).astype(np.int32)
+    org = rng.integers(-1, 3, size=(d, n)).astype(np.int32)
+    key = rng.integers(-5, 5, size=(d, n)).astype(np.int32)
+    mask = rng.random((d, n)) < 0.8
+    statuses, unsure, g_ids, f_ids, l_ids = _rim_case(rng, d, 12, 5, 3)
+    cases = {
+        "gather_rows": (K.gather_rows, plain.gather_rows, (vec, parents)),
+        "segment_sum_rows": (K.segment_sum_rows, plain.segment_sum_rows, (val, seg), (s,)),
+        "rim_reduce": (K.rim_reduce, plain.rim_reduce,
+                       (statuses, unsure, g_ids, f_ids, l_ids), (5, 3)),
+        "set_count_rows": (K.set_count_rows, plain.set_count_rows,
+                           (org, key, mask, org[::-1].copy(), key[:, ::-1].copy(), mask)),
+        "distinct_first_rows": (K.distinct_first_rows, plain.distinct_first_rows,
+                                (org, key, mask)),
+        "seg_min_max_rows": (K.seg_min_max_rows, plain.seg_min_max_rows,
+                             (seg.clip(-1, 9), mask, key, val), (10,)),
+        "rule_summary": (K.rule_summary, plain.rule_summary, (statuses,), (d - 3,)),
+    }
+    out = []
+    for name, (wrapper, ref, arrays, *extra) in cases.items():
+        extra = extra[0] if extra else ()
+        on_card = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+        on_cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        out.append((name, wrapper(*on_card, *extra), ref(*on_cpu, *extra)))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_launch_on_their_tensors_card(cuda_device):
+    """K1-K7 on cuda:1 tensors from a thread whose current device is 0:
+    each wrapper launches on its tensors' card (the per-card occupancy,
+    shared-memory and cluster settings of that card) and equals its
+    plain version."""
+    import threading
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    card1 = torch.device("cuda", 1)
+    result = {}
+
+    def body():
+        torch.cuda.set_device(0)
+        before = dict(K.LAUNCHES)
+        got = _all_kernels_on(card1, np.random.default_rng(SEED))
+        torch.cuda.synchronize(card1)
+        result["got"] = got
+        result["launched"] = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        result["current"] = torch.cuda.current_device()
+
+    t = threading.Thread(target=body)
+    t.start()
+    t.join()
+    assert result["current"] == 0
+    assert result["launched"] == {name: 1 for name in K.NAMES}
+    for name, card, ref in result["got"]:
+        card = card if isinstance(card, tuple) else (card,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for a, b in zip(card, ref):
+            assert a.device == card1, name
+            assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_evaluator_over_one_card_twice(cuda_device):
+    """The mesh over [cuda:0, cuda:0]: every bucket cut in two slices,
+    each on its own stream of the one card; statuses, unsure bits, rim
+    blocks and the summed K7 counts equal one device's and the CPU's."""
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops.encoder import encode_batch
+    from guard_tpu_torch.ops.ir import build_rim_spec, compile_rules_file
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.parallel.device import DeviceBatchEvaluator
+    from guard_tpu_torch.parallel.mesh import ShardedBatchEvaluator
+    from guard_tpu_torch.workloads import XREF_RULES, make_xref_template, volume_template
+
+    rng = np.random.default_rng(SEED)
+    docs = [make_xref_template(rng, i) for i in range(301)] + [volume_template(2000)]
+    batch, interner = encode_batch([from_plain(d) for d in docs])
+    compiled = compile_rules_file(parse_rules_file(XREF_RULES, "x.guard"), interner)
+    spec = build_rim_spec([compiled.rules])
+    card0 = torch.device("cuda", 0)
+    mesh = ShardedBatchEvaluator(compiled, [card0, card0], rim_spec=spec)
+    assert len(mesh.shards) == 2
+    assert mesh.shards[0]._stream is not mesh.shards[1]._stream
+    before = dict(K.LAUNCHES)
+    got = mesh.evaluate_bucketed(batch)
+    assert K.LAUNCHES["rim_reduce"] - before["rim_reduce"] >= 2
+    want = DeviceBatchEvaluator(compiled, card0, rim_spec=spec).evaluate_bucketed(batch)
+    cpu = DeviceBatchEvaluator(compiled, "cpu", rim_spec=spec).evaluate_bucketed(batch)
+    for ref in (want, cpu):
+        assert np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])
+        assert got[2] == ref[2]
+        for a, b in zip(got[3], ref[3]):
+            assert np.array_equal(a, b)
+    st, counts = mesh.with_summary(batch)
+    st1, counts1 = DeviceBatchEvaluator(compiled, "cpu").with_summary(batch)
+    assert np.array_equal(st, st1) and np.array_equal(counts, counts1)
+    assert int(counts.sum()) == len(docs) * len(compiled.rules)
