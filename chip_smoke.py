@@ -185,6 +185,20 @@ no result line):
    (statuses, unsure bits, rim blocks, counts, stdout, stderr,
    manifest, rc); then `lint` over corpus/rules and `completions
    bash`.
+   Then multi-process runs (phase `distributed`,
+   parallel/distributed.py): the registry's pack (245 files, 253 rules)
+   over N_DISTRIBUTED (8,192) of its documents, cut by process_bounds
+   over max(2, min(4, cards)) rank processes (two on cuda:0 with one
+   card) joined by gloo over an ephemeral port on 127.0.0.1, the
+   kernels built and the plan saved before any rank starts; each rank
+   encodes only its range and runs DistributedEvaluator.with_summary
+   over its buckets on its card (K1, K2, K4, K5 in the walk, K7 once a
+   bucket), its counters set to 0 just before and read just after,
+   under a timeout, and imports no JAX: the concatenated statuses equal
+   a one-process run of the same pack over the same documents in this
+   process, every rank's all-reduced counts its counts, and the counts
+   cover every (document, rule) pair. Each rank's walls, launches and
+   the median time of the (3, R) all-reduce alone are printed.
    Then the per-rule summary (phase `summary`): the security policy over
    65,536 seeded templates plus the volume template, built in memory,
    encoded per bucket and counted by DeviceBatchEvaluator.with_summary
@@ -211,8 +225,9 @@ registry pack's shape) on its main path
 the cross-reference policy's, K7 the summary's; every path's in
 `launches_by_path`, the report phase's run (a), the packed
 registry's, the sweep's run (a), the cache's three runs, the scalar rim's, the mesh's,
-the `test` command's and serve's legs (a) and (b) among them, and
-for K1 the launches made by the StepFnVar arm), its error against the plain version, its
+the `test` command's, serve's legs (a) and (b) and the distributed
+ranks' summed among them, and for K1 the launches made by the
+StepFnVar arm), its error against the plain version, its
 time (`ms`, host cost included, and `device_ms`, the card's alone), the
 plain version's, the bound (bytes over the card's memory rate) and a
 library call's time where one computes the same function (also both
@@ -225,6 +240,7 @@ These modes print one JSON line and skip the phases above:
     python3 chip_smoke.py --compare-designs OTHER_CHECKOUT
     python3 chip_smoke.py --phase serve
     python3 chip_smoke.py --phase multicard
+    python3 chip_smoke.py --phase distributed
 
 `--design-sweep` times K2, K4, K5, K6, K3 and K7 at the main path's
 shapes (K3 and K7 also at their sweep shapes) through the public
@@ -236,7 +252,7 @@ design sweep of OTHER_CHECKOUT (an older design, unpacked with `git
 archive`) and of this checkout in turns, other, this, this, other, one
 process each. `--phase serve` builds, then runs phase `serve` alone on
 the registry's files (its legs' line, then the card); `--phase
-multicard` does the same for phase `multicard`.
+multicard` and `--phase distributed` do the same for their phases.
 """
 
 from __future__ import annotations
@@ -3732,6 +3748,239 @@ def phase_multicard(device, tmp: Path, devices=None) -> tuple:
     return out, launches
 
 
+# phase `distributed`: the registry over N_DISTRIBUTED documents cut by
+# distributed.process_bounds over rank processes (gloo, 127.0.0.1)
+N_DISTRIBUTED = N_PACKING
+DISTRIBUTED_RANK_TIMEOUT_S = 600
+DISTRIBUTED_ALLREDUCE_REPS = 20
+# the pack's walk (K1, K2, K4, K5) and K7 behind it
+DISTRIBUTED_KERNELS = ("gather_rows", "segment_sum_rows", "set_count_rows",
+                       "distinct_first_rows", "rule_summary")
+
+# One rank: join the group, load the plan the parent saved, encode its
+# range natively, relocate it into the plan and run DistributedEvaluator.
+# with_summary over its buckets on its card, its kernel counters set to 0
+# just before and read just after; then time the (3, R) all-reduce alone.
+# It imports guard_tpu_torch and nothing of JAX, and writes one JSON file.
+_DISTRIBUTED_RANK = r'''
+import base64, json, os, statistics, sys, time
+t_start = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+spec = json.load(open(sys.argv[2]))
+rank = int(sys.argv[3])
+import numpy as np
+import torch
+import torch.distributed as dist
+from guard_tpu_torch import kernels as K
+from guard_tpu_torch.commands.validate import RuleFile
+from guard_tpu_torch.core.parser import parse_rules_file
+from guard_tpu_torch.ops import plan as plan_mod
+from guard_tpu_torch.ops.native_encoder import encode_json_bucketed
+from guard_tpu_torch.parallel import distributed
+
+walls = {"import_s": time.perf_counter() - t_start}
+t0 = time.perf_counter()
+distributed.initialize(spec["address"], spec["world"], rank, timeout_s=spec["timeout_s"])
+walls["join_s"] = time.perf_counter() - t0
+devices = distributed.local_devices(spec["device"])
+t0 = time.perf_counter()
+rule_files = []
+for name, path in spec["rules"]:
+    text = open(path).read()
+    rule_files.append(RuleFile(name, path, text, parse_rules_file(text, name)))
+plan = plan_mod.get_plan(rule_files, device=devices[0])
+stats = plan_mod.plan_stats()
+(_pos, packed, _spec), = plan.packs
+walls["plan_s"] = time.perf_counter() - t0
+with open(spec["docs"]) as f:
+    texts = f.read().splitlines()
+lo, hi = distributed.process_bounds(len(texts))
+t0 = time.perf_counter()
+groups, oversize, interner, err = encode_json_bucketed(texts[lo:hi])
+assert err is None and len(oversize) == 0, (err, len(oversize))
+plan_mod.relocate_batch(plan, [sub for sub, _idx in groups], interner)
+walls["encode_s"] = time.perf_counter() - t0
+ev = distributed.DistributedEvaluator(packed.compiled, devices)
+cards = [d for d in devices if d.type == "cuda"]
+for d in cards:
+    torch.cuda.synchronize(d)
+K.reset_launches()
+t0, window = time.perf_counter(), [time.time()]
+statuses, start, counts = ev.with_summary(groups)
+for d in cards:
+    torch.cuda.synchronize(d)
+walls["with_summary_s"] = time.perf_counter() - t0
+window.append(time.time())
+launches = {k: v for k, v in K.LAUNCHES.items() if v}
+# the all-reduce alone, at the summary's (3, R) int64
+probe = torch.zeros((3, len(packed.compiled.rules)), dtype=torch.int64)
+dist.barrier()
+times = []
+for _ in range(spec["allreduce_reps"]):
+    t0 = time.perf_counter()
+    dist.all_reduce(probe, op=dist.ReduceOp.SUM)
+    times.append((time.perf_counter() - t0) * 1e3)
+distributed.shutdown()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "guard_tpu"))
+assert "jax" not in sys.modules and not leaked, leaked
+walls["rank_s"] = time.perf_counter() - t_start
+with open(spec["out"] % rank, "w") as f:
+    json.dump({
+        "rank": rank, "lo": lo, "hi": hi, "start": start, "devices": [str(d) for d in devices],
+        "buckets": len(groups), "rules": len(packed.compiled.rules),
+        "statuses": base64.b64encode(np.ascontiguousarray(statuses).tobytes()).decode(),
+        "counts": counts.tolist(), "launches": launches, "walls": walls, "window": window,
+        "allreduce_ms": statistics.median(times), "allreduce_min_ms": min(times),
+        "plan_stats": stats,
+    }, f)
+'''
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_distributed(device, tmp: Path) -> tuple:
+    """Multi-process runs (parallel/distributed.py) over the registry:
+    the 249 corpus files' pack (245 files, 253 rules, from the plan
+    layer) over N_DISTRIBUTED of its documents, cut by process_bounds
+    over max(2, min(4, cards)) rank processes joined by gloo over an
+    ephemeral port on 127.0.0.1 (every rank on cuda:0 with one card).
+    The kernels are built before any rank starts (the ranks load them),
+    and the plan is saved for the ranks to load. Each rank runs
+    DistributedEvaluator.with_summary over its buckets with its counters
+    set to 0 just before and read just after (the walk launches K1, K2,
+    K4 and K5; K7 once per bucket), under a timeout. The concatenated
+    statuses must equal a one-process run of the same pack over the same
+    documents in this process, every rank's counts its counts, and the
+    counts cover every (document, rule) pair. Returns (info, launches
+    summed over the ranks)."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.commands.validate import RuleFile
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.kernels.build import load
+    from guard_tpu_torch.ops import plan as plan_mod
+    from guard_tpu_torch.ops.native_encoder import encode_json_bucketed
+    from guard_tpu_torch.parallel.device import DeviceBatchEvaluator
+
+    t_phase = time.perf_counter()
+    if device.type == "cuda":
+        load()  # built here: the ranks only load the libraries
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    world = max(2, min(4, cards))
+    paths = sorted((tmp / "registry_rules").glob("*.guard"))
+    check(len(paths) == 249, "distributed: the registry's rules are missing")
+    rule_files = [RuleFile(p.name, str(p), p.read_text(),
+                           parse_rules_file(p.read_text(), p.name)) for p in paths]
+    plan = plan_mod.get_plan(rule_files, device=device)  # saved for the ranks
+    (pos, packed, _spec), = plan.packs
+    compiled = packed.compiled
+    _paths, plain = corpus_inputs()
+    texts = [json.dumps(plain[i % len(plain)]) for i in range(N_DISTRIBUTED)]
+    docs_path = tmp / "distributed_docs.jsonl"
+    docs_path.write_text("\n".join(texts) + "\n")
+    spec_path = tmp / "distributed_spec.json"
+    spec_path.write_text(json.dumps({
+        "address": f"127.0.0.1:{free_port()}", "world": world,
+        "timeout_s": DISTRIBUTED_RANK_TIMEOUT_S / 2, "rules": [[p.name, str(p)] for p in paths],
+        "docs": str(docs_path), "out": str(tmp / "distributed_rank%d.json"),
+        "allreduce_reps": DISTRIBUTED_ALLREDUCE_REPS,
+        # a CPU rehearsal's ranks run the plain kernels
+        "device": None if device.type == "cuda" else "cpu",
+    }))
+    rank_py = tmp / "distributed_rank.py"
+    rank_py.write_text(_DISTRIBUTED_RANK)
+    t_ranks = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(rank_py), str(ROOT), str(spec_path), str(r)],
+                              cwd=str(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                outs.append(proc.communicate(timeout=DISTRIBUTED_RANK_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"distributed: rank {r} did not end in "
+                                     f"{DISTRIBUTED_RANK_TIMEOUT_S} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks_s = time.perf_counter() - t_ranks
+    for r, (proc, out) in enumerate(zip(procs, outs)):
+        check(proc.returncode == 0, f"distributed: rank {r} exited {proc.returncode}:\n"
+                                    f"{out[-4000:]}")
+    results = [json.loads((tmp / f"distributed_rank{r}.json").read_text()) for r in range(world)]
+
+    # the one-process run of the same pack over the same documents
+    t0 = time.perf_counter()
+    groups, oversize, interner, err = encode_json_bucketed(texts)
+    check(err is None and len(oversize) == 0, f"distributed: the encode left {len(oversize)} out")
+    plan_mod.relocate_batch(plan, [sub for sub, _idx in groups], interner)
+    single = DeviceBatchEvaluator(compiled, device)
+    n_rules = len(compiled.rules)
+    want = np.zeros((N_DISTRIBUTED, n_rules), np.int8)
+    want_counts = np.zeros((3, n_rules), np.int64)
+    for sub, idx in groups:
+        st, c = single.with_summary(sub)
+        want[idx] = st
+        want_counts += c
+    one_process_s = time.perf_counter() - t0
+    check(np.array_equal(want_counts, np_counts(want)),
+          "distributed: the one-process counts differ from its statuses")
+
+    launches = dict.fromkeys(K.LAUNCHES, 0)
+    covered, rows = 0, []
+    for r, res in enumerate(results):
+        check(res["lo"] == covered == res["start"], f"distributed: rank {r} range {res['lo']}")
+        check(res["rules"] == n_rules, f"distributed: rank {r} has {res['rules']} rules")
+        check(res["plan_stats"]["misses"] == 0,
+              f"distributed: rank {r} built the plan ({res['plan_stats']})")
+        st = np.frombuffer(base64.b64decode(res["statuses"]), np.int8).reshape(-1, n_rules)
+        check(st.shape[0] == res["hi"] - res["lo"], f"distributed: rank {r} statuses {st.shape}")
+        check(np.array_equal(st, want[res["lo"]:res["hi"]]),
+              f"distributed: rank {r}'s statuses differ from one process's")
+        check(np.array_equal(np.asarray(res["counts"]), want_counts),
+              f"distributed: rank {r}'s counts differ from one process's")
+        if device.type == "cuda":
+            for name in DISTRIBUTED_KERNELS:
+                check(res["launches"].get(name, 0) > 0, f"distributed: rank {r} never launched {name}")
+            check(res["launches"]["rule_summary"] == res["buckets"] * len(res["devices"]),
+                  f"distributed: rank {r} launched K7 {res['launches']['rule_summary']} times "
+                  f"for {res['buckets']} buckets")
+        for k, v in res["launches"].items():
+            launches[k] += v
+        covered = res["hi"]
+        rows.append({k: res[k] for k in ("rank", "lo", "hi", "devices", "buckets", "launches",
+                                         "walls", "allreduce_ms", "allreduce_min_ms",
+                                         "plan_stats")})
+    check(covered == N_DISTRIBUTED, f"distributed: the ranks cover {covered} documents")
+    # the wall-clock seconds in which every rank was inside with_summary
+    overlap = (min(res["window"][1] for res in results)
+               - max(res["window"][0] for res in results))
+    check(int(want_counts.sum()) == N_DISTRIBUTED * n_rules,
+          "distributed: the counts miss (document, rule) pairs")
+    info = {"world": world, "cards_visible": cards, "docs": N_DISTRIBUTED, "rules": n_rules,
+            "files_in_pack": len(pos), "ranks": rows, "ranks_s": ranks_s,
+            "one_process_s": one_process_s, "with_summary_overlap_s": overlap,
+            "counts": want_counts.sum(axis=1).tolist(),
+            "phase_s": time.perf_counter() - t_phase,
+            "launches": {k: v for k, v in launches.items() if v}}
+    log(f"distributed: {json.dumps(info)}")
+    return info, launches
+
+
 def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
     """Each kernel at its main-path shape (K1-K3 from the security
     policy's run, K4-K6 from the cross-reference policy's, K7 from the
@@ -4463,6 +4712,32 @@ def multicard_main() -> int:
     return 0
 
 
+def distributed_main() -> int:
+    """`--phase distributed`: the build and phase `distributed` alone,
+    on the registry's files; one JSON line of the phase, then the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+        return 2
+    sys.path.insert(0, str(ROOT))
+    card = card_line()
+    build_s = build_all()[0]
+    with tempfile.TemporaryDirectory(prefix="guard_smoke_") as td:
+        tmp = Path(td)
+        os.environ["GUARD_TPU_PLAN_CACHE_DIR"] = str(tmp / "plans")
+        os.environ["GUARD_TPU_RESULT_CACHE_DIR"] = str(tmp / "results_default")
+        os.environ["GUARD_TPU_FLIGHTREC_DIR"] = str(tmp / "flightrec")
+        registry_files(tmp)
+        info, launches = phase_distributed(torch.device("cuda"), tmp)
+    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                    or m == "guard_tpu" or m.startswith("guard_tpu."))
+    check(not leaked, f"imported {leaked}")
+    print(json.dumps({"distributed": info, "build_s": build_s, "card": card}))
+    print(card)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -4554,6 +4829,8 @@ def main() -> int:
         log(f"phase 3 (serve) ok in {took()}")
         multicard, multicard_launches = phase_multicard(device, tmp)
         log(f"phase 3 (multicard) ok in {took()}")
+        distributed_info, distributed_launches = phase_distributed(device, tmp)
+        log(f"phase 3 (distributed) ok in {took()}")
         summary_info = phase_summary(device)
         log(f"phase 3 (summary) ok in {took()}: "
             f"{json.dumps({k: v for k, v in summary_info.items() if k != 'shapes'})}")
@@ -4568,7 +4845,8 @@ def main() -> int:
              **{path: {"launches": launches}
                 for path, launches in flags_info["launches"].items()},
              "test_command": {"launches": test_info["launches"]},
-             "multicard": {"launches": multicard_launches}}
+             "multicard": {"launches": multicard_launches},
+             "distributed": {"launches": distributed_launches}}
     kernels = contract_kernels(device, infos, sweep, card)
     log(f"kernels line in {took()}")
     leaked = sorted(
@@ -4591,7 +4869,7 @@ def main() -> int:
         "fnvar": {k: v for k, v in fnvar_info.items() if k != "shapes"},
         "fnvar_breakdown": fnvar_breakdown,
         "flagship": flagship, "corpus": corpus, "packing": packing, "sweep": sweep_run,
-        "serve": serve_run, "multicard": multicard,
+        "serve": serve_run, "multicard": multicard, "distributed": distributed_info,
         "summary": {k: v for k, v in summary_info.items() if k != "shapes"},
         "report": report_info, "ingest": ingest_info, "xref_ingest": xref_ingest,
         "flags": {k: v for k, v in flags_info.items() if k != "launches"}, "test": test_info,
@@ -4619,6 +4897,8 @@ if __name__ == "__main__":
             code = serve_main()
         elif sys.argv[1:] == ["--phase", "multicard"]:
             code = multicard_main()
+        elif sys.argv[1:] == ["--phase", "distributed"]:
+            code = distributed_main()
         else:
             code = main()
     except Exception:

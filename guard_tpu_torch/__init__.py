@@ -36,5 +36,34 @@ concurrent requests coalesce into packed batches on the card;
 read rule files without a card.
 """
 
+import sys as _sys
+
+# Deep documents exceed the interpreter's default recursion limit in the
+# loader and the CPU evaluator, which walk trees recursively (the walk
+# on the card is iterative); the JAX package raises it likewise.
+if _sys.getrecursionlimit() < 20000:
+    _sys.setrecursionlimit(20000)
+
+from .api import (
+    CommandBuilder,
+    ParseTreeBuilder,
+    RulegenBuilder,
+    TestBuilder,
+    ValidateBuilder,
+    run_checks,
+)
+from .core.qresult import Status
+
 #: the port's own version: it keys the plan artifacts (ops/plan.py)
 __version__ = "0.1.0"
+
+__all__ = [
+    "run_checks",
+    "CommandBuilder",
+    "ValidateBuilder",
+    "TestBuilder",
+    "ParseTreeBuilder",
+    "RulegenBuilder",
+    "Status",
+    "__version__",
+]

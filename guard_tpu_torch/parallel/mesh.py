@@ -26,6 +26,12 @@ unindexed CUDA request, one card for an indexed one, the CPU for the
 CPU. Tests on the CPU patch it to `[cpu] * k`, the counterpart of the
 JAX tests' `--xla_force_host_platform_device_count=8`. A device may
 appear in a mesh more than once; each entry then has its own stream.
+
+A mesh spans one process. Several processes, the JAX package's
+`jax.distributed` runs of this module (the dcn axis of
+`hierarchical_mesh`), are `parallel/distributed.py`: each rank takes a
+contiguous range of the documents and a mesh of its own cards, and the
+summary counts are all-reduced over a `torch.distributed` group.
 """
 
 from __future__ import annotations

@@ -1415,3 +1415,90 @@ def test_cuda_sharded_evaluator_over_one_card_twice(cuda_device):
     st1, counts1 = DeviceBatchEvaluator(compiled, "cpu").with_summary(batch)
     assert np.array_equal(st, st1) and np.array_equal(counts, counts1)
     assert int(counts.sum()) == len(docs) * len(compiled.rules)
+
+
+_XREF_RANK = r'''
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+from guard_tpu_torch import kernels as K
+from guard_tpu_torch.core.parser import parse_rules_file
+from guard_tpu_torch.core.values import from_plain
+from guard_tpu_torch.ops.encoder import encode_bucketed
+from guard_tpu_torch.ops.ir import compile_rules_file
+from guard_tpu_torch.parallel import distributed
+from guard_tpu_torch.workloads import XREF_RULES, make_xref_template
+
+rank, world, port, n, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                             int(sys.argv[4]), sys.argv[5])
+distributed.initialize(f"127.0.0.1:{port}", world, rank, timeout_s=120)
+rng = np.random.default_rng(11)
+docs = [make_xref_template(rng, i) for i in range(n)]
+lo, hi = distributed.process_bounds(n)
+groups, oversize, interner = encode_bucketed([from_plain(d) for d in docs[lo:hi]])
+assert len(oversize) == 0
+compiled = compile_rules_file(parse_rules_file(XREF_RULES, "x.guard"), interner)
+ev = distributed.DistributedEvaluator(compiled)
+K.reset_launches()
+statuses, start, counts = ev.with_summary(groups)
+distributed.shutdown()
+assert "jax" not in sys.modules and "guard_tpu" not in sys.modules
+with open(out, "w") as f:
+    json.dump({"lo": lo, "hi": hi, "start": start, "statuses": statuses.tolist(),
+               "counts": counts.tolist(), "launches": dict(K.LAUNCHES),
+               "devices": [str(d) for d in ev.devices]}, f)
+'''
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_over_the_xref_policy_match_one_process(cuda_device, tmp_path):
+    """Two gloo ranks on the card (every rank on cuda:0 with one card),
+    each over its own range of 301 cross-reference templates: the
+    concatenated statuses and every rank's all-reduced K7 counts equal
+    one process's on the card, and each rank launched K4 and K7."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops.encoder import encode_batch
+    from guard_tpu_torch.ops.ir import compile_rules_file
+    from guard_tpu_torch.parallel.device import DeviceBatchEvaluator
+    from guard_tpu_torch.workloads import XREF_RULES, make_xref_template
+
+    n, world = 301, 2
+    script = tmp_path / "rank.py"
+    script.write_text(_XREF_RANK)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(world), port, str(n),
+                               str(tmp_path / f"rank{r}.json")], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    rng = np.random.default_rng(11)
+    batch, interner = encode_batch([from_plain(make_xref_template(rng, i)) for i in range(n)])
+    compiled = compile_rules_file(parse_rules_file(XREF_RULES, "x.guard"), interner)
+    want_st, want_counts = DeviceBatchEvaluator(compiled, cuda_device).with_summary(batch)
+    got = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out[-3000:]}"
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["devices"] == [f"cuda:{r % torch.cuda.device_count()}"]
+        assert res["start"] == res["lo"]
+        assert np.array_equal(np.asarray(res["counts"]), want_counts)
+        assert res["launches"]["set_count_rows"] > 0 and res["launches"]["rule_summary"] > 0
+        got.append(np.asarray(res["statuses"], np.int8).reshape(-1, len(compiled.rules)))
+    assert np.array_equal(np.concatenate(got), want_st)
+    assert int(want_counts.sum()) == n * len(compiled.rules)
