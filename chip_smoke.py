@@ -49,12 +49,12 @@ no result line):
    traced as --trace-out and --metrics-out trace a run
    (cli.telemetry_export): the trace must be Chrome trace_event JSON on
    the lanes of telemetry._LANE_ORDER, the snapshot must pass
-   tools/check_metrics_schema.py in a subprocess, and each stage's span
-   total is printed; then path
-   (ii) with one template made invalid JSON under --max-doc-failures 1
-   (rc 19, one `skipping ...: invalid JSON` line, the template absent
-   from stdout, every other template's statuses as before) and, over
-   the first 2,048 templates, 0 (rc 5). Then the same 65,537 texts
+   guard_tpu_torch.tools.check_metrics_schema in a subprocess, and each
+   stage's span total is printed; then path (ii) with one template
+   made invalid JSON under --max-doc-failures 1 (rc 19, one `skipping
+   ...: invalid JSON` line, the template absent from stdout, every
+   other template's statuses as before) and, over the first 2,048
+   templates, 0 (rc 5). Then the same 65,537 texts
    under this slice's flags (phase `flags`), every counter set to 0
    just before each run and read just after: (a) the result cache:
    the run with --no-result-cache, then in a fresh directory with
@@ -208,7 +208,19 @@ no result line):
    and of the bucketed evaluation's statuses; the first 2,048 templates
    equal a CPU evaluation. Then the entry points (phase
    `entry`): guard_tpu_torch.entry.entry()'s forward against the CPU,
-   and dryrun().
+   and dryrun(). Then the kernel-vs-oracle differential fuzzer (phase
+   `kernel_fuzz`, guard_tpu_torch/tools/kernel_fuzz.py) for 60 s from
+   SEED: random rule files of the tagged grammar over random documents,
+   every 17th trial one bucket-crossing document and every fifth a
+   corpus rules file, each trial held card against CPU bit for bit
+   (statuses, unsure bits, rim blocks, K7 counts), against the CPU
+   oracle, against the native oracle (trials of small documents), and
+   tiled to 1,100 rows against its untiled rows, every counter set to 0
+   just before and read just after: no divergence, every kernel of
+   K1-K7 launched, K3 in its block form and in another; its JSON line
+   (trials, checked cells, tags, launches, each kernel's forms) is
+   printed before the kernels line, and a divergence's reproducer lands
+   in kernel_fuzz_crashes/.
 4. The CLI: `python -m guard_tpu_torch validate --statuses-only` in a
    subprocess over one PASS and one FAIL template: rc 19 and the
    expected stdout bytes; then `validate -z -o json -S none` over the
@@ -225,9 +237,9 @@ registry pack's shape) on its main path
 the cross-reference policy's, K7 the summary's; every path's in
 `launches_by_path`, the report phase's run (a), the packed
 registry's, the sweep's run (a), the cache's three runs, the scalar rim's, the mesh's,
-the `test` command's, serve's legs (a) and (b) and the distributed
-ranks' summed among them, and for K1 the launches made by the
-StepFnVar arm), its error against the plain version, its
+the `test` command's, serve's legs (a) and (b), the distributed
+ranks' summed and the fuzzer's among them, and for K1 the launches made
+by the StepFnVar arm), its error against the plain version, its
 time (`ms`, host cost included, and `device_ms`, the card's alone), the
 plain version's, the bound (bytes over the card's memory rate) and a
 library call's time where one computes the same function (also both
@@ -241,6 +253,7 @@ These modes print one JSON line and skip the phases above:
     python3 chip_smoke.py --phase serve
     python3 chip_smoke.py --phase multicard
     python3 chip_smoke.py --phase distributed
+    python3 chip_smoke.py --phase kernel_fuzz [--fuzz-time S]
 
 `--design-sweep` times K2, K4, K5, K6, K3 and K7 at the main path's
 shapes (K3 and K7 also at their sweep shapes) through the public
@@ -252,7 +265,9 @@ design sweep of OTHER_CHECKOUT (an older design, unpacked with `git
 archive`) and of this checkout in turns, other, this, this, other, one
 process each. `--phase serve` builds, then runs phase `serve` alone on
 the registry's files (its legs' line, then the card); `--phase
-multicard` and `--phase distributed` do the same for their phases.
+multicard` and `--phase distributed` do the same for their phases, and
+`--phase kernel_fuzz` for the fuzzer, S seconds long (default 60;
+`--fuzz-time 420` is the nightly tier on the card).
 """
 
 from __future__ import annotations
@@ -1179,8 +1194,8 @@ def phase_ingest(device, tmp: Path, slice_info: dict, slice_ev):
 def check_trace(trace_out: Path, metrics_out: Path, ev) -> dict:
     """Leg (d): the traced run's trace is Chrome trace_event JSON on the
     lanes of telemetry._LANE_ORDER (and the instant-event lane), its
-    metrics snapshot passes tools/check_metrics_schema.py run as a
-    subprocess, and each stage's span total is printed."""
+    metrics snapshot passes guard_tpu_torch.tools.check_metrics_schema
+    run as a subprocess, and each stage's span total is printed."""
     from guard_tpu_torch.utils.telemetry import _LANE_ORDER
 
     trace = json.loads(trace_out.read_text())
@@ -1192,8 +1207,9 @@ def check_trace(trace_out: Path, metrics_out: Path, ev) -> dict:
     # one rules file: the per-file path, whose `dispatch` span holds the
     # wait for the card (a packed run adds the `collect` lane)
     check({"rules", "ingest", "dispatch", "rim"} <= lanes, f"trace: lanes {sorted(lanes)}")
-    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "check_metrics_schema.py"),
-                           str(metrics_out)], capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-m", "guard_tpu_torch.tools.check_metrics_schema",
+                           str(metrics_out)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
     check(proc.returncode == 0, f"metrics snapshot: {proc.stderr[-1000:]}")
     # this run's spans, from its trace (the snapshot's roll-ups hold the
     # whole process's, the earlier phases' flight-recorder spans among
@@ -2163,6 +2179,49 @@ def phase_entry(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the kernel-vs-oracle differential fuzzer (phase `kernel_fuzz`)
+# ---------------------------------------------------------------------------
+
+# the phase's budget in the whole smoke; `--phase kernel_fuzz --fuzz-time
+# 420` is the nightly tier on the card
+FUZZ_SECONDS = 60.0
+# the phase's reproducers, one directory a divergence
+FUZZ_CRASH_DIR = ROOT / "kernel_fuzz_crashes"
+# K3's block form (a block a row, up to 1,024 rows; guard_kernels.cu)
+K3_BLOCK_FORM = "block"
+
+
+def phase_kernel_fuzz(device, seconds: float = FUZZ_SECONDS) -> tuple:
+    """guard_tpu_torch.tools.kernel_fuzz for `seconds` from the smoke's
+    SEED, big-document and corpus trials on: every trial held card
+    against CPU bit for bit (statuses, unsure bits, rim blocks, K7
+    counts), against the CPU oracle and the native oracle, and tiled
+    past K3's block form, with every kernel counter set to 0 just before
+    and read just after. Fails on any divergence, on a kernel of K1-K7
+    launched no time, and unless K3 ran both in its block form and in
+    another. Returns (the phase's line, its launches)."""
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.tools import kernel_fuzz
+
+    K.reset_launches()
+    sync(device)
+    summary = kernel_fuzz.fuzz(seconds, SEED, device, corpus=True, crash_dir=FUZZ_CRASH_DIR)
+    sync(device)
+    launches = dict(K.LAUNCHES)
+    check(summary["divergences"] == 0,
+          "kernel_fuzz: divergence\n" + "\n---\n".join(summary["first_divergences"]))
+    if device.type == "cuda":
+        never = [name for name in K.NAMES if launches[name] == 0]
+        check(not never, f"kernel_fuzz: {never} never launched")
+        k3 = summary["forms"]["rim_reduce"]
+        check(K3_BLOCK_FORM in k3 and set(k3) - {K3_BLOCK_FORM},
+              f"kernel_fuzz: K3 ran in the forms {k3}, not in its block form and another")
+    info = {k: v for k, v in summary.items() if k not in ("first_divergences", "reproducers")}
+    info.update(launches=launches, trials_per_s=summary["trials"] / summary["seconds"])
+    return info, launches
+
+
+# ---------------------------------------------------------------------------
 # the packed registry (phase `packing`)
 # ---------------------------------------------------------------------------
 
@@ -2649,8 +2708,9 @@ def phase_sweep(device, tmp: Path):
     for e in events:
         if e["ph"] == "X":
             spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
-    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "check_metrics_schema.py"),
-                           str(metrics_out)], capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-m", "guard_tpu_torch.tools.check_metrics_schema",
+                           str(metrics_out)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
     check(proc.returncode == 0, f"sweep (a): metrics snapshot: {proc.stderr[-1000:]}")
     check(a["pipeline"]["chunks_prefetched"] + a["pipeline"]["encode_seconds"] > 0,
           f"sweep (a): no ingest in the pipeline counters: {a['pipeline']}")
@@ -4738,6 +4798,27 @@ def distributed_main() -> int:
     return 0
 
 
+def kernel_fuzz_main(seconds: float) -> int:
+    """`--phase kernel_fuzz [--fuzz-time S]`: the build and phase
+    `kernel_fuzz` alone for S seconds (default FUZZ_SECONDS); the
+    phase's line, then the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+        return 2
+    sys.path.insert(0, str(ROOT))
+    card = card_line()
+    build_s = build_all()[0]
+    info, _launches = phase_kernel_fuzz(torch.device("cuda"), seconds)
+    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                    or m == "guard_tpu" or m.startswith("guard_tpu."))
+    check(not leaked, f"imported {leaked}")
+    print(json.dumps({"kernel_fuzz": info, "build_s": build_s, "card": card}))
+    print(card)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -4836,6 +4917,9 @@ def main() -> int:
             f"{json.dumps({k: v for k, v in summary_info.items() if k != 'shapes'})}")
         entry_info = phase_entry(device)
         log(f"phase 3 (entry) ok in {took()}: {json.dumps(entry_info)}")
+        fuzz_info, fuzz_launches = phase_kernel_fuzz(device)
+        print(json.dumps({"kernel_fuzz": fuzz_info}), flush=True)
+        log(f"phase 3 (kernel_fuzz) ok in {took()}")
         cli = phase_cli(tmp)
         log(f"phase 4 (cli) ok in {took()}: {cli}")
     infos = {"security": slice_info, "xref": xref_info, "fnvar": fnvar_info,
@@ -4846,7 +4930,8 @@ def main() -> int:
                 for path, launches in flags_info["launches"].items()},
              "test_command": {"launches": test_info["launches"]},
              "multicard": {"launches": multicard_launches},
-             "distributed": {"launches": distributed_launches}}
+             "distributed": {"launches": distributed_launches},
+             "kernel_fuzz": {"launches": fuzz_launches}}
     kernels = contract_kernels(device, infos, sweep, card)
     log(f"kernels line in {took()}")
     leaked = sorted(
@@ -4899,6 +4984,9 @@ if __name__ == "__main__":
             code = multicard_main()
         elif sys.argv[1:] == ["--phase", "distributed"]:
             code = distributed_main()
+        elif sys.argv[1:3] == ["--phase", "kernel_fuzz"] and (
+                len(sys.argv) == 3 or (len(sys.argv) == 5 and sys.argv[3] == "--fuzz-time")):
+            code = kernel_fuzz_main(float(sys.argv[4]) if len(sys.argv) == 5 else FUZZ_SECONDS)
         else:
             code = main()
     except Exception:

@@ -96,6 +96,7 @@ from typing import List, Optional
 
 from .commands.test import TEST_ERROR_STATUS_CODE, TEST_FORMATS, Test
 from .commands.validate import BACKENDS, ERROR_STATUS_CODE, OUTPUT_FORMATS, Validate
+from . import __version__
 from .core.errors import GuardError
 from .utils.io import Reader, Writer
 
@@ -425,6 +426,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Guard policy-as-code validation on a CUDA device "
         "(PyTorch port of the guard-tpu batch engine).",
     )
+    p.add_argument("--version", action="version", version=f"{PROG} {__version__}")
     sub = p.add_subparsers(dest="command")
     v = sub.add_parser("validate", help="Evaluates rules against data files")
     v.add_argument("--rules", "-r", nargs="*", default=[])

@@ -28,7 +28,11 @@ over 2 ingest workers) against the tree encoder, launches included;
 the `test` command over corpus/rules on the card against the CPU (no
 K3), a warm result-cache run (no launch at all) and --no-vector-rim (no
 K3); `sweep` over corpus rule files on the card against the CPU (K1, K2
-and K3 launch; a warm run launches nothing).
+and K3 launch; a warm run launches nothing). The kernel-vs-oracle
+fuzzer (guard_tpu_torch/tools/kernel_fuzz.py) on the card: 3 seeds x 30
+trials with its four legs (card equal to the CPU bit for bit, the
+oracles, the tiled rows), K3 in its block form and another, and a
+big-document trial through K2's split grid.
 """
 
 import numpy as np
@@ -1502,3 +1506,82 @@ def test_cuda_two_ranks_over_the_xref_policy_match_one_process(cuda_device, tmp_
         got.append(np.asarray(res["statuses"], np.int8).reshape(-1, len(compiled.rules)))
     assert np.array_equal(np.concatenate(got), want_st)
     assert int(want_counts.sum()) == n * len(compiled.rules)
+
+
+# -- the kernel-vs-oracle differential fuzzer on the card ---------------
+def _fuzz_window():
+    """(the kernels' launch shapes so far, kernel_fuzz's leg counts so
+    far): a test's own launches are the difference."""
+    from collections import Counter
+
+    from guard_tpu_torch.tools import kernel_fuzz
+
+    return ({name: Counter(K.SHAPES[name]) for name in K.NAMES}, dict(kernel_fuzz.STATS))
+
+
+def _fuzz_forms(before):
+    from guard_tpu_torch.tools import kernel_fuzz
+
+    return kernel_fuzz.kernel_forms(
+        {name: K.SHAPES[name] - before[name] for name in K.NAMES})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [11, 222, 3333])
+def test_cuda_kernel_fuzz_legs_hold(cuda_device, seed):
+    """30 fuzzed trials on the card: the card equals the CPU bit for bit
+    (leg a), the oracle (b), the native oracle where built (c), and the
+    tiled rows their untiled rows (d)."""
+    import random
+
+    from guard_tpu_torch.tools import kernel_fuzz
+
+    shapes0, stats0 = _fuzz_window()
+    rng = random.Random(seed)
+    tags, checked, found = set(), 0, []
+    for ti in range(30):
+        c, div = kernel_fuzz.run_trial(rng, ti, tags, cuda_device)
+        checked += c
+        found.extend(div)
+    assert not found, "\n---\n".join(map(str, found[:3]))
+    assert checked > 100
+    stats = {k: kernel_fuzz.STATS[k] - stats0[k] for k in stats0}
+    assert stats["card_vs_cpu"] > 20 and stats["tiled"] == stats["card_vs_cpu"]
+    assert _fuzz_forms(shapes0)["rim_reduce"], "K3 never launched"
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_fuzz_tiled_leg_leaves_k3_block_form(cuda_device):
+    """The tiled leg repeats a trial's documents past 1,024 rows: K3
+    runs in its block form on the trial and in another on the tiles."""
+    import random
+
+    from guard_tpu_torch.tools import kernel_fuzz
+
+    shapes0, _ = _fuzz_window()
+    rng = random.Random(5)
+    tags = set()
+    for ti in range(6):
+        assert not kernel_fuzz.run_trial(rng, ti, tags, cuda_device)[1]
+    k3 = _fuzz_forms(shapes0)["rim_reduce"]
+    assert "block" in k3 and set(k3) - {"block"}, k3
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_fuzz_big_document_takes_k2_split_grid(cuda_device):
+    """Trial 16 of a big-documents run is one bucket-crossing document:
+    K2 takes its split grid on it, and the card equals the CPU."""
+    import random
+
+    from guard_tpu_torch.tools import kernel_fuzz
+
+    rng = random.Random(3)
+    tags = set()
+    for ti in range(16):
+        kernel_fuzz.rand_rules(rng, ti, tags)
+    shapes0, stats0 = _fuzz_window()
+    checked, div = kernel_fuzz.run_trial(rng, 16, tags, cuda_device, big_docs=True)
+    assert not div, [str(d) for d in div[:2]]
+    assert kernel_fuzz.STATS["big"] == stats0["big"] + 1
+    assert kernel_fuzz.STATS["card_vs_cpu"] == stats0["card_vs_cpu"] + 1
+    assert "split" in _fuzz_forms(shapes0)["segment_sum_rows"]

@@ -14,13 +14,19 @@
   * `guard_tpu_torch.run_checks` returns `guard_tpu.run_checks`'s
     string on corpus (rules, input) pairs, plain and verbose, and the
     two packages' `__all__` name the same things.
+  * A 10,000-deep `/validate` request gets the same answer from both
+    packages' `serve --listen` processes, on the host backend and on
+    the device path.
 """
 
+import http.client
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
+import time
 
 import pytest
 import yaml
@@ -158,3 +164,69 @@ def test_run_checks_matches_jax(name, verbose):
 
 def test_corpus_sample_is_every_tenth_file():
     assert len(CORPUS_SAMPLE) == 25
+
+
+# -- a 10,000-deep /validate request to the listeners ---------------------
+LISTENER_DEPTH = 10000
+
+
+def _deep_body(depth, backend):
+    """A /validate body whose one document nests `depth` maps deep, as
+    text (no Python recursion builds or encodes it)."""
+    doc = ('{"Resources": {"r": {"Type": "B", "Properties": ' + '{"n": ' * depth + '{"n": 1}'
+           + '}' * depth + '}}}')
+    return json.dumps({"rules": [RULES], "data": ["@DOC@"], "backend": backend}).replace(
+        '"@DOC@"', json.dumps(doc))
+
+
+def _listener(argv, env_extra, err_path):
+    env = dict(os.environ, **env_extra)
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, *argv], cwd=str(ROOT), env=env,
+                                stdout=subprocess.DEVNULL, stderr=err)
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline and proc.poll() is None:
+        m = re.search(r"listening on 127\.0\.0\.1:(\d+)", err_path.read_text())
+        if m:
+            return proc, int(m.group(1))
+        time.sleep(0.2)
+    proc.kill()
+    raise AssertionError(f"{argv}: no listener\n{err_path.read_text()[-2000:]}")
+
+
+def _post(port, body, timeout=300):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/validate", body=body.encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def test_listener_answers_a_10000_deep_request_as_jax_does(tmp_path):
+    """Both packages' listeners answer a 10,000-deep /validate request,
+    on the host backend and on the device path (`--device cpu` for the
+    port), with the same status and envelope, each within its own time
+    limit."""
+    jax = _listener(["-m", "guard_tpu.cli", "serve", "--listen", "127.0.0.1:0"],
+                    {"JAX_PLATFORMS": "cpu", "GUARD_TPU_RESULT_CACHE": "0",
+                     "GUARD_TPU_INGEST_WORKERS": "0", "GUARD_TPU_COALESCE": "0"},
+                    tmp_path / "jax.err")
+    port = _listener(["-m", "guard_tpu_torch", "serve", "--listen", "127.0.0.1:0",
+                      "--device", "cpu"],
+                     {"GUARD_TPU_RESULT_CACHE_DIR": str(tmp_path / "cache")},
+                     tmp_path / "port.err")
+    try:
+        for backend in ("cpu", "tpu"):
+            body = _deep_body(LISTENER_DEPTH, backend)
+            want = _post(jax[1], body)
+            got = _post(port[1], body)
+            assert got == want
+            assert want[0] == 200 and want[1]["code"] == 19
+            assert jax[0].poll() is None and port[0].poll() is None
+    finally:
+        for proc, _ in (jax, port):
+            proc.terminate()
+            proc.wait(60)

@@ -323,6 +323,7 @@ def test_mesh_shard_gauges_and_rim_only_d2h(corpus):
     from check_metrics_schema import check_snapshot
 
     from guard_tpu_torch.parallel.device import EFFICIENCY_COUNTERS
+    from guard_tpu_torch.tools.check_metrics_schema import check_snapshot as port_check_snapshot
 
     telemetry.REGISTRY.reset()
     corpus.port(sweep_flags("--mesh-shape", "off"))
@@ -338,6 +339,7 @@ def test_mesh_shard_gauges_and_rim_only_d2h(corpus):
         assert gauges[f"efficiency.shard_{s}.doc_fill"] == 1.0  # the port pads nothing
         assert gauges[f"efficiency.shard_{s}.d2h"] > 0
     assert check_snapshot(snap) == []
+    assert port_check_snapshot(snap) == []
     # the sweep profile ships any-unsure and last-rule-wins only
     mesh_d2h = EFFICIENCY_COUNTERS["device_to_host_bytes"]
     assert 0 < mesh_d2h * 2 <= off_d2h

@@ -3,7 +3,8 @@ counter groups and the spans at the JAX package's sites, `--trace-out`
 and `--metrics-out`) against the JAX package's, on the CPU.
 
 For each flag set both CLIs run in this process with both registries
-reset first: the port's snapshot passes tools/check_metrics_schema.py,
+reset first: the port's snapshot passes tools/check_metrics_schema.py
+and the port's own checker (guard_tpu_torch/tools/check_metrics_schema.py),
 every counter both packages keep (same group, same key) has the same
 value, and the multiset of (span name, lane) pairs is the same for the
 span names both packages emit. Times are not compared. The trace is
@@ -31,6 +32,7 @@ from guard_tpu_torch.utils import faults as port_faults
 from guard_tpu_torch.utils import telemetry
 from guard_tpu_torch.utils.io import Writer
 from test_torch_reports import set_native, write_fixture
+from guard_tpu_torch.tools.check_metrics_schema import check_snapshot as port_check_snapshot
 from tools.check_metrics_schema import check_snapshot
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -122,6 +124,7 @@ def test_counters_and_spans_match_jax(monkeypatch, tmp_path, flags):
     assert (p_rc, p_out, p_err) == (j_rc, j_out, j_err)
     # the snapshot's schema, with every group of the port
     assert check_snapshot(p_snap, require_groups=PORT_GROUPS) == []
+    assert port_check_snapshot(p_snap, require_groups=PORT_GROUPS) == []
     assert p_snap["schema_version"] == j_snap["schema_version"]
     # the counters both packages keep
     shared = 0
@@ -197,6 +200,7 @@ def test_metrics_written_when_the_run_fails(tmp_path):
                        "--metrics-out", str(metrics)], writer=w)
     assert rc == 5
     assert check_snapshot(json.loads(metrics.read_text())) == []
+    assert port_check_snapshot(json.loads(metrics.read_text())) == []
     assert json.loads(trace.read_text())["traceEvents"]
     assert not telemetry.enabled()
 
@@ -229,6 +233,7 @@ def test_flight_recorder_dumps_on_exit_5(monkeypatch, tmp_path):
     assert doc["otherData"]["reason"] == "exit_code_5"
     assert doc["otherData"]["tool"] == "guard-tpu-torch"
     assert check_snapshot(doc["metrics"]) == []
+    assert port_check_snapshot(doc["metrics"]) == []
 
 
 def test_disabled_span_is_one_shared_object(monkeypatch):
