@@ -74,7 +74,11 @@ result cache is on by default (`--no-result-cache` turns it off), in
 GUARD_TPU_RESULT_CACHE_DIR, else ~/.cache/guard_tpu_torch/results.
 
 `--trace-out FILE` writes a Chrome trace_event profile of the run (one
-lane per host stage: open it in Perfetto or chrome://tracing) and
+lane per host stage: open it in Perfetto or chrome://tracing; the
+port's own spans split each dispatch and collect into `columnarize`,
+`h2d_copy`, `walk_enqueue` and `device_wait`, and cover a sweep with
+`sweep`, `sweep_scan`, `ingest_wait`, `chunk_fold` and
+`journal_close`, utils/telemetry.py) and
 `--metrics-out FILE` a schema-versioned snapshot of every counter
 group, gauge and stage histogram (tools/check_metrics_schema.py); both
 are written in a `finally`, so a run that fails leaves them too. The
@@ -133,7 +137,12 @@ def _add_telemetry_flags(sp: argparse.ArgumentParser) -> None:
         metavar="FILE",
         help="write a Chrome trace_event JSON profile of this run "
         "(open in Perfetto or chrome://tracing): one lane per pipeline "
-        "stage plus per-ingest-worker lanes",
+        "stage plus per-ingest-worker lanes; besides the JAX package's "
+        "spans, columnarize, h2d_copy and walk_enqueue (dispatch lane) "
+        "and device_wait (collect lane) under each dispatch and "
+        "collect, and for sweep the root sweep with sweep_scan, "
+        "chunk_fold and journal_close (main lane) and ingest_wait "
+        "(ingest lane)",
     )
     sp.add_argument(
         "--metrics-out",

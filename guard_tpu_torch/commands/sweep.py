@@ -76,6 +76,12 @@ The planes, in the JAX package's names and order:
   at EOF with the sweep's exit semantics. `admission.follow_docs` and
   `admission.follow_batches` count them.
 
+Besides the JAX package's spans, the whole command runs in a `sweep`
+span, with `sweep_scan` (the listing, the manifest's read and the
+chunks' signatures), `ingest_wait` (the wait on a worker's chunk),
+`chunk_fold` (a chunk's tallies, record and checkpoint) and
+`journal_close` under it (utils/telemetry.py).
+
 The port has no environment twins of the flags (GUARD_TPU_PACK,
 GUARD_TPU_VECTOR_RIM, GUARD_TPU_PLAN_CACHE, GUARD_TPU_ANALYSIS,
 GUARD_TPU_RESULT_CACHE, GUARD_TPU_MESH, GUARD_TPU_SWEEP_JOURNAL,
@@ -298,30 +304,32 @@ class Sweep:
         from ..utils import journal as jn
         from ..utils.telemetry import RESUME_COUNTERS
 
-        self._dev = None
-        if self.backend == "tpu":
-            from ..parallel.device import resolve_device
+        with _span("sweep"):
+            self._dev = None
+            if self.backend == "tpu":
+                from ..parallel.device import resolve_device
 
-            self._dev = resolve_device(self.device)
-        self._drain = self.drain_latch if self.drain_latch is not None \
-            else jn.DrainLatch()
-        self._journal = None
-        self._replay: Dict[int, dict] = {}
-        self._err_bufs: Dict[int, list] = {}
-        restore = jn.install_signal_drain(self._drain)
-        try:
-            rc = self._execute(writer, reader)
-        finally:
-            restore()
-            if self._journal is not None:
-                self._journal.sync()
-                self._journal.close()
-        if self._drain.tripped():
-            # drained, not failed: every completed chunk is journaled
-            # and `--resume` finishes the rest
-            RESUME_COUNTERS["drained_sessions"] += 1
-            return jn.DRAIN_EXIT_CODE
-        return rc
+                self._dev = resolve_device(self.device)
+            self._drain = self.drain_latch if self.drain_latch is not None \
+                else jn.DrainLatch()
+            self._journal = None
+            self._replay: Dict[int, dict] = {}
+            self._err_bufs: Dict[int, list] = {}
+            restore = jn.install_signal_drain(self._drain)
+            try:
+                rc = self._execute(writer, reader)
+            finally:
+                restore()
+                if self._journal is not None:
+                    with _span("journal_close"):
+                        self._journal.sync()
+                        self._journal.close()
+            if self._drain.tripped():
+                # drained, not failed: every completed chunk is
+                # journaled and `--resume` finishes the rest
+                RESUME_COUNTERS["drained_sessions"] += 1
+                return jn.DRAIN_EXIT_CODE
+            return rc
 
     def _execute(self, writer: Writer, reader: Reader) -> int:
         if not self.rules:
@@ -338,15 +346,15 @@ class Sweep:
             writer.writeln_err("no parseable rule files")
             return ERROR_STATUS_CODE
 
-        paths = list(gather(self.data, DATA_FILE_EXTENSIONS, self.last_modified))
-        chunks = [
-            paths[i : i + self.chunk_size]
-            for i in range(0, len(paths), self.chunk_size)
-        ]
-
-        manifest_path = Path(self.manifest)
-        done = _read_manifest(manifest_path)
-        manifest_path.parent.mkdir(parents=True, exist_ok=True)
+        with _span("sweep_scan", {"stage": "gather"}):
+            paths = list(gather(self.data, DATA_FILE_EXTENSIONS, self.last_modified))
+            chunks = [
+                paths[i : i + self.chunk_size]
+                for i in range(0, len(paths), self.chunk_size)
+            ]
+            manifest_path = Path(self.manifest)
+            done = _read_manifest(manifest_path)
+            manifest_path.parent.mkdir(parents=True, exist_ok=True)
 
         evaluated = skipped = 0
         # the cache's [hits, delta docs] over every chunk this run
@@ -355,40 +363,42 @@ class Sweep:
         self._journal_setup(rule_files, paths, chunks)
         todo = []
         replay_rows: List[dict] = []
-        for ci, chunk in enumerate(chunks):
-            jrec = self._replay.get(ci)
-            if jrec is not None:
-                # the journaled record IS the chunk's outcome: no read,
-                # no encode, no launch. Replay outranks the signature
-                # skip below (the run key already pinned content) and
-                # counts as `evaluated`, so summary and exit bytes match
-                # the uninterrupted run.
-                rec = jrec["rec"]
-                if done.get(ci) != rec:
-                    # a crash between journal append and manifest write
-                    # (the append is first) left this row missing:
-                    # repair in chunk order below, so the manifest ends
-                    # byte-identical to an uninterrupted run's
-                    replay_rows.append(rec)
-                done[ci] = rec
-                evaluated += 1
-                stderr_text = jrec.get("stderr") or ""
-                if stderr_text:
-                    writer.write_err(stderr_text)
-                for k, v in (jrec.get("faults") or {}).items():
-                    if k in FAULT_COUNTERS:
-                        FAULT_COUNTERS[k] += int(v)
-                continue
-            sig = _chunk_signature(chunk)
-            prev = done.get(ci)
-            if prev is not None and prev.get("sig") == sig:
-                skipped += 1
-                continue
-            todo.append((ci, sig, chunk))
-        if replay_rows:
-            with manifest_path.open("a") as mf:
-                for rec in replay_rows:
-                    mf.write(json.dumps(rec) + "\n")
+        # the signatures stat every document again: the second scan
+        with _span("sweep_scan", {"stage": "signatures"}):
+            for ci, chunk in enumerate(chunks):
+                jrec = self._replay.get(ci)
+                if jrec is not None:
+                    # the journaled record IS the chunk's outcome: no read,
+                    # no encode, no launch. Replay outranks the signature
+                    # skip below (the run key already pinned content) and
+                    # counts as `evaluated`, so summary and exit bytes match
+                    # the uninterrupted run.
+                    rec = jrec["rec"]
+                    if done.get(ci) != rec:
+                        # a crash between journal append and manifest write
+                        # (the append is first) left this row missing:
+                        # repair in chunk order below, so the manifest ends
+                        # byte-identical to an uninterrupted run's
+                        replay_rows.append(rec)
+                    done[ci] = rec
+                    evaluated += 1
+                    stderr_text = jrec.get("stderr") or ""
+                    if stderr_text:
+                        writer.write_err(stderr_text)
+                    for k, v in (jrec.get("faults") or {}).items():
+                        if k in FAULT_COUNTERS:
+                            FAULT_COUNTERS[k] += int(v)
+                    continue
+                sig = _chunk_signature(chunk)
+                prev = done.get(ci)
+                if prev is not None and prev.get("sig") == sig:
+                    skipped += 1
+                    continue
+                todo.append((ci, sig, chunk))
+            if replay_rows:
+                with manifest_path.open("a") as mf:
+                    for rec in replay_rows:
+                        mf.write(json.dumps(rec) + "\n")
 
         # the three-stage pipeline on the card: ingest workers read and
         # encode chunks into a bounded prefetch queue, the main thread
@@ -430,13 +440,13 @@ class Sweep:
                     if self._drain is not None and self._drain.tripped():
                         break  # graceful drain: stop between chunks
                     _prepare(j)
-                    rec = self._evaluate_chunk(
+                    parts = self._evaluate_chunk(
                         ci, sig, chunk, rule_files,
                         self._chunk_writer(writer, ci),
                         prepared=prepared.pop(ci, None),
                         prefetch=(lambda j=j: _prepare(j + 1)),
                     )
-                    self._checkpoint(ci, rec, writer, mf, done)
+                    self._fold_chunk(parts, writer, mf, done)
                     evaluated += 1
 
         with _span("report", {"chunks": len(chunks)}):
@@ -819,18 +829,18 @@ class Sweep:
                     encoded=encoded, vec_box={},
                 )
                 if inflight is not None:
-                    ci_prev, rec = self._finish_chunk(
+                    parts = self._finish_chunk(
                         inflight, self._chunk_writer(writer, inflight[0])
                     )
-                    self._checkpoint(ci_prev, rec, writer, mf, done)
+                    self._fold_chunk(parts, writer, mf, done)
                     evaluated += 1
                 inflight = (ci, sig, chunk, data_files, ctx, delta_files,
                             state, err_box)
             if inflight is not None:
-                ci_prev, rec = self._finish_chunk(
+                parts = self._finish_chunk(
                     inflight, self._chunk_writer(writer, inflight[0])
                 )
-                self._checkpoint(ci_prev, rec, writer, mf, done)
+                self._fold_chunk(parts, writer, mf, done)
                 evaluated += 1
         return evaluated
 
@@ -851,14 +861,15 @@ class Sweep:
         pool = pool_box[0]
         if pool is not None and queue and queue[0][0] == j:
             _jj, handle = queue.pop(0)
-            t0 = time.perf_counter()
-            try:
-                maybe_fail("worker_crash")
-                _ci, res = handle.get(timeout=_chunk_timeout())
-            except Exception as e:  # the worker died or hung: recover
-                res = None
-                self._recover_ingest(e, queue, pool_box, workers, nxt, restarts)
-            PIPELINE_COUNTERS["ingest_stall_seconds"] += time.perf_counter() - t0
+            with _span("ingest_wait", {"chunk": j}):
+                t0 = time.perf_counter()
+                try:
+                    maybe_fail("worker_crash")
+                    _ci, res = handle.get(timeout=_chunk_timeout())
+                except Exception as e:  # the worker died or hung: recover
+                    res = None
+                    self._recover_ingest(e, queue, pool_box, workers, nxt, restarts)
+                PIPELINE_COUNTERS["ingest_stall_seconds"] += time.perf_counter() - t0
             if res is not None:
                 from ..ops.encoder import Interner, batch_from_payload
 
@@ -929,18 +940,23 @@ class Sweep:
         FAULT_COUNTERS["worker_restarts"] += 1
         pool_box[0] = restart_shared_pool(workers)
 
-    def _finish_chunk(self, inflight, writer):
-        """Stage 3 for one chunk: collect the dispatched device work,
-        run the oracle reruns, fold the tallies and build the manifest
-        record, while the NEXT chunk's device work runs."""
+    def _finish_chunk(self, inflight, writer) -> tuple:
+        """Stage 3 for one chunk: collect the dispatched device work and
+        run the oracle reruns, while the NEXT chunk's device work runs.
+        Returns the arguments of the chunk's record (`_fold_chunk`)."""
         (ci, sig, chunk, data_files, ctx, delta_files, state,
          err_box) = inflight
         per_doc: List[Dict[str, Status]] = [dict() for _ in delta_files]
         errors = self._collect_tpu(state, per_doc, writer, err_box)
-        return ci, self._chunk_record(
-            ci, sig, chunk, data_files, ctx, delta_files, per_doc,
-            state.get("vec_box") or {}, errors, err_box,
-        )
+        return (ci, sig, chunk, data_files, ctx, delta_files, per_doc,
+                state.get("vec_box") or {}, errors, err_box)
+
+    def _fold_chunk(self, parts: tuple, writer, mf, done) -> None:
+        """A chunk's fold, in one `chunk_fold` span: the tallies and the
+        manifest record (`_chunk_record`), then its checkpoint."""
+        ci = parts[0]
+        with _span("chunk_fold", {"chunk": ci}):
+            self._checkpoint(ci, self._chunk_record(*parts), writer, mf, done)
 
     def _chunk_record(self, ci, sig, chunk, data_files, ctx, delta_files,
                       per_doc, vec_box, errors, err_box) -> dict:
@@ -981,7 +997,9 @@ class Sweep:
         return data_files
 
     def _evaluate_chunk(self, ci: int, sig: str, chunk: List[Path], rule_files,
-                        writer: Writer, prepared=None, prefetch=None) -> dict:
+                        writer: Writer, prepared=None, prefetch=None) -> tuple:
+        """Read, look up, dispatch and collect one chunk on the serial
+        path; returns the arguments of its record (`_fold_chunk`)."""
         errors = 0
         err_box = [0, []]
         if prepared is not None:
@@ -1008,8 +1026,8 @@ class Sweep:
             errors += self._eval_oracle(
                 delta_files, rule_files, None, per_doc, writer, err_box
             )
-        return self._chunk_record(ci, sig, chunk, data_files, ctx, delta_files,
-                                  per_doc, vec_box, errors, err_box)
+        return (ci, sig, chunk, data_files, ctx, delta_files, per_doc, vec_box,
+                errors, err_box)
 
     # -- the result cache (cache/results.py) -------------------------
     def _cache_lookup(self, data_files, rule_files):

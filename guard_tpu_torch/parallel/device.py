@@ -8,7 +8,9 @@ evaluator's CUDA stream without waiting; `collect` waits for that
 dispatch and returns host arrays. `with_summary` runs the walk and
 kernel K7's per-rule counts (mesh.py:540-546) and waits for both. On
 the CPU the same code runs the plain versions of the kernels
-synchronously.
+synchronously. A dispatch opens the spans `columnarize`, `h2d_copy` and
+`walk_enqueue` in turn, and a second `walk_enqueue` around K3's or K7's
+launch; a collect opens `device_wait` (utils/telemetry.py).
 
 `evaluate_groups` is the per-file rung of the device path's degradation
 ladder, as the JAX package's `evaluate_bucketed` (mesh.py:590-626): the
@@ -36,6 +38,7 @@ from ..ops.ir import SKIP, CompiledRules, RimSpec
 from ..ops.kernels import arrays_from_numpy, build_doc_evaluator
 from ..utils.faults import FAULT_COUNTERS, InjectedFault, bounded_call, maybe_fail
 from ..utils.telemetry import REGISTRY as _TELEMETRY
+from ..utils.telemetry import span as _span
 
 log = logging.getLogger("guard_tpu_torch.device")
 
@@ -148,14 +151,16 @@ class DeviceBatchEvaluator:
         """Columnarize one batch on the host, copy it to the device and
         enqueue the walk; call on this evaluator's stream. Returns the
         (statuses (D, R) int8, unsure (D, R) bool) device tensors."""
-        arrays = self.compiled.device_arrays(batch)
-        lits = self.compiled.lit_values()
+        with _span("columnarize", {"docs": batch.n_docs}):
+            arrays = self.compiled.device_arrays(batch)
+            lits = self.compiled.lit_values()
+        nbytes = int(sum(a.nbytes for a in arrays.values()) + lits.size * 4)
         EFFICIENCY_COUNTERS["docs_real"] += batch.n_docs
-        EFFICIENCY_COUNTERS["host_to_device_bytes"] += int(
-            sum(a.nbytes for a in arrays.values()) + lits.size * 4
-        )
-        t_arrays, t_lits = arrays_from_numpy(arrays, lits, self.device)
-        return self._fn(t_arrays, t_lits)
+        EFFICIENCY_COUNTERS["host_to_device_bytes"] += nbytes
+        with _span("h2d_copy", {"bytes": nbytes}):
+            t_arrays, t_lits = arrays_from_numpy(arrays, lits, self.device)
+        with _span("walk_enqueue"):
+            return self._fn(t_arrays, t_lits)
 
     def dispatch(self, batch: DocBatch):
         """Enqueue one bucket: returns (out, d, rim) without waiting,
@@ -166,10 +171,11 @@ class DeviceBatchEvaluator:
             statuses, unsure = self._walk(batch)
             rim = None
             if self.rim_spec is not None:
-                rim = K.rim_reduce(
-                    statuses, unsure if self._with_unsure else None,
-                    *self._rim_ids, self.rim_spec.n_groups, self.rim_spec.n_files,
-                )
+                with _span("walk_enqueue", {"kernel": "rim_reduce"}):
+                    rim = K.rim_reduce(
+                        statuses, unsure if self._with_unsure else None,
+                        *self._rim_ids, self.rim_spec.n_groups, self.rim_spec.n_files,
+                    )
             done = None
             if self._stream is not None:
                 done = torch.cuda.Event()
@@ -181,25 +187,26 @@ class DeviceBatchEvaluator:
         or None), plus the rim blocks as a third element with a rim_spec.
         Returns once the copies to the host are done."""
         (statuses, unsure, done), _d, rim = handle
-        if done is not None:
-            done.synchronize()
-        st = un = None
-        d2h = 0
-        if self.ship_statuses:
-            st = statuses.cpu().numpy()
-            un = unsure.cpu().numpy() if self._with_unsure else None
-            d2h = st.nbytes + (0 if un is None else un.nbytes)
-        if self.rim_spec is None:
-            EFFICIENCY_COUNTERS["device_to_host_bytes"] += d2h
-            return st, un
-        blocks = tuple(
-            None if self.rim_blocks is not None and i not in self.rim_blocks
-            else b.cpu().numpy()
-            for i, b in enumerate(rim)
-        )
-        EFFICIENCY_COUNTERS["device_to_host_bytes"] += d2h + sum(
-            b.nbytes for b in blocks if b is not None)
-        return st, un, blocks
+        with _span("device_wait"):
+            if done is not None:
+                done.synchronize()
+            st = un = None
+            d2h = 0
+            if self.ship_statuses:
+                st = statuses.cpu().numpy()
+                un = unsure.cpu().numpy() if self._with_unsure else None
+                d2h = st.nbytes + (0 if un is None else un.nbytes)
+            if self.rim_spec is None:
+                EFFICIENCY_COUNTERS["device_to_host_bytes"] += d2h
+                return st, un
+            blocks = tuple(
+                None if self.rim_blocks is not None and i not in self.rim_blocks
+                else b.cpu().numpy()
+                for i, b in enumerate(rim)
+            )
+            EFFICIENCY_COUNTERS["device_to_host_bytes"] += d2h + sum(
+                b.nbytes for b in blocks if b is not None)
+            return st, un, blocks
 
     def rim_of(self, statuses: np.ndarray, unsure: Optional[np.ndarray]) -> tuple:
         """The six rim blocks (K3, on this evaluator's device) of host
@@ -229,14 +236,16 @@ class DeviceBatchEvaluator:
         counts over the batch's documents, without waiting."""
         with self._on_stream():
             statuses, _unsure = self._walk(batch)
-            counts = K.rule_summary(statuses, batch.n_docs)
+            with _span("walk_enqueue", {"kernel": "rule_summary"}):
+                counts = K.rule_summary(statuses, batch.n_docs)
         return statuses, counts
 
     def summary_collect(self, handle):
         statuses, counts = handle
-        if self._stream is not None:
-            self._stream.synchronize()
-        return statuses.cpu().numpy(), counts.cpu().numpy()
+        with _span("device_wait"):
+            if self._stream is not None:
+                self._stream.synchronize()
+            return statuses.cpu().numpy(), counts.cpu().numpy()
 
     def with_summary(self, batch: DocBatch):
         """(statuses (d, R) int8, counts (3, R) int32) of one batch at

@@ -29,6 +29,28 @@ histograms and count/total roll-ups in the registry. On the card a
 `collect` span closes after the device-to-host copy, so the trace
 separates host work from waiting on the card.
 
+The port adds spans the JAX package does not have (`STAGE_LANES`).
+Under every dispatch and collect of `parallel/device.py`:
+`columnarize` (the batch's columns and literals on the host),
+`h2d_copy` (their copy to the device) and `walk_enqueue` (the walk's
+torch ops and kernel launches, K3's or K7's included) on the
+`dispatch` lane, and `device_wait` (the wait on the walk and the
+copies back) on the `collect` lane. Over the sweep
+(`commands/sweep.py`): the root `sweep` around the whole command,
+`sweep_scan` (the directory's listing, the manifest's read, the
+chunks' signatures), `chunk_fold` (a chunk's tally, record, journal
+append and manifest line) and `journal_close` on `main`, and
+`ingest_wait` (the main thread waiting on an ingest worker's chunk,
+the interval `pipeline.ingest_stall_seconds` counts) on `ingest`.
+
+**One span clock** — a span's start and length both come from
+`time.perf_counter`. `enable()` / `reset_trace()` read the wall clock
+and that clock once, together (`_EPOCH`, `_EPOCH_PC`); a span's `ts`
+is its start less `_EPOCH_PC`, so `_EPOCH + ts` is the wall time it
+opened, and a step of the wall clock during a trace shifts no span
+against another. Worker spans keep the wall starts their process
+read.
+
 **Export faces** — `write_trace(path)` emits Chrome `trace_event` JSON
 (open in Perfetto or chrome://tracing: one lane per pipeline stage
 plus one per ingest worker); `write_metrics(path)` /
@@ -270,11 +292,6 @@ class MetricsRegistry:
             for name, (c, s) in self._spans.items()
         }
 
-    def stage_seconds(self) -> Dict[str, float]:
-        """Total seconds per span name — the registry-derived stage
-        decomposition (chip_smoke.py prints it for its traced run)."""
-        return {name: s for name, (_c, s) in self._spans.items()}
-
     # -- snapshot / reset ---------------------------------------------
     def snapshot(self) -> dict:
         with self._lock:
@@ -415,6 +432,9 @@ _SEQ = itertools.count(1)
 _TRACE: List[dict] = []  # finished span records
 _EVENTS: List[dict] = []  # instant events (fault/fallback annotations)
 _EPOCH = 0.0  # wall-clock anchor for trace timestamps (time.time)
+_EPOCH_PC = 0.0  # the span clock (time.perf_counter) read with _EPOCH
+#: wall time less the span clock: the flight recorder's wall times
+_PC_TO_WALL = time.time() - time.perf_counter()
 _TLS = threading.local()  # per-thread span stack (nesting/parents)
 _TRACE_LOCK = threading.Lock()
 
@@ -435,6 +455,18 @@ STAGE_LANES = {
     "report": "rim",
     "oracle": "oracle",
     "serve_request": "serve",
+    # the port's own: the device phase of every dispatch and collect
+    # (parallel/device.py) and the sweep's untraced work
+    # (commands/sweep.py)
+    "columnarize": "dispatch",
+    "h2d_copy": "dispatch",
+    "walk_enqueue": "dispatch",
+    "device_wait": "collect",
+    "sweep": "main",
+    "sweep_scan": "main",
+    "ingest_wait": "ingest",
+    "chunk_fold": "main",
+    "journal_close": "main",
 }
 
 #: lane display order in the trace viewer (pipeline order)
@@ -448,14 +480,25 @@ def enabled() -> bool:
     return _ON
 
 
+def _anchor() -> None:
+    """Read the wall clock and the span clock together: the one place
+    a span's monotonic time is mapped onto the wall clock."""
+    global _EPOCH, _EPOCH_PC, _PC_TO_WALL
+    _EPOCH = time.time()
+    _EPOCH_PC = time.perf_counter()
+    _PC_TO_WALL = _EPOCH - _EPOCH_PC
+
+
 def enable() -> None:
     """Turn span tracing on (idempotent). The wall-clock epoch anchors
-    trace timestamps; worker spans carry absolute wall times so both
+    trace timestamps: a span's `ts` is its monotonic start less the
+    span clock's reading at the epoch, so `_EPOCH + ts` is the wall
+    time it opened. Worker spans carry absolute wall times so both
     sides of a process boundary land on one timeline."""
-    global _ON, _EPOCH
+    global _ON
     if not _ON:
         if _EPOCH == 0.0:
-            _EPOCH = time.time()
+            _anchor()
         _ON = True
 
 
@@ -470,7 +513,10 @@ def reset_trace() -> None:
     with _TRACE_LOCK:
         _TRACE.clear()
         _EVENTS.clear()
-        _EPOCH = time.time() if _ON else 0.0
+        if _ON:
+            _anchor()
+        else:
+            _EPOCH = 0.0
     _TLS.stack = []
 
 
@@ -494,7 +540,7 @@ _NOOP = _NoopSpan()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "sid", "parent", "t0", "wall0")
+    __slots__ = ("name", "attrs", "sid", "parent", "t0")
 
     def __init__(self, name: str, attrs: Optional[dict]):
         self.name = name
@@ -507,7 +553,6 @@ class _Span:
             stack = _TLS.stack = []
         self.parent = stack[-1] if stack else 0
         stack.append(self.sid)
-        self.wall0 = time.time()
         self.t0 = time.perf_counter()
         return self
 
@@ -531,7 +576,7 @@ class _Span:
             "parent": self.parent,
             "name": self.name,
             "lane": STAGE_LANES.get(self.name, "main"),
-            "ts": self.wall0 - _EPOCH,
+            "ts": self.t0 - _EPOCH_PC,
             "dur": dur,
         }
         if self.attrs:
@@ -541,7 +586,7 @@ class _Span:
         if _FR_ON:
             _FLIGHTREC.record(
                 "X", self.name, STAGE_LANES.get(self.name, "main"),
-                self.wall0, dur, self.attrs,
+                self.t0 + _PC_TO_WALL, dur, self.attrs,
             )
         return False
 
@@ -738,14 +783,13 @@ class _FrSpan:
     exit writes one ring slot and one registry roll-up (so the dump's
     metrics section has the stage story), nothing else."""
 
-    __slots__ = ("name", "attrs", "t0", "wall0")
+    __slots__ = ("name", "attrs", "t0")
 
     def __init__(self, name: str, attrs: Optional[dict]):
         self.name = name
         self.attrs = attrs
 
     def __enter__(self):
-        self.wall0 = time.time()
         self.t0 = time.perf_counter()
         return self
 
@@ -762,7 +806,7 @@ class _FrSpan:
         REGISTRY.observe_span(self.name, dur)
         _FLIGHTREC.record(
             "X", self.name, STAGE_LANES.get(self.name, "main"),
-            self.wall0, dur, self.attrs,
+            self.t0 + _PC_TO_WALL, dur, self.attrs,
         )
         return False
 
@@ -804,10 +848,11 @@ def event(name: str, attrs: Optional[dict] = None) -> None:
     abnormal-exit dump."""
     if not _ON and not _FR_ON:
         return
+    now = time.perf_counter()
     if _FR_ON:
         if name.startswith("fault."):
             _FLIGHTREC.fault_seen = True
-        _FLIGHTREC.record("i", name, "events", time.time(), 0.0, attrs)
+        _FLIGHTREC.record("i", name, "events", now + _PC_TO_WALL, 0.0, attrs)
     if not _ON:
         return
     stack = getattr(_TLS, "stack", None)
@@ -816,7 +861,7 @@ def event(name: str, attrs: Optional[dict] = None) -> None:
         "parent": stack[-1] if stack else 0,
         "name": name,
         "lane": "events",
-        "ts": time.time() - _EPOCH,
+        "ts": now - _EPOCH_PC,
     }
     if attrs:
         rec["attrs"] = attrs
