@@ -9,7 +9,8 @@ no result line):
 1. Card and build: print the card's name and power limit
    (nvidia-smi), build the seven CUDA kernels from
    guard_tpu_torch/csrc/guard_kernels.cu (K1-K3, K7) and
-   guard_tpu_torch/csrc/guard_joins.cu (K4-K6), one nvcc per source,
+   guard_tpu_torch/csrc/guard_joins.cu (K4-K6) and the tape kernel
+   from guard_tpu_torch/csrc/guard_walk.cu, one nvcc per source,
    started together, and beside them the native oracle
    (native/oracle.cpp, ops/native_oracle.build_native) and the native
    encoder (guard_tpu_torch/csrc/host/encoder.cpp,
@@ -243,7 +244,13 @@ by the StepFnVar arm), its error against the plain version, its
 time (`ms`, host cost included, and `device_ms`, the card's alone), the
 plain version's, the bound (bytes over the card's memory rate) and a
 library call's time where one computes the same function (also both
-ways). The last line is
+ways). The tape kernel's two entries (`walk_segment`) hold the
+heaviest level of the security policy's tape at D 1,023 x N 64 and at
+the volume template alone in the 65,536-node bucket, replayed on the card up to that
+level: the card's launch against the plain version on the same buffers
+and workspace, and the bound from the bytes the level reads and writes;
+its launches must be those of 10 levels a security walk and 13 a
+cross-reference walk. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 These modes print one JSON line and skip the phases above:
@@ -328,10 +335,14 @@ N_PACKING_CLI_STRIDE = 48
 N_PACKING_FAULT = 16  # registry documents of the fault legs (inline oracle reruns)
 # launches of the statuses-only runs on the tree encoder (the native
 # buckets must give the same)
+# (the tape kernel: 10 levels a walk of the security policy's tape, 13
+# of the cross-reference policy's)
 EXPECTED_LAUNCHES = {
-    "security": {"gather_rows": 84, "segment_sum_rows": 98, "rim_reduce": 2},
+    "security": {"gather_rows": 84, "segment_sum_rows": 98, "rim_reduce": 2,
+                 "walk_segment": 20},
     "xref": {"gather_rows": 174, "segment_sum_rows": 183, "rim_reduce": 3,
-             "set_count_rows": 24, "distinct_first_rows": 3, "seg_min_max_rows": 9},
+             "set_count_rows": 24, "distinct_first_rows": 3, "seg_min_max_rows": 9,
+             "walk_segment": 39},
 }
 # the ingest paths: (label, --ingest-workers)
 INGEST_PATHS = (("i_inline", 0), ("ii_auto", None), ("iii_four", 4))
@@ -344,6 +355,7 @@ SOURCES = {
     "distinct_first_rows": "guard_tpu_torch/csrc/guard_joins.cu",
     "seg_min_max_rows": "guard_tpu_torch/csrc/guard_joins.cu",
     "rule_summary": "guard_tpu_torch/csrc/guard_kernels.cu",
+    "walk_segment": "guard_tpu_torch/csrc/guard_walk.cu",
 }
 REPLACES = {
     "gather_rows": "guard_tpu/ops/kernels.py:208",  # _parent_select (+ _select_at :349)
@@ -354,6 +366,9 @@ REPLACES = {
     "seg_min_max_rows": "guard_tpu/ops/kernels.py:993",  # _seg_min_max_keys
     # _shared_evaluator_fns.summarize (:338-349) via with_summary (:540)
     "rule_summary": "guard_tpu/parallel/mesh.py:338",
+    # run_step's arms (:359-613) and the eval_* combinators (:1619-1910),
+    # recorded from the torch walk and run a dataflow level a launch
+    "walk_segment": "guard_tpu/ops/kernels.py:359",
 }
 JOINS = ("set_count_rows", "distinct_first_rows", "seg_min_max_rows")
 # the kernels of the walk and the rim; K7 runs only behind with_summary
@@ -1051,7 +1066,7 @@ def phase_slice(device, tmp: Path):
     )
     check(split_launches > 0, "K2's split branch never ran")
     info["k2_split_branch_launches"] = split_launches
-    for name in ("gather_rows", "segment_sum_rows", "rim_reduce"):
+    for name in ("gather_rows", "segment_sum_rows", "rim_reduce", "walk_segment"):
         check(info["launches"][name] > 0, f"kernel {name} never launched on the main path")
     check(launch_counts(info["launches"], "security") == EXPECTED_LAUNCHES["security"],
           f"slice launches {info['launches']}")
@@ -1742,7 +1757,8 @@ def phase_breakdown(device, evaluation) -> list:
 
     from guard_tpu_torch import kernels as K
     from guard_tpu_torch.ops.ir import build_rim_spec
-    from guard_tpu_torch.ops.kernels import arrays_from_numpy, build_doc_evaluator
+    from guard_tpu_torch.ops.kernels import arrays_from_numpy
+    from guard_tpu_torch.parallel.device import build_walk
 
     fr = evaluation.files[0]
     compiled = fr.compiled
@@ -1751,7 +1767,7 @@ def phase_breakdown(device, evaluation) -> list:
         torch.from_numpy(np.asarray(a, np.int32)).to(device)
         for a in (spec.group_ids, spec.file_ids, spec.last_ids)
     ]
-    fn = build_doc_evaluator(compiled)
+    fn = build_walk(compiled)
     out = []
     for batch, _idx in (fr.groups if fr.groups is not None else evaluation.groups):
         canon_s = None
@@ -2255,7 +2271,8 @@ def packing_columns(device, evaluation, rule_files) -> dict:
 
     from guard_tpu_torch import kernels as K
     from guard_tpu_torch.ops import plan as plan_mod
-    from guard_tpu_torch.ops.kernels import arrays_from_numpy, build_doc_evaluator
+    from guard_tpu_torch.ops.kernels import arrays_from_numpy
+    from guard_tpu_torch.parallel.device import build_walk
 
     (_pos, packed, spec), = plan_mod.get_plan(rule_files, device=device).packs
     compiled = packed.compiled
@@ -2268,7 +2285,7 @@ def packing_columns(device, evaluation, rule_files) -> dict:
     t_arrays, t_lits = arrays_from_numpy(arrays, lits, device)
     sync(device)
     h2d_s = time.perf_counter() - t0
-    fn = build_doc_evaluator(compiled)
+    fn = build_walk(compiled)
     ids = [torch.from_numpy(a).to(device) for a in (spec.group_ids, spec.file_ids, spec.last_ids)]
 
     def walk():
@@ -4206,6 +4223,7 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
             "library_note": "no single PyTorch call computes masked per-column counts "
                             "of three values",
         })
+    out.extend(walk_segment_rows(device, rate))
     main_path = {"rule_summary": "summary", **{name: "xref" for name in JOINS}}
     for entry in out:
         name = entry["name"]
@@ -4224,6 +4242,118 @@ def contract_kernels(device, infos: dict, sweep: dict, card: str) -> list:
             entry["stepfnvar_launches"] = infos["fnvar"]["fnvar_steps"]["k1_launches"]
         if entry["max_abs_err"] != 0:
             raise AssertionError(f"{name} differs from plain at its main-path shape")
+    return out
+
+
+def walk_level_bytes(prog, step, d: int) -> int:
+    """The bytes one launch of the tape kernel must move at least: each
+    buffer, workspace row range or fixed column its instructions read or
+    write, once, at its widest access."""
+    import numpy as np
+
+    from guard_tpu_torch.kernels import plain as isa
+
+    words = prog[step.start * isa.TAPE_WORDS:(step.start + step.n_instr) * isa.TAPE_WORDS]
+    size = {isa.E_U8: 1, isa.E_I8: 1, isa.E_I32: 4}
+    regions = {}
+    for op, width, _reg, aux, mode, x, _y, z in np.asarray(words).reshape(-1, isa.TAPE_WORDS):
+        kind = int(op) & 0xFF
+        if kind == isa.I_ALU or int(mode) & 0xFF not in (isa.M_MEM, isa.M_WS):
+            continue
+        fixed = (int(mode) >> 16) & 0xFF == isa.C_FIXED
+        if kind == isa.I_GROUP:
+            cols = max(int(width), 1) * int(aux)
+        elif fixed or kind in (isa.I_RED_SUM, isa.I_RED_OR):
+            cols = 1
+        else:
+            cols = max(int(width), 1)
+        key = (int(mode) & 0xFF, int(x), int(z) if fixed else None)
+        regions[key] = max(regions.get(key, 0), cols * size[(int(mode) >> 8) & 0xFF])
+    return d * sum(regions.values())
+
+
+def walk_segment_rows(device, rate: float) -> list:
+    """The tape kernel at the security policy's two walks of the main
+    path, D 1,023 templates x N 64 and the volume template alone in the
+    65,536-node bucket (its width the template's nodes, rounded up to
+    8): the tape's heaviest level, its buffers and
+    workspace as the replay leaves them on the card before that level.
+    Error of the card's launch against the plain version on the same
+    buffers (every byte the two write), times and the bound from the
+    level's bytes."""
+    import numpy as np
+    import torch
+
+    from guard_tpu_torch import kernels as K
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.kernels import plain
+    from guard_tpu_torch.ops import tape as tape_mod
+    from guard_tpu_torch.ops.encoder import (
+        NODE_BUCKETS_EXTENDED, encode_batch, split_batch_by_size,
+    )
+    from guard_tpu_torch.ops.ir import compile_rules_file
+    from guard_tpu_torch.ops.kernels import arrays_from_numpy
+    from guard_tpu_torch.workloads import RULES, make_template, volume_template
+
+    rng = np.random.default_rng(SEED + 2)
+    docs = [make_template(rng, i) for i in range(1023)] + [volume_template(N_VOLUMES)]
+    batch, interner = encode_batch([from_plain(d) for d in docs])
+    compiled = compile_rules_file(parse_rules_file(RULES, "security.guard"), interner)
+    groups, oversize = split_batch_by_size(batch, NODE_BUCKETS_EXTENDED)
+    shapes = [(g.n_docs, g.n_nodes) for g, _ in groups]
+    check(len(oversize) == 0 and len(shapes) == 2 and shapes[0] == (1023, 64)
+          and shapes[1][0] == 1 and shapes[1][1] > 32768, f"walk_segment buckets {shapes}")
+    out = []
+    for sub, _idx in groups:
+        arrays, lits = arrays_from_numpy(compiled.device_arrays(sub), compiled.lit_values(),
+                                         device)
+        tape = tape_mod.tape_for(compiled, arrays, lits)
+        check(tape is not None, f"the security policy has no tape: {tape_mod.tapes_of(compiled)}")
+        levels = [i for i, st in enumerate(tape.steps) if isinstance(st, tape_mod.LaunchStep)]
+        at = max(levels, key=lambda i: tape.steps[i].n_instr)
+        run = tape_mod.Replay(tape, arrays, lits)
+        for st in tape.steps[:at]:
+            run.run(st)
+        step, d = tape.steps[at], sub.n_docs
+        bufs = [run.tensor(b) for b in step.bufs]
+        zero = d * tape.zero_row if step.zero else 0
+        prog = run.prog
+        words = prog[step.start * plain.TAPE_WORDS:(step.start + step.n_instr) * plain.TAPE_WORDS]
+        state = [run.ws] + bufs
+        before = [t.clone() for t in state]
+
+        def card():
+            K.walk_segment(prog, step.start, step.n_instr, bufs, run.ws, lits, d,
+                           step.width, step.n_regs, zero)
+
+        def by_plain():
+            run.ws[:zero].zero_()
+            plain.walk_segment(words, step.n_instr, bufs, run.ws, lits, d, step.width)
+
+        got = {}
+        for label, fn in (("card", card), ("plain", by_plain)):
+            for t, b in zip(state, before):
+                t.copy_(b)
+            fn()
+            got[label] = tuple(t.clone() for t in state)
+        out.append({
+            "name": "walk_segment",
+            "shape": {"D": d, "N": sub.n_nodes, "W": step.width, "level": levels.index(at),
+                      "levels": len(levels), "instructions": step.n_instr,
+                      "buffers": len(bufs), "registers": step.n_regs},
+            # the main path's buckets hold 65,536 templates, not 1,023
+            "shape_launches": None,
+            "max_abs_err": _max_abs_err(got["card"], got["plain"]),
+            "ms": cuda_ms(card),
+            "device_ms": graph_ms(card),
+            "plain_ms": cuda_ms(by_plain, reps=3),
+            "bound_ms": walk_level_bytes(tape.prog, step, d) / rate * 1e3,
+            "library_ms": None,
+            "library_note": "an interpreter of the walk's recorded ops: no library call "
+                            "runs a tape",
+        })
+        del run, bufs, state, before, got
     return out
 
 

@@ -30,8 +30,8 @@ from .core.parser import parse_rules_file
 from .core.values import from_plain
 from .ops.encoder import DocBatch, encode_batch
 from .ops.ir import FAIL, CompiledRules, compile_rules_file
-from .ops.kernels import arrays_from_numpy, build_doc_evaluator
-from .parallel.device import DeviceBatchEvaluator, resolve_device
+from .ops.kernels import arrays_from_numpy
+from .parallel.device import DeviceBatchEvaluator, build_walk, resolve_device
 from .parallel import mesh as _mesh
 from .parallel.mesh import ShardedBatchEvaluator, hierarchical_mesh
 from .workloads import FLAGSHIP_RULES, HOST_ORACLE_RULES, example_docs
@@ -61,7 +61,7 @@ def entry(device=None):
     arrays, lits = arrays_from_numpy(
         compiled.device_arrays(batch), compiled.lit_values(), dev
     )
-    return build_doc_evaluator(compiled), (arrays, lits)
+    return build_walk(compiled), (arrays, lits)
 
 
 def dryrun(device=None):

@@ -1,5 +1,7 @@
 """Wrappers of the hand-written CUDA kernels: K1-K3 and K7 in
-csrc/guard_kernels.cu, K4-K6 in csrc/guard_joins.cu.
+csrc/guard_kernels.cu, K4-K6 in csrc/guard_joins.cu, and the tape
+kernel `walk_segment` (csrc/guard_walk.cu) that runs one level of the
+walk's elementwise ops (ops/tape.py).
 
 Each wrapper takes batched row-major tensors. For a CUDA tensor it
 checks dtype, shape and contiguity, makes the tensors' card the
@@ -17,6 +19,7 @@ can time each kernel at the shapes the evaluation actually gave it.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from collections import Counter
 from typing import Optional
@@ -28,7 +31,7 @@ from . import plain
 NAMES = (
     "gather_rows", "segment_sum_rows", "rim_reduce",
     "set_count_rows", "distinct_first_rows", "seg_min_max_rows",
-    "rule_summary",
+    "rule_summary", "walk_segment",
 )
 LAUNCHES = {name: 0 for name in NAMES}
 SHAPES = {name: Counter() for name in NAMES}
@@ -353,3 +356,43 @@ def rule_summary(statuses: torch.Tensor, n_valid: int) -> torch.Tensor:
     LAUNCHES["rule_summary"] += 1
     SHAPES["rule_summary"][(d, r, n)] += 1
     return out
+
+
+@_on_its_card
+def walk_segment(prog: torch.Tensor, start: int, n_instr: int, bufs, ws: torch.Tensor,
+                 lits: torch.Tensor, d: int, w: int, n_regs: int, zero_bytes: int = 0) -> None:
+    """The tape kernel: instructions [start, start + n_instr) of the
+    int32 program `prog` (plain.TAPE_WORDS words each) over (d, w)
+    lanes, reading and writing the tensors `bufs` (by slot), the uint8
+    workspace `ws` and the (L,) int32 literal ids `lits`; `n_regs`
+    registers a lane. The first `zero_bytes` of `ws` are zeroed before
+    the launch. Writes in place; returns nothing."""
+    if not _on_cuda(prog, ws, lits, *bufs):
+        if zero_bytes:
+            ws[:zero_bytes].zero_()
+        words = plain.TAPE_WORDS
+        plain.walk_segment(prog[start * words:(start + n_instr) * words], n_instr,
+                           bufs, ws, lits, d, w)
+        return
+    _check(prog, torch.int32, 1, "walk_segment prog")
+    _check(lits, torch.int32, 1, "walk_segment lits")
+    _check(ws, torch.uint8, 1, "walk_segment ws")
+    for t in bufs:
+        if not t.is_contiguous():
+            raise ValueError("walk_segment: a buffer is not contiguous")
+    lib = _lib()
+    if len(bufs) > lib.walk_max_bufs:
+        raise ValueError(f"walk_segment: {len(bufs)} buffers, at most {lib.walk_max_bufs}")
+    if d == 0 or n_instr == 0:
+        return
+    ptrs = (ctypes.c_longlong * max(len(bufs), 1))(*(t.data_ptr() for t in bufs))
+    word = prog.data_ptr() + 4 * plain.TAPE_WORDS * start
+    _raise_on(
+        lib.guard_walk_segment(
+            word, n_instr, ctypes.cast(ptrs, ctypes.c_void_p), len(bufs), ws.data_ptr(), lits.data_ptr(), d, w,
+            n_regs, zero_bytes, _stream(ws),
+        ),
+        "walk_segment",
+    )
+    LAUNCHES["walk_segment"] += 1
+    SHAPES["walk_segment"][(d, w, n_instr)] += 1

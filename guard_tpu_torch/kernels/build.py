@@ -2,9 +2,9 @@
 
 `nvcc` compiles each source into a shared library with a plain C
 interface on first use, one process per source, all started together;
-`ctypes` loads them. The libraries land in `build/guard_tpu_torch/<key>/`
+`ctypes` loads them. Each library lands in `build/guard_tpu_torch/<key>/`
 at the repository root (or under `GUARD_TPU_TORCH_BUILD_DIR`), keyed on
-a hash of the sources, the nvcc version and the flags, so an edited
+a hash of its source, the nvcc version and the flags, so an edited
 source or another toolkit rebuilds and unchanged ones load straight
 away. Nothing here runs at import time: the CPU-only test environment
 has no nvcc.
@@ -26,6 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "guard_kernels": _PKG / "csrc" / "guard_kernels.cu",  # K1-K3, K7
     "guard_joins": _PKG / "csrc" / "guard_joins.cu",  # K4-K6
+    "guard_walk": _PKG / "csrc" / "guard_walk.cu",  # the tape kernel (ops/tape.py)
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -63,6 +64,8 @@ _SIGNATURES = {
     "guard_seg_min_max_scratch": ([_I, _I], _L),
     "guard_seg_min_max_rows": ([_P] * 9 + [_I] * 3 + [_P], _I),
     "guard_seg_min_max_rows_as": ([_I] + [_P] * 9 + [_I] * 3 + [_P], _I),
+    "guard_walk_max_bufs": ([], _I),
+    "guard_walk_segment": ([_P, _I, _P, _I, _P, _P, _I, _I, _I, _L, _P], _I),
 }
 
 
@@ -93,19 +96,22 @@ def build() -> Dict[str, Path]:
     version = subprocess.run(
         [nvcc, "--version"], check=True, capture_output=True, text=True
     ).stdout
-    h = hashlib.sha256()
-    for src in SOURCES.values():
+    # each library is keyed on its own source, so an edit to one source
+    # rebuilds that library alone
+    libs = {}
+    for name, src in SOURCES.items():
+        h = hashlib.sha256()
         h.update(src.read_bytes())
-    h.update(version.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = build_dir() / h.hexdigest()[:16]
-    out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+        h.update(version.encode())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        out_dir = build_dir() / h.hexdigest()[:16]
+        out_dir.mkdir(parents=True, exist_ok=True)
+        libs[name] = out_dir / f"lib{name}.so"
     procs = {}
     for name, src in SOURCES.items():
         if libs[name].exists():
             continue
-        tmp = out_dir / f"lib{name}.{os.getpid()}.so"
+        tmp = libs[name].with_name(f"lib{name}.{os.getpid()}.so")
         procs[name] = (tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -141,7 +147,8 @@ def load():
             missing = sorted(set(_SIGNATURES) - set(fns))
             if missing:
                 raise RuntimeError(f"kernel libraries lack {missing}")
-            # K3's largest 2G + 3F, read once
+            # K3's largest 2G + 3F and the tape kernel's buffers a
+            # launch, read once
             _LIB = SimpleNamespace(libraries=libs, rim_max_slots=fns["guard_rim_max_slots"](),
-                                   **fns)
+                                   walk_max_bufs=fns["guard_walk_max_bufs"](), **fns)
         return _LIB

@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the CUDA kernels (csrc/guard_kernels.cu K1-K3
-and K7, csrc/guard_joins.cu K4-K6).
+and K7, csrc/guard_joins.cu K4-K6, csrc/guard_walk.cu the tape kernel).
 
 Each computes exactly what its kernel computes, with library calls
 (`torch.gather`, `scatter_add_`, `amax`, `sort`, `searchsorted`,
-`scatter_reduce_`, `sum`). The wrappers in `guard_tpu_torch.kernels` run these
-for tensors that lie on the CPU; `chip_smoke.py` and the card-marked
-tests hold each kernel against its plain version on the card.
+`scatter_reduce_`, `sum`); the tape kernel's runs its program
+instruction by instruction. The wrappers in `guard_tpu_torch.kernels`
+run these for tensors that lie on the CPU; `chip_smoke.py` and the
+card-marked tests hold each kernel against its plain version (the tape
+kernel against the eager walk) on the card.
 """
 
 from __future__ import annotations
@@ -156,3 +158,156 @@ def rule_summary(statuses: torch.Tensor, n_valid: int) -> torch.Tensor:
     return torch.stack(
         [((statuses == k) & valid[:, None]).sum(0) for k in (0, 1, 2)]
     ).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the tape kernel's instruction set (csrc/guard_walk.cu, ops/tape.py)
+# ---------------------------------------------------------------------------
+
+#: the walk's elementwise ops as ops/tape.py records them
+(OP_COPY, OP_WHERE, OP_AND, OP_OR, OP_XOR, OP_LNOT, OP_BNOT, OP_EQ, OP_NE, OP_LT,
+ OP_LE, OP_GT, OP_GE, OP_ADD, OP_SUB, OP_MUL, OP_MAX, OP_MIN, OP_RED_SUM, OP_RED_OR,
+ OP_GROUP_SUM) = range(1, 22)
+
+#: int32 words an instruction of the kernel takes: the op with its dtype
+#: and immediate flags, the width (0: one value a document, computed by
+#: every lane of its row), a register (the result of ALU, LOAD and GROUP,
+#: the source of STORE and the reductions), aux, then four words: the
+#: operands a, b, c of an ALU instruction (registers, or immediates where
+#: flagged), or the memory (mode, x, y, z) of the others
+TAPE_WORDS = 8
+I_ALU, I_LOAD, I_GROUP, I_STORE, I_RED_SUM, I_RED_OR = range(1, 7)
+#: result dtypes (word 0, bits 8-9): every value is held as an int32 and
+#: cut to its dtype after each ALU instruction
+DT_BOOL, DT_I8, DT_I32 = 0, 1, 2
+IMM_A, IMM_B, IMM_C = 1 << 10, 1 << 11, 1 << 12
+#: ALU classes (aux bits 0-2) and their parameters: ADD a + b (a - b with
+#: NEG_B); BIT the OR of the masked a & b, a | b, a ^ b, ~a (aux bits
+#: 4-7); CMP bit 8 + k of aux, k = 2 (a < b) + (a == b); WHERE a ? b : c
+ALU_ADD, ALU_BIT, ALU_CMP, ALU_WHERE, ALU_MAX, ALU_MIN, ALU_MUL = range(7)
+ALU_NEG_B = 1 << 3
+BIT_AND, BIT_OR, BIT_XOR, BIT_NOT_A = (1 << 4, 1 << 5, 1 << 6, 1 << 7)
+CMP_GT, CMP_EQ, CMP_LT = (1 << 8, 1 << 9, 1 << 10)
+#: memory modes (the low byte of a mode word): a buffer of the launch
+#: (slot x), the workspace at byte D * x, a literal id (`lits[x]`), the
+#: column index plus x
+M_NONE, M_MEM, M_WS, M_LIT, M_IOTA = range(5)
+#: element types of memory (the mode word's second byte)
+E_U8, E_I8, E_I32 = 0, 1, 2
+#: column maps (the mode word's third byte): the lane's column plus z, or
+#: column z for every lane (a per-document read or store)
+C_LANE, C_FIXED = 0, 1
+
+_E_DTYPE = {E_U8: torch.uint8, E_I8: torch.int8, E_I32: torch.int32}
+_E_SIZE = {E_U8: 1, E_I8: 1, E_I32: 4}
+
+
+def _cut(x: torch.Tensor, dt: int) -> torch.Tensor:
+    if dt == DT_BOOL:
+        return (x != 0).to(torch.int32)
+    if dt == DT_I8:
+        return x.to(torch.int8).to(torch.int32)
+    return x
+
+
+def _wrap(x: torch.Tensor) -> torch.Tensor:
+    """int64 back to int32 by two's complement, as the kernel's unsigned
+    arithmetic gives."""
+    return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+
+def _memory(mode: int, x: int, y: int, bufs, ws, d: int) -> torch.Tensor:
+    """The (D, y) rows a memory operand addresses, viewed in the element
+    type the mode names."""
+    et = (mode >> 8) & 0xFF
+    if mode & 0xFF == M_WS:
+        raw = ws[d * x: d * x + d * y * _E_SIZE[et]]
+    else:
+        raw = bufs[x].reshape(-1).view(torch.uint8)
+    return raw.view(_E_DTYPE[et]).view(d, y)
+
+
+def alu(aux: int, a, b, c):
+    """One ALU instruction on int32 tensors, before the dtype's cut."""
+    cls = aux & 7
+    if cls == ALU_ADD:
+        return _wrap(a.long() - b.long() if aux & ALU_NEG_B else a.long() + b.long())
+    if cls == ALU_BIT:
+        out = torch.zeros_like(torch.broadcast_tensors(a, b)[0])
+        for bit, v in ((BIT_AND, lambda: a & b), (BIT_OR, lambda: a | b),
+                       (BIT_XOR, lambda: a ^ b), (BIT_NOT_A, lambda: ~a)):
+            if aux & bit:
+                out = out | v()
+        return out
+    if cls == ALU_CMP:
+        k = (a < b).to(torch.int32) * 2 + (a == b).to(torch.int32)
+        return (aux >> (8 + k)) & 1
+    if cls == ALU_WHERE:
+        return torch.where(a != 0, b, c)
+    if cls == ALU_MAX:
+        return torch.maximum(a, b)
+    if cls == ALU_MIN:
+        return torch.minimum(a, b)
+    return _wrap(a.long() * b.long())
+
+
+def walk_segment(prog, n_instr: int, bufs, ws, lits, d: int, w: int) -> None:
+    """One launch of the tape kernel over (d, w) lanes, instruction by
+    instruction. Each runs over its width's lanes (0: one value a
+    document): ALU reads registers and immediates, computes and cuts to
+    its dtype; LOAD reads memory, a literal id or the column index, and
+    GROUP sums aux columns of memory at a time, into a register; STORE
+    writes a register to memory (column z alone for C_FIXED), RED_SUM and
+    RED_OR add it, or flag it where non-zero, into a per-document
+    accumulator that is zero before the walk. `prog` is the launch's
+    int32 program, `bufs` its buffers, `ws` the walk's uint8 workspace,
+    `lits` the literal ids."""
+    words = prog.tolist()
+    regs = {}
+    lit_list = lits.tolist()
+    dev = ws.device
+
+    def reg(x: int, width: int):
+        r = regs[x]
+        return r if r.shape[1] == 1 else r[:, :max(width, 1)]
+
+    for pc in range(n_instr):
+        op, width, rg, aux, x, y, z, q = words[pc * TAPE_WORDS:(pc + 1) * TAPE_WORDS]
+        kind, dt = op & 0xFF, (op >> 8) & 3
+        cols = max(width, 1)
+        if kind == I_ALU:
+            a = torch.tensor(x, dtype=torch.int32, device=dev) if op & IMM_A else reg(x, width)
+            b = torch.tensor(y, dtype=torch.int32, device=dev) if op & IMM_B else reg(y, width)
+            c = torch.tensor(z, dtype=torch.int32, device=dev) if op & IMM_C else reg(z, width)
+            r = _cut(alu(aux, a, b, c), dt)
+            regs[rg] = torch.broadcast_to(r, (d, cols)).clone()
+            continue
+        mode, mx, my, mz = x, y, z, q
+        m = mode & 0xFF
+        if kind in (I_LOAD, I_GROUP):
+            if m == M_LIT:
+                r = torch.full((d, 1), lit_list[mx], dtype=torch.int32, device=dev)
+            elif m == M_IOTA:
+                r = torch.arange(mx, mx + cols, dtype=torch.int32, device=dev)
+                r = r[None, :].expand(d, cols)
+            else:
+                mem = _memory(mode, mx, my, bufs, ws, d)
+                if kind == I_GROUP:
+                    r = mem[:, :cols * aux].to(torch.int32).view(d, cols, aux).sum(2, dtype=torch.int32)
+                elif (mode >> 16) & 0xFF == C_FIXED:
+                    r = mem[:, mz:mz + 1].to(torch.int32)
+                else:
+                    r = mem[:, mz:mz + cols].to(torch.int32)
+            regs[rg] = torch.broadcast_to(r, (d, cols if r.shape[1] > 1 or width else 1)).clone()
+            continue
+        r = reg(rg, width)
+        mem = _memory(mode, mx, my, bufs, ws, d)
+        if kind == I_RED_SUM:
+            acc = mem[:, mz:mz + 1].to(torch.int64) + r.to(torch.int64).sum(1, keepdim=True)
+            mem[:, mz:mz + 1] = _wrap(acc).to(mem.dtype)
+        elif kind == I_RED_OR:
+            mem[:, mz:mz + 1] |= (r != 0).any(1, keepdim=True).to(mem.dtype)
+        elif (mode >> 16) & 0xFF == C_FIXED:
+            mem[:, mz:mz + 1] = r[:, :1].to(mem.dtype)
+        else:
+            mem[:, mz:mz + r.shape[1]] = r.to(mem.dtype)

@@ -29,16 +29,22 @@ mode, (D,) per document in scalar (rule-root) mode. The JAX package
 picks between a one-hot and a gather formulation of its traversal
 primitives (`_use_gather`); both compute the same functions, and this
 walk ports the gather semantics only, with its sorted-set joins.
+
+On a card this walk runs as its tape (ops/tape.py): recorded once a
+program, on the CPU, with the kernel calls below routed to the thread's
+recorder (`K`), and replayed as one tape-kernel launch per dataflow
+level between the same kernel calls.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import kernels as K
+from .. import kernels as _kernels
 from ..core.exprs import CmpOperator
 from ..core.values import BOOL, FLOAT, INT, LIST, MAP, NULL, STRING
 from ..core.values import LOWER_INCLUSIVE, UPPER_INCLUSIVE
@@ -69,6 +75,25 @@ from .ir import (
 
 _I8 = torch.int8
 _I32 = torch.int32
+
+# the recorder of a tape in this thread (ops/tape.py), else None
+_RECORDING = threading.local()
+
+
+class _Kernels:
+    """`guard_tpu_torch.kernels` as the walk calls it: each attribute is
+    looked up on the module at the call, so a wrapper replaced there is
+    the one that runs, except while this thread records a tape, whose
+    recorder then stands in for the kernels."""
+
+    def __getattr__(self, name):
+        rec = getattr(_RECORDING, "recorder", None)
+        if rec is not None and name != "LAUNCHES":
+            return rec.kernel(name)
+        return getattr(_kernels, name)
+
+
+K = _Kernels()
 
 
 # per-origin StepFnVar arms run and the K1 launches they made (a CUDA
@@ -298,8 +323,13 @@ def run_step(d: _DocArrays, step: Step, sel, acc: _UnresAcc, rule_statuses=None,
             # sel[fn_origin] both gates the result (0 when its origin is
             # not selected) and relabels it with the origin's label. K1
             # reads 0 at index -1, so gate and relabel are one gather
-            before = K.LAUNCHES["gather_rows"]
             idx = torch.where(hit & (d.fn_origin >= 0), d.fn_origin, -1)
+            rec = getattr(_RECORDING, "recorder", None)
+            if rec is not None:
+                # the replay counts the arm around the K1 call it records
+                rec.fnvar_next = True
+                return _select_at(d, sel, idx)
+            before = K.LAUNCHES["gather_rows"]
             out = _select_at(d, sel, idx)
             FNVAR_STEPS["per_origin"] += 1
             FNVAR_STEPS["k1_launches"] += K.LAUNCHES["gather_rows"] - before

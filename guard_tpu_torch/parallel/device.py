@@ -35,7 +35,8 @@ import torch
 from .. import kernels as K
 from ..ops.encoder import NODE_BUCKETS_EXTENDED, DocBatch, split_batch_by_size
 from ..ops.ir import SKIP, CompiledRules, RimSpec
-from ..ops.kernels import arrays_from_numpy, build_doc_evaluator
+from ..ops.kernels import arrays_from_numpy
+from ..ops.tape import build_fused_evaluator
 from ..utils.faults import FAULT_COUNTERS, InjectedFault, bounded_call, maybe_fail
 from ..utils.telemetry import REGISTRY as _TELEMETRY
 from ..utils.telemetry import span as _span
@@ -45,8 +46,11 @@ log = logging.getLogger("guard_tpu_torch.device")
 #: walks enqueued on a device (one per (program, bucket) dispatch on
 #: each card of a mesh that gets documents of the bucket), the
 #: telemetry group "dispatch" as in the JAX package; a pack of k files
-#: issues one where the files alone issue k
-DISPATCH_COUNTERS = _TELEMETRY.counter_group("dispatch", {"dispatches": 0})
+#: issues one where the files alone issue k. `walks_fused` and
+#: `walks_eager` count the walks that ran as the program's tape
+#: (ops/tape.py) and those that ran op by op
+DISPATCH_COUNTERS = _TELEMETRY.counter_group(
+    "dispatch", {"dispatches": 0, "walks_fused": 0, "walks_eager": 0})
 
 #: the telemetry group "efficiency", under the JAX package's names:
 #: documents dispatched (one card pads none), the bytes of the columns
@@ -95,6 +99,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def build_walk(compiled: CompiledRules):
+    """The walk of `compiled`: its tape on the card where the tape
+    covers the program, else the eager walk (ops/tape.py); each call
+    counts in DISPATCH_COUNTERS' `walks_fused` or `walks_eager`."""
+    return build_fused_evaluator(compiled, DISPATCH_COUNTERS)
+
+
 @contextmanager
 def _stream_on(device: torch.device, stream):
     with torch.cuda.device(device), torch.cuda.stream(stream):
@@ -124,7 +135,7 @@ class DeviceBatchEvaluator:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
         self._with_unsure = compiled.needs_unsure
-        self._fn = fn if fn is not None else build_doc_evaluator(compiled)
+        self._fn = fn if fn is not None else build_walk(compiled)
         self.rim_spec = rim_spec
         self.rim_blocks = None if rim_blocks is None else tuple(rim_blocks)
         # without a rim there is nothing else to return: statuses ship

@@ -43,9 +43,9 @@ import torch
 
 from ..ops.encoder import DocBatch
 from ..ops.ir import CompiledRules
-from ..ops.kernels import build_doc_evaluator
 from .device import (
     DeviceBatchEvaluator,
+    build_walk,
     evaluate_bucketed as _evaluate_bucketed,
     resolve_device,
 )
@@ -136,7 +136,7 @@ class ShardedBatchEvaluator:
         self.devices = list(devices) if devices is not None else visible_devices(device)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
-        fn = build_doc_evaluator(compiled)
+        fn = build_walk(compiled)
         self.shards = [
             DeviceBatchEvaluator(compiled, dev, rim_spec=rim_spec, rim_blocks=rim_blocks,
                                  ship_statuses=ship_statuses, fn=fn)

@@ -684,7 +684,7 @@ def check_case(rf, rules_text: str, docs_plain: list, device, label: str,
     from ..ops.encoder import encode_batch
     from ..ops.fnvars import precompute_fn_values
     from ..ops.ir import compile_rules_file
-    from ..ops.kernels import build_doc_evaluator
+    from ..parallel.device import build_walk
 
     docs = [from_plain(d) for d in docs_plain]
     fn_vars, fn_vals, fn_err = precompute_fn_values(rf, docs)
@@ -697,7 +697,7 @@ def check_case(rf, rules_text: str, docs_plain: list, device, label: str,
     def diverge(message, doc=None):
         divergences.append(Divergence(message, rules_text, docs_plain, doc))
 
-    fn = build_doc_evaluator(compiled)
+    fn = build_walk(compiled)
     evaluator = make_evaluator(compiled, device, fn)
     run = run_program(evaluator, batch)
     for problem in self_check(run):

@@ -32,7 +32,14 @@ and K3 launch; a warm run launches nothing). The kernel-vs-oracle
 fuzzer (guard_tpu_torch/tools/kernel_fuzz.py) on the card: 3 seeds x 30
 trials with its four legs (card equal to the CPU bit for bit, the
 oracles, the tiled rows), K3 in its block form and another, and a
-big-document trial through K2's split grid.
+big-document trial through K2's split grid. The walk's tape
+(ops/tape.py) on the card: the tape kernel (csrc/guard_walk.cu)
+replaying each program equal to the eager walk on the CPU over
+security-policy chunks, the function-variable and cross-reference
+policies, the flagship and every corpus file, and a security bucket
+walk launching K1 and K2 as often as the eager walk, in at most 12
+levels, and in three slices of rows where its workspace passes the
+limit.
 """
 
 import numpy as np
@@ -1585,3 +1592,129 @@ def test_cuda_kernel_fuzz_big_document_takes_k2_split_grid(cuda_device):
     assert kernel_fuzz.STATS["big"] == stats0["big"] + 1
     assert kernel_fuzz.STATS["card_vs_cpu"] == stats0["card_vs_cpu"] + 1
     assert "split" in _fuzz_forms(shapes0)["segment_sum_rows"]
+
+
+def _tape_cases():
+    """(name, rules, documents) the card's tape walk is held on: security
+    chunks of 1,023 small templates and one large one, the function-
+    variable workload, the cross-reference policy and the flagship."""
+    from guard_tpu_torch.workloads import (
+        FLAGSHIP_RULES, FNVAR_RULES, RULES, XREF_RULES, example_docs, make_fnvar_template,
+        make_xref_template,
+    )
+    from portbench.traffic import secpol
+
+    for size in (100, 300, 500):
+        rng = np.random.default_rng(size)
+        yield (f"secpol{size}", RULES, [secpol.make_template(rng, i) for i in range(1023)]
+               + [secpol.large_template(rng, 1023, size)])
+    rng = np.random.default_rng(SEED)
+    yield "fnvar", FNVAR_RULES, [make_fnvar_template(rng, i) for i in range(256)]
+    yield "xref", XREF_RULES, [make_xref_template(rng, i) for i in range(256)]
+    yield "flagship", FLAGSHIP_RULES, example_docs(64, two_buckets=True)
+
+
+def _walk_buckets(text, docs, device):
+    """(compiled, eager walk, [(CPU arrays, lits), (card arrays, lits)]
+    per node bucket)."""
+    from guard_tpu_torch.core.parser import parse_rules_file
+    from guard_tpu_torch.core.values import from_plain
+    from guard_tpu_torch.ops import kernels as walk
+    from guard_tpu_torch.ops.encoder import NODE_BUCKETS_EXTENDED, encode_batch, split_batch_by_size
+    from guard_tpu_torch.ops.fnvars import precompute_fn_values
+    from guard_tpu_torch.ops.ir import compile_rules_file
+
+    rf = parse_rules_file(text, "r.guard")
+    values = [from_plain(d) for d in docs]
+    order, fn_values, _errors = precompute_fn_values(rf, values)
+    batch, interner = encode_batch(values, fn_values=fn_values, fn_var_order=order)
+    compiled = compile_rules_file(rf, interner)
+    groups, _oversize = split_batch_by_size(batch, NODE_BUCKETS_EXTENDED)
+    parts = []
+    for sub, _idx in groups:
+        a, lits = compiled.device_arrays(sub), compiled.lit_values()
+        parts.append((walk.arrays_from_numpy(a, lits, "cpu"),
+                      walk.arrays_from_numpy(a, lits, device)))
+    return compiled, walk.build_doc_evaluator(compiled), parts
+
+
+@pytest.mark.cuda
+def test_cuda_tape_walk_matches_cpu_eager(cuda_device):
+    """The tape kernel (csrc/guard_walk.cu) replaying each program's tape
+    on the card equals the eager walk on the CPU, statuses and unsure
+    bits, bucket by bucket, over the cases above and every corpus rule
+    file over the inputs of its test suite."""
+    import pathlib
+
+    import yaml
+
+    from guard_tpu_torch.ops import tape
+
+    corpus = pathlib.Path(__file__).resolve().parent.parent / "corpus" / "rules"
+    cases = list(_tape_cases())
+    for f in sorted(corpus.glob("*.guard")):
+        spec = corpus / "tests" / f"{f.stem}_tests.yaml"
+        docs = [c["input"] for c in (yaml.safe_load(spec.read_text()) or [])
+                if isinstance(c, dict) and "input" in c] if spec.exists() else []
+        if docs:
+            cases.append((f.name, f.read_text(), docs))
+    walked = 0
+    for name, text, docs in cases:
+        compiled, eager, parts = _walk_buckets(text, docs, cuda_device)
+        for (cpu_arrays, cpu_lits), (arrays, lits) in parts:
+            got = tape.tape_for(compiled, arrays, lits)
+            assert got is not None, (name, tape.tapes_of(compiled))
+            st, un = tape.replay(got, arrays, lits)
+            want = eager(cpu_arrays, cpu_lits)
+            assert torch.equal(st.cpu(), want[0]), name
+            assert torch.equal(un.cpu(), want[1]), name
+            walked += 1
+    assert walked >= 250
+
+
+@pytest.mark.cuda
+def test_cuda_secpol_tape_launches_k1_k2_as_the_eager_walk(cuda_device):
+    """A security-policy bucket walk on the card launches K1 and K2 as
+    often through the tape as through the eager walk, and at most 12
+    tape-kernel levels."""
+    from guard_tpu_torch.ops import tape
+
+    name, text, docs = next(_tape_cases())
+    compiled, eager, parts = _walk_buckets(text, docs, cuda_device)
+    fn = tape.build_fused_evaluator(compiled)
+    for _cpu, (arrays, lits) in parts:
+        K.reset_launches()
+        eager(arrays, lits)
+        torch.cuda.synchronize()
+        eager_launches = dict(K.LAUNCHES)
+        K.reset_launches()
+        fn(arrays, lits)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["gather_rows"] == eager_launches["gather_rows"] == 42
+        assert K.LAUNCHES["segment_sum_rows"] == eager_launches["segment_sum_rows"] == 49
+        assert eager_launches["walk_segment"] == 0
+        assert 1 <= K.LAUNCHES["walk_segment"] <= 12
+
+
+@pytest.mark.cuda
+def test_cuda_tape_replays_in_slices_of_rows_past_the_workspace_limit(cuda_device, monkeypatch):
+    """A security-policy bucket whose workspace passes MAX_WORKSPACE
+    replays on the card in slices of rows (here three) and still equals
+    the eager walk on the CPU."""
+    from guard_tpu_torch.ops import tape
+
+    name, text, docs = next(_tape_cases())
+    compiled, eager, parts = _walk_buckets(text, docs, cuda_device)
+    fn = tape.build_fused_evaluator(compiled)
+    (cpu_arrays, cpu_lits), (arrays, lits) = max(
+        parts, key=lambda p: p[1][0]["node_kind"].shape[0])
+    got = tape.tape_for(compiled, arrays, lits)
+    d = arrays["node_kind"].shape[0]
+    monkeypatch.setattr(tape, "MAX_WORKSPACE", got.ws_row * -(-d // 3))
+    K.reset_launches()
+    st, un = fn(arrays, lits)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["walk_segment"] == 3 * got.launches
+    assert K.LAUNCHES["gather_rows"] == 3 * got.kernel_calls("gather_rows")
+    want = eager(cpu_arrays, cpu_lits)
+    assert torch.equal(st.cpu(), want[0]) and torch.equal(un.cpu(), want[1])
